@@ -1,0 +1,116 @@
+// K2: fused hybrid gadget key-switch accumulation.
+//
+// Replaces the Pallas TPU kernels toy_heaan_ckks_tpu/ops/keyswitch_pallas.py
+// _ks_kernel (special channels) and _ks_kernel_base (base channels with the
+// skip-own-tower shortcut), called through gadget_accumulate_pallas. One
+// block owns one (extended channel j, item) pair and loops over the digits
+// itself (the TPU carried nothing across grid steps either, but its grid ran
+// in order; here blocks run in any order and share nothing):
+//
+//   for each digit t:
+//     alpha = sum_{k in t} Harvey(y_k, c[k,j], cs[k,j])      (mod q_j)
+//     alpha = forward NTT of alpha (shared memory, all stages)
+//     ks0 += REDC(alpha, key_b[t,j]);  ks1 += REDC(alpha, key_a[t,j])
+//
+// For a base channel j (< L) with d given, its own digit t = j / digit_size
+// skips the raise and the NTT: the raised digit is d itself mod q_j, so the
+// key products use the NTT-resident input d directly. The accumulators live
+// in the output arrays: each thread only ever touches its own elements.
+// Bounds on an H100: one or more 14-stage shared-memory NTTs per block
+// (serial __syncthreads chain) plus reading L input planes and 2 key planes
+// per digit from device memory.
+#include "ntt.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(ckks::kThreads)
+keyswitch_kernel(const uint32_t* __restrict__ y, long long y_stride,
+                 const uint32_t* __restrict__ d, long long d_stride,
+                 const uint32_t* __restrict__ key_a,
+                 const uint32_t* __restrict__ key_b,
+                 const uint32_t* __restrict__ c, const uint32_t* __restrict__ cs,
+                 const uint32_t* __restrict__ q,
+                 const uint32_t* __restrict__ qinv,
+                 const uint32_t* __restrict__ tw,
+                 const uint32_t* __restrict__ twp, uint32_t* __restrict__ out0,
+                 uint32_t* __restrict__ out1, int base, int ext, int digits,
+                 int digit_size, int log_n) {
+  extern __shared__ uint32_t s[];
+  const int n = 1 << log_n;
+  const int j = blockIdx.x % ext;
+  const long long item = blockIdx.x / ext;
+  const uint32_t qj = q[j], qi = qinv[j];
+  const uint32_t* yi = y + item * y_stride;
+  const uint32_t* w = tw + static_cast<long long>(j) * n;
+  const uint32_t* wp = twp + static_cast<long long>(j) * n;
+  const long long o_off = (item * ext + j) * static_cast<long long>(n);
+  uint32_t* o0 = out0 + o_off;
+  uint32_t* o1 = out1 + o_off;
+  // key planes (digits, ext, N): digit t of channel j at (t * ext + j) * n
+  const long long key_t = static_cast<long long>(ext) * n;
+  const uint32_t* ka = key_a + static_cast<long long>(j) * n;
+  const uint32_t* kb = key_b + static_cast<long long>(j) * n;
+
+  int own = -1;
+  if (d != nullptr && j < base) {
+    own = j / digit_size;
+    const uint32_t* dj = d + item * d_stride + static_cast<long long>(j) * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const uint32_t x = dj[i];
+      o0[i] = ckks::mont_redc(x, kb[own * key_t + i], qj, qi);
+      o1[i] = ckks::mont_redc(x, ka[own * key_t + i], qj, qi);
+    }
+  }
+  bool first = own < 0;
+  for (int t = 0; t < digits; ++t) {
+    if (t == own) continue;
+    const int k0 = t * digit_size;
+    const int k1 = min(k0 + digit_size, base);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      uint32_t acc = 0;
+      for (int k = k0; k < k1; ++k) {
+        const int cj = k * ext + j;
+        acc = ckks::add_mod(
+            acc, ckks::harvey(yi[static_cast<long long>(k) * n + i], c[cj], cs[cj], qj),
+            qj);
+      }
+      s[i] = acc;
+    }
+    __syncthreads();
+    ckks::ntt_forward_smem(s, log_n, w, wp, qj);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const uint32_t x = s[i];
+      const uint32_t v0 = ckks::mont_redc(x, kb[t * key_t + i], qj, qi);
+      const uint32_t v1 = ckks::mont_redc(x, ka[t * key_t + i], qj, qi);
+      o0[i] = first ? v0 : ckks::add_mod(o0[i], v0, qj);
+      o1[i] = first ? v1 : ckks::add_mod(o1[i], v1, qj);
+    }
+    first = false;
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+// y: (outer, base, N) plain digit values, item stride y_stride; d: NTT-domain
+// input (outer, base, N) with stride d_stride, or nullptr (no skip-own);
+// key_a/key_b: (digits, ext, N); c/cs: (digits * digit_size, ext);
+// q/qinv: (ext,); tw/twp: (ext, N) forward twiddles; out0/out1: contiguous
+// (outer, ext, N). Returns cudaGetLastError() of the launch.
+extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
+                              const uint32_t* d, long long d_stride,
+                              const uint32_t* key_a, const uint32_t* key_b,
+                              const uint32_t* c, const uint32_t* cs,
+                              const uint32_t* q, const uint32_t* qinv,
+                              const uint32_t* tw, const uint32_t* twp,
+                              uint32_t* out0, uint32_t* out1, int outer,
+                              int base, int ext, int digits, int digit_size,
+                              int log_n, cudaStream_t stream) {
+  cudaError_t err = ckks::reserve_smem(reinterpret_cast<const void*>(keyswitch_kernel), log_n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(uint32_t) << log_n;
+  keyswitch_kernel<<<outer * ext, ckks::kThreads, smem, stream>>>(
+      y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp, out0,
+      out1, base, ext, digits, digit_size, log_n);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,175 @@
+"""K2: fused hybrid gadget key-switch accumulation, CUDA kernel and twin.
+
+Counterpart of ``toy_heaan_ckks_tpu/ops/keyswitch_pallas.py``
+(``_switch_consts``, ``_ks_kernel``, ``_ks_kernel_base``,
+``gadget_accumulate_pallas``). Per extended channel j and item, for each
+digit t: alpha = sum_{k in t} y_k * (Qhat_tk * R mod q_j), forward NTT,
+then ks0 += REDC(alpha, key_b[t, j]) and ks1 += REDC(alpha, key_a[t, j]).
+With ``d_ntt`` given, a base channel's own digit uses d directly (the
+raised own digit *is* d mod q_j): the skip-own-tower shortcut.
+
+The kernel is ``csrc/keyswitch.cu``; ``gadget_accumulate_twin`` is the
+plain int64 torch version. A CPU tensor goes to the twin, a CUDA tensor to
+the kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+from .modular import mont_mul, u32_table
+from .ntt import NttTables, forward_ntt
+from .ntt_gpu import MAX_LOG_N, kernel_tables
+
+
+@functools.lru_cache(maxsize=64)
+def _switch_consts(base_moduli: tuple, ext_moduli: tuple, digit_size: int):
+    """Host tables for the in-kernel basis extension.
+
+    c[k, j]  = (Qhat_{t(k),k} * 2^32) mod q_j  (maps the plain y_k straight
+               to the Montgomery form of its alpha term)
+    cs[k, j] = Shoup companion floor(c * 2^32 / q_j)
+    plus per-ext-channel q and -q^{-1} mod 2^32. Rows are t*digit_size + gi
+    (zero-padded for a short last group).
+    """
+    from ..keys import digit_groups
+
+    L = len(base_moduli)
+    E = len(ext_moduli)
+    digit_size = min(digit_size, L)
+    groups = digit_groups(L, digit_size)
+    c = np.zeros((len(groups) * digit_size, E), dtype=np.uint32)
+    cs = np.zeros_like(c)
+    for t, grp in enumerate(groups):
+        for gi, k in enumerate(grp):
+            qhat = 1
+            for k2 in grp:
+                if k2 != k:
+                    qhat *= base_moduli[k2]
+            for j, qj in enumerate(ext_moduli):
+                w = (qhat << 32) % qj
+                c[t * digit_size + gi, j] = w
+                cs[t * digit_size + gi, j] = (w << 32) // qj
+    q = np.array(ext_moduli, dtype=np.uint32)
+    qinv = np.array([(-pow(m, -1, 1 << 32)) % (1 << 32) for m in ext_moduli],
+                    dtype=np.uint32)
+    return c, cs, q, qinv, digit_size
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _DeviceConsts:
+    c: torch.Tensor  # int32 bit-view (D*ds, E), kernel
+    cs: torch.Tensor
+    qinv: torch.Tensor  # int32 bit-view (E,), kernel
+    c64: torch.Tensor  # int64 (D*ds, E), twin
+
+
+@functools.lru_cache(maxsize=64)
+def _device_consts(base_moduli: tuple, ext_moduli: tuple, digit_size: int,
+                   device: torch.device) -> _DeviceConsts:
+    c, cs, _, qinv, _ = _switch_consts(base_moduli, ext_moduli, digit_size)
+    return _DeviceConsts(
+        c=u32_table(c).to(device), cs=u32_table(cs).to(device),
+        qinv=u32_table(qinv).to(device),
+        c64=torch.from_numpy(c.astype(np.int64)).to(device),
+    )
+
+
+def gadget_accumulate_twin(y, key_a, key_b, base_moduli: tuple,
+                           ext_moduli: tuple, degree: int, digit_size: int,
+                           d_ntt=None):
+    """Plain int64 torch version of the kernel (any device)."""
+    L, E = len(base_moduli), len(ext_moduli)
+    D = key_a.shape[0]
+    _, _, _, _, ds = _switch_consts(base_moduli, ext_moduli, digit_size)
+    consts = _device_consts(base_moduli, ext_moduli, digit_size, y.device)
+    tabs = NttTables.build(ext_moduli, degree, y.device)
+    q = tabs.q  # (E, 1)
+    rinv = torch.tensor(
+        [pow(1 << 32, -1, m) for m in ext_moduli], dtype=torch.int64,
+        device=y.device,
+    )[:, None]
+    y64 = y.long()
+    if d_ntt is not None:
+        pad = torch.zeros(
+            d_ntt.shape[:-2] + (E - L, degree), dtype=torch.int32, device=y.device
+        )
+        d_ext = torch.cat([d_ntt, pad], dim=-2)
+    ks0 = ks1 = None
+    for t in range(D):
+        alpha = torch.zeros(y.shape[:-2] + (E, degree), dtype=torch.int64,
+                            device=y.device)
+        for k in range(t * ds, min((t + 1) * ds, L)):
+            alpha = (alpha + y64[..., k, None, :] * consts.c64[k, :, None]) % q
+        alpha = forward_ntt(alpha.int(), tabs)
+        if d_ntt is not None:
+            own = torch.tensor(
+                [j < L and j // ds == t for j in range(E)], device=y.device
+            )[:, None]
+            alpha = torch.where(own, d_ext, alpha)
+        v0 = mont_mul(alpha, key_b[t], q, rinv)
+        v1 = mont_mul(alpha, key_a[t], q, rinv)
+        ks0 = v0 if ks0 is None else ((ks0.long() + v0) % q).int()
+        ks1 = v1 if ks1 is None else ((ks1.long() + v1) % q).int()
+    return ks0, ks1
+
+
+def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
+                      degree: int, digit_size: int = 1, d_ntt=None):
+    """Fused decompose + raise + NTT + key inner product.
+
+    y_plain: int32 (..., L, N) plain digit values (the inverse NTT of d
+             times the digit-local CRT inverses).
+    key_a/key_b: int32 (D, E, N) Montgomery NTT-domain key stacks.
+    d_ntt: optional int32 (..., L, N) NTT-domain planes of the switched
+             polynomial (enables the skip-own-tower shortcut).
+    Returns (ks0, ks1): int32 (..., E, N) digit inner products over QP.
+    """
+    base_moduli = tuple(int(m) for m in base_moduli)
+    ext_moduli = tuple(int(m) for m in ext_moduli)
+    L, E = len(base_moduli), len(ext_moduli)
+    D = key_a.shape[0]
+    ds = min(digit_size, L)
+    if D != -(-L // ds) or tuple(key_a.shape) != (D, E, degree):
+        raise ValueError("key digit count does not match digit_size")
+    if y_plain.device.type == "cpu":
+        return gadget_accumulate_twin(y_plain, key_a, key_b, base_moduli,
+                                      ext_moduli, degree, digit_size, d_ntt)
+    log_n = degree.bit_length() - 1
+    if degree != 1 << log_n or not 2 <= log_n <= MAX_LOG_N:
+        raise ValueError(f"gadget_accumulate: N = {degree} unsupported")
+    lead = y_plain.shape[:-2]
+    y3 = _build.planes(y_plain, L, degree)
+    d3 = None if d_ntt is None else _build.planes(d_ntt, L, degree)
+    ka = key_a.contiguous()
+    kb = key_b.contiguous()
+    tensors = [y3, ka, kb] + ([] if d3 is None else [d3])
+    _build.require_cuda("gadget_accumulate", *tensors)
+    if d3 is not None and d3.shape[0] != y3.shape[0]:
+        raise ValueError("gadget_accumulate: d_ntt batch differs from y")
+    lib = _build.library()
+    dev = y_plain.device
+    consts = _device_consts(base_moduli, ext_moduli, digit_size, dev)
+    kt = kernel_tables(ext_moduli, degree, dev)
+    outer = y3.shape[0]
+    out0 = torch.empty((outer, E, degree), dtype=torch.int32, device=dev)
+    out1 = torch.empty_like(out0)
+    if outer:
+        p = _build.ptr
+        rc = lib.ckks_keyswitch(
+            p(y3), y3.stride(0), p(d3), 0 if d3 is None else d3.stride(0),
+            p(ka), p(kb), p(consts.c), p(consts.cs), p(kt.q), p(consts.qinv),
+            p(kt.fwd), p(kt.fwd_shoup), p(out0), p(out1),
+            outer, L, E, D, ds, log_n, _build.stream(dev),
+        )
+        _build.check(rc, "gadget_accumulate")
+        gadget_accumulate.launches += 1
+    return out0.reshape(*lead, E, degree), out1.reshape(*lead, E, degree)
+
+
+gadget_accumulate.launches = 0
