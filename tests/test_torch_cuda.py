@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its torch twin, and
-the slice on the GPU against the slice on the CPU (uint32 equality).
+the slice on the GPU against the slice on the CPU (uint32 equality on
+small chains, uint64 equality on wide ones).
 
 Marked ``cuda``; every test skips where no CUDA device is present. The
 file imports neither jax nor the reference, so it also runs where only
@@ -28,18 +29,18 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _planes(seed, moduli, degree, lead, device):
+def _planes(seed, moduli, degree, lead, device, dtype=torch.int32):
     rng = np.random.default_rng(seed)
     arr = np.stack(
         [rng.integers(0, q, size=lead + (degree,), dtype=np.int64) for q in moduli],
         axis=-2,
     )
-    return torch.from_numpy(arr.astype(np.int32)).to(device)
+    return torch.from_numpy(arr).to(device, dtype)
 
 
-def _chain(count, digit_size, degree):
-    base = tuple(port.generate_primes(31, count, degree))
-    ctx = port.CkksContext.build(base, degree)
+def _chain(count, digit_size, degree, bits=31):
+    base = tuple(port.generate_primes(bits, count, degree))
+    ctx = port.CkksContext.build(base, degree, device="cpu")
     return base, base + default_special_primes(ctx, digit_size)
 
 
@@ -87,6 +88,86 @@ def test_moddown_kernel_matches_twin(dev, with_t):
     want = moddown_gpu.mod_down_combine_twin(yhat, ks, t, child, dropped,
                                              degree, t_scale)
     assert torch.equal(got, want)
+
+
+# wide chains: 61-bit at 2^13 (the wide main path), 62-bit with 63-bit
+# specials at 2^14 (the 128 KiB uint64 plane), 40-bit at 2^10
+WIDE = [(61, 1 << 13), (62, 1 << 14), (40, 1 << 10)]
+
+
+@pytest.mark.parametrize("bits,degree", WIDE)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_wide_ntt_kernel_matches_twin(dev, bits, degree, inverse):
+    _, moduli = _chain(2, 1, degree, bits)  # a base prime and a special
+    x = _planes(degree + bits, moduli, degree, (2,), dev, torch.int64)
+    final = tuple((q - 1) // 3 for q in moduli) if inverse else None
+    got = ntt_gpu.ntt_planes_wide(x, moduli, degree, inverse, final)
+    assert torch.equal(got, ntt_gpu.ntt_twin(x, moduli, degree, inverse, final))
+
+
+@pytest.mark.parametrize("bits,degree", WIDE)
+@pytest.mark.parametrize("digit_size,count", [(1, 3), (2, 3)])
+def test_wide_keyswitch_kernel_matches_twin(dev, bits, degree, digit_size, count):
+    base, ext = _chain(count, digit_size, degree, bits)
+    digits = -(-count // digit_size)
+    y = _planes(1, base, degree, (2,), dev, torch.int64)
+    d = _planes(2, base, degree, (2,), dev, torch.int64)
+    ka = _planes(3, ext, degree, (digits,), dev, torch.int64)
+    kb = _planes(4, ext, degree, (digits,), dev, torch.int64)
+    got = keyswitch_gpu.gadget_accumulate_wide(
+        y, ka, kb, base_moduli=base, ext_moduli=ext, degree=degree,
+        digit_size=digit_size, d_ntt=d,
+    )
+    want = keyswitch_gpu.gadget_accumulate_twin(
+        y, ka, kb, base, ext, degree, digit_size, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("bits,degree", WIDE)
+def test_wide_moddown_kernel_matches_twin(dev, bits, degree):
+    base, ext = _chain(3, 1, degree, bits)
+    child, dropped = base[:2], ext[2:]
+    t_scale = ext[-1]
+    yhat = _planes(5, dropped, degree, (2,), dev, torch.int64)
+    ks = _planes(6, ext, degree, (2,), dev, torch.int64)[..., :2, :]
+    t = _planes(7, base, degree, (2,), dev, torch.int64)[..., :2, :]
+    kw = dict(child_moduli=child, dropped_moduli=dropped, degree=degree,
+              t_scale=t_scale)
+    got = moddown_gpu.mod_down_combine_wide(yhat, ks, t, **kw)
+    want = moddown_gpu.mod_down_combine_twin(yhat, ks, t, child, dropped,
+                                             degree, t_scale)
+    assert torch.equal(got, want)
+
+
+def test_wide_slice_gpu_matches_cpu(dev):
+    """The wide slice (61-bit, ds 1) on both devices: keys and the fused
+    product are bit-identical, and the GPU run went through K5/K7, K6, K8."""
+    degree, count = 1 << 10, 3
+    values = np.random.default_rng(9).uniform(-1, 1, size=(2, 2, degree // 2))
+    counters = (ntt_gpu.ntt_planes_wide, keyswitch_gpu.gadget_accumulate_wide,
+                moddown_gpu.mod_down_combine_wide)
+    outs = {}
+    for device in (torch.device("cpu"), dev):
+        before = [f.launches for f in counters]
+        ctx = port.CkksContext.build(port.generate_primes(61, count, degree),
+                                     degree, device)
+        eng = port.CkksEngine(ctx, port.CkksParams(3.2, degree // 2, 61))
+        rng = make_rng(42)
+        sk = eng.generate_secret_key(rng)
+        pk = eng.generate_public_key(sk, rng)
+        rlk = eng.generate_gadget_relin_key(sk, rng)
+        enc = port.CkksEncoder(degree, 61)
+        cts = [[eng.encrypt(enc.encode(v, ctx), pk, ctx.total_bits(), rng)
+                for v in side] for side in values]
+        stack = lambda side, part: torch.stack([getattr(c, part).data for c in cts[side]])
+        o0, o1 = batched_mul_relin_rescale(
+            (stack(0, "c0"), stack(0, "c1")), (stack(1, "c0"), stack(1, "c1")),
+            rlk, ctx, ctx.drop_last(1))
+        outs[device.type] = (rlk.b.cpu(), o0.cpu(), o1.cpu())
+        launched = [f.launches - b for f, b in zip(counters, before)]
+        assert all(n > 0 for n in launched) == (device.type == "cuda")
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert a.dtype == torch.int64 and torch.equal(a, b)
 
 
 def test_slice_gpu_matches_cpu(dev):

@@ -26,7 +26,7 @@ import toy_heaan_ckks_tpu_torch as port
 from toy_heaan_ckks_tpu_torch import convert
 from toy_heaan_ckks_tpu_torch.math import crt, primes, sampling
 from toy_heaan_ckks_tpu_torch.ops import modular as mm
-from toy_heaan_ckks_tpu_torch.ops import ntt
+from toy_heaan_ckks_tpu_torch.ops import ntt, ntt_gpu
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -113,14 +113,36 @@ def test_chain_constants_match():
 
 
 def test_wide_chain_not_ported():
+    """Wide chains are ported up to N = 2^14; above that (the factored
+    kernel K5') the wide NTT is not ported and refuses the input."""
+    ctx = port.CkksContext.build(ref_primes.generate_primes(40, 2, 64), 64, "cpu")
+    assert not ctx.chain.small and ctx.chain.dtype == torch.int64
+    x = torch.zeros((1, 2, 1 << 15), dtype=torch.int64)
     with pytest.raises(NotImplementedError):
-        port.CkksContext.build(ref_primes.generate_primes(40, 2, 64), 64)
+        ntt_gpu.ntt_planes_wide(x, ctx.moduli, 1 << 15, False)
+
+
+def test_context_defaults_to_cuda(monkeypatch):
+    """No device given: the current CUDA device, never a quiet CPU."""
+    from toy_heaan_ckks_tpu_torch.context import canonical_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert canonical_device(None) == torch.device("cuda", 0)
+    assert canonical_device("cuda") == torch.device("cuda", 0)
+    assert canonical_device("cpu") == torch.device("cpu")
+
+
+def test_context_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.CkksContext.build(ref_primes.generate_primes(31, 2, 64), 64)
 
 
 @pytest.mark.parametrize("op", ["mont_mul", "add_mod", "sub_mod", "neg_mod"])
 def test_elementwise_ops_match(op):
     moduli = tuple(ref_primes.generate_primes(31, 3, 64))
-    ctx = port.CkksContext.build(moduli, 64)
+    ctx = port.CkksContext.build(moduli, 64, device="cpu")
     rctx = ref.CkksContext.build(moduli, 64)
     a = _rand_residues(1, moduli, 64)
     b = _rand_residues(2, moduli, 64)
@@ -182,7 +204,7 @@ def test_torch_ntt_matches_staged_reference(degree, count, inverse):
 
 def test_context_cached_per_device_and_levels():
     moduli = ref_primes.generate_primes(31, 3, 64)
-    ctx = port.CkksContext.build(moduli, 64)
+    ctx = port.CkksContext.build(moduli, 64, device="cpu")
     assert port.CkksContext.build(tuple(moduli), 64, "cpu") is ctx
     child = ctx.drop_last(1)
     assert child.moduli == tuple(moduli[:2]) and child.device == ctx.device
@@ -193,7 +215,7 @@ def test_context_cached_per_device_and_levels():
 @pytest.mark.parametrize("degree", [64, 1024])
 def test_encode_residues_match(degree):
     moduli = ref_primes.generate_primes(31, 3, degree)
-    ctx = port.CkksContext.build(moduli, degree)
+    ctx = port.CkksContext.build(moduli, degree, device="cpu")
     rctx = ref.CkksContext.build(moduli, degree)
     vals = np.linspace(-0.9, 0.9, degree // 2)
     pt = port.CkksEncoder(degree, 30).encode(vals, ctx)
@@ -207,7 +229,7 @@ def test_encode_residues_match(degree):
 def test_poly_samplers_match(sampler):
     degree = 64
     moduli = ref_primes.generate_primes(31, 3, degree)
-    ctx = port.CkksContext.build(moduli, degree)
+    ctx = port.CkksContext.build(moduli, degree, device="cpu")
     rctx = ref.CkksContext.build(moduli, degree)
     a, b = sampling.make_rng(9), ref_sampling.make_rng(9)
     got, want = {
@@ -226,13 +248,13 @@ def test_poly_samplers_match(sampler):
 def test_convert_round_trip_and_checks():
     arr = np.zeros((2, 3, 2, 8), np.uint32)
     arr[..., 0, :] = np.arange(48, dtype=np.uint32).reshape(2, 3, 8) * 12345
-    t = convert.from_reference(arr)
+    t = convert.from_reference(arr, "cpu")
     assert t.dtype == torch.int32 and t.shape == (2, 3, 8)
     np.testing.assert_array_equal(convert.to_reference(t), arr)
     bad = arr.copy()
     bad[0, 0, 1, 0] = 1
     with pytest.raises(ValueError):
-        convert.from_reference(bad)
+        convert.from_reference(bad, "cpu")
 
 
 def test_port_imports_no_jax():

@@ -50,7 +50,7 @@ def _eq(got: torch.Tensor, want) -> None:
 
 def _chain(count: int, digit_size: int):
     base = tuple(generate_primes(31, count, DEGREE))
-    ctx = CkksContext.build(base, DEGREE)
+    ctx = CkksContext.build(base, DEGREE, device="cpu")
     return base, base + default_special_primes(ctx, digit_size)
 
 

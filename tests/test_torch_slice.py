@@ -39,7 +39,8 @@ ATOL = 1e-4  # the reference tests' bound (tests/test_fused_mult.py)
 
 def _run(pkg, values):
     """Keys and BATCH ciphertext pairs from seed 42, through ``pkg``."""
-    ctx = pkg.CkksContext.build(pkg.generate_primes(31, COUNT, DEGREE), DEGREE)
+    kw = {"device": "cpu"} if pkg is port else {}
+    ctx = pkg.CkksContext.build(pkg.generate_primes(31, COUNT, DEGREE), DEGREE, **kw)
     eng = pkg.CkksEngine(ctx, pkg.CkksParams(3.2, DEGREE // 2, SCALE_BITS))
     rng = make_rng(42)
     sk = eng.generate_secret_key(rng)
@@ -156,7 +157,7 @@ def test_convert_round_trip(both):
     r, p = both["ref"], both["port"]
     rlk = convert.relin_key_from_reference(
         np.asarray(r["rlk"].a), np.asarray(r["rlk"].b), r["ctx"].moduli,
-        r["rlk"].ext_ctx.moduli, r["rlk"].digit_size, DEGREE,
+        r["rlk"].ext_ctx.moduli, r["rlk"].digit_size, DEGREE, "cpu",
         a_seed=r["rlk"].a_seed,
     )
     ctx = rlk.ctx

@@ -1,7 +1,8 @@
 """CkksContext: the static parameters of one RNS level on one device.
 
 Counterpart of ``toy_heaan_ckks_tpu/context.py``. A context holds the
-chain's constants and NTT tables as tensors on its device; ``build`` caches
+chain's constants and NTT tables as tensors on its device (the card unless
+the caller asks for the CPU); ``build`` caches
 one context per (moduli, degree, device), and dropping a level gives the
 (cached) context of the shorter chain on the same device.
 """
@@ -17,8 +18,16 @@ from .ops.modular import ModulusChain
 from .ops.ntt import NttTables
 
 
-def canonical_device(device) -> torch.device:
-    """``"cuda"`` -> ``cuda:<current>``, so cache keys match tensor devices."""
+def canonical_device(device=None) -> torch.device:
+    """``None`` -> the current CUDA device, raising where there is none;
+    ``"cuda"`` -> ``cuda:<current>``, so cache keys match tensor devices."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU"
+            )
+        device = "cuda"
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -48,9 +57,10 @@ class CkksContext:
         )
 
     @staticmethod
-    def build(moduli, degree: int, device="cpu") -> "CkksContext":
-        """Context for ``moduli`` (NTT-friendly primes < 2^31) at ``degree``
-        with its tables on ``device``."""
+    def build(moduli, degree: int, device=None) -> "CkksContext":
+        """Context for ``moduli`` (NTT-friendly primes < 2^63) at ``degree``
+        with its tables on ``device`` (default: the current CUDA device;
+        there is no fallback to the CPU, which must be asked for)."""
         return CkksContext._build_cached(
             tuple(int(m) for m in moduli), degree, canonical_device(device)
         )

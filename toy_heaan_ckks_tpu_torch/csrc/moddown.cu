@@ -1,42 +1,48 @@
-// K3: fused RNS mod-down with combine.
+// K3 / K8: fused RNS mod-down with combine.
 //
-// Replaces the Pallas TPU kernel toy_heaan_ckks_tpu/ops/moddown_pallas.py
+// Replaces the Pallas TPU kernels toy_heaan_ckks_tpu/ops/moddown_pallas.py
 // _md_kernel_t (and, with t == nullptr, _md_kernel_no_t), called through
-// mod_down_combine_pallas. One block owns one (kept channel j, item) pair:
+// mod_down_combine_pallas, on uint32 words (small chains: ckks_moddown);
+// and ops/keyswitch_pallas_wide.py _md_kernel_wide_t (core _md_core_wide;
+// with t == nullptr _md_kernel_wide_no_t), called through
+// mod_down_combine_pallas_wide, on uint64 words (wide chains, Harvey64 with
+// radix 2^64: ckks_moddown64). One block owns one (kept channel j, item)
+// pair:
 //
 //   ext  = sum_m Harvey(yhat_m, c[m,j], cs[m,j])            (mod q_j)
 //   ext  = forward NTT of ext (shared memory, all stages)
 //   head = ks_j + Harvey(t_j, P mod q_j)                     (t optional)
 //   out  = Harvey(head - ext, P_total^-1 mod q_j)
 //
-// Bounds on an H100: one 14-stage shared-memory NTT per block (serial
-// __syncthreads chain) plus reading G + 2 planes and writing one.
+// yhat_m is a residue of a dropped prime and may exceed q_j: the Harvey
+// multiply takes any word x. Bounds on an H100: one log2(N)-stage
+// shared-memory NTT per block (serial __syncthreads chain) plus reading
+// G + 2 planes and writing one; on uint64 words the integer pipe.
 #include "ntt.cuh"
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(ckks::kThreads)
-moddown_kernel(const uint32_t* __restrict__ yhat, long long y_stride,
-               const uint32_t* __restrict__ ks, long long ks_stride,
-               const uint32_t* __restrict__ t, long long t_stride,
-               const uint32_t* __restrict__ c, const uint32_t* __restrict__ cs,
-               const uint32_t* __restrict__ q, const uint32_t* __restrict__ pm,
-               const uint32_t* __restrict__ pms,
-               const uint32_t* __restrict__ pinv,
-               const uint32_t* __restrict__ pinvs,
-               const uint32_t* __restrict__ tw,
-               const uint32_t* __restrict__ twp, uint32_t* __restrict__ out,
-               int dropped, int kept, int log_n) {
-  extern __shared__ uint32_t s[];
+moddown_kernel(const T* __restrict__ yhat, long long y_stride,
+               const T* __restrict__ ks, long long ks_stride,
+               const T* __restrict__ t, long long t_stride,
+               const T* __restrict__ c, const T* __restrict__ cs,
+               const T* __restrict__ q, const T* __restrict__ pm,
+               const T* __restrict__ pms, const T* __restrict__ pinv,
+               const T* __restrict__ pinvs, const T* __restrict__ tw,
+               const T* __restrict__ twp, T* __restrict__ out, int dropped,
+               int kept, int log_n) {
+  T* s = ckks::smem_plane<T>();
   const int n = 1 << log_n;
   const int j = blockIdx.x % kept;
   const long long item = blockIdx.x / kept;
-  const uint32_t qj = q[j];
-  const uint32_t* yi = yhat + item * y_stride;
+  const T qj = q[j];
+  const T* yi = yhat + item * y_stride;
   const long long jn = static_cast<long long>(j) * n;
 
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint32_t acc = 0;
+    T acc = 0;
     for (int m = 0; m < dropped; ++m) {
       const int cj = m * kept + j;
       acc = ckks::add_mod(
@@ -48,15 +54,32 @@ moddown_kernel(const uint32_t* __restrict__ yhat, long long y_stride,
   __syncthreads();
   ckks::ntt_forward_smem(s, log_n, tw + jn, twp + jn, qj);
 
-  const uint32_t* ksj = ks + item * ks_stride + jn;
-  const uint32_t* tj = t == nullptr ? nullptr : t + item * t_stride + jn;
-  uint32_t* o = out + (item * kept + j) * static_cast<long long>(n);
-  const uint32_t p = pm[j], ps = pms[j], pi = pinv[j], pis = pinvs[j];
+  const T* ksj = ks + item * ks_stride + jn;
+  const T* tj = t == nullptr ? nullptr : t + item * t_stride + jn;
+  T* o = out + (item * kept + j) * static_cast<long long>(n);
+  const T p = pm[j], ps = pms[j], pi = pinv[j], pis = pinvs[j];
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint32_t head = ksj[i];
+    T head = ksj[i];
     if (tj != nullptr) head = ckks::add_mod(head, ckks::harvey(tj[i], p, ps, qj), qj);
     o[i] = ckks::harvey(ckks::sub_mod(head, s[i], qj), pi, pis, qj);
   }
+}
+
+template <typename T>
+int launch_moddown(const T* yhat, long long y_stride, const T* ks,
+                   long long ks_stride, const T* t, long long t_stride,
+                   const T* c, const T* cs, const T* q, const T* pm,
+                   const T* pms, const T* pinv, const T* pinvs, const T* tw,
+                   const T* twp, T* out, int outer, int dropped, int kept,
+                   int log_n, cudaStream_t stream) {
+  const size_t smem = ckks::plane_bytes<T>(log_n);
+  cudaError_t err = ckks::reserve_smem(
+      reinterpret_cast<const void*>(moddown_kernel<T>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moddown_kernel<T><<<outer * kept, ckks::kThreads, smem, stream>>>(
+      yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv,
+      pinvs, tw, twp, out, dropped, kept, log_n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -76,11 +99,23 @@ extern "C" int ckks_moddown(const uint32_t* yhat, long long y_stride,
                             const uint32_t* twp, uint32_t* out, int outer,
                             int dropped, int kept, int log_n,
                             cudaStream_t stream) {
-  cudaError_t err = ckks::reserve_smem(reinterpret_cast<const void*>(moddown_kernel), log_n);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(uint32_t) << log_n;
-  moddown_kernel<<<outer * kept, ckks::kThreads, smem, stream>>>(
-      yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv,
-      pinvs, tw, twp, out, dropped, kept, log_n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_moddown(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q,
+                        pm, pms, pinv, pinvs, tw, twp, out, outer, dropped,
+                        kept, log_n, stream);
+}
+
+// The same on uint64 words (wide chains, radix-2^64 Shoup companions).
+extern "C" int ckks_moddown64(const uint64_t* yhat, long long y_stride,
+                              const uint64_t* ks, long long ks_stride,
+                              const uint64_t* t, long long t_stride,
+                              const uint64_t* c, const uint64_t* cs,
+                              const uint64_t* q, const uint64_t* pm,
+                              const uint64_t* pms, const uint64_t* pinv,
+                              const uint64_t* pinvs, const uint64_t* tw,
+                              const uint64_t* twp, uint64_t* out, int outer,
+                              int dropped, int kept, int log_n,
+                              cudaStream_t stream) {
+  return launch_moddown(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q,
+                        pm, pms, pinv, pinvs, tw, twp, out, outer, dropped,
+                        kept, log_n, stream);
 }

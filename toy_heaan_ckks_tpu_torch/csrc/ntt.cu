@@ -1,34 +1,38 @@
-// K1: the fused negacyclic NTT of whole planes, forward or inverse.
+// K1 / K5+K7: the fused negacyclic NTT of whole planes, forward or inverse.
 //
-// Replaces the Pallas TPU kernel toy_heaan_ckks_tpu/ops/ntt_pallas.py
-// _ntt_kernel (called through _ntt_planes_call). One block owns one
-// (item, channel) plane of N <= 2^15 uint32 residues: it loads the plane
-// into shared memory once, runs all log2(N) butterfly stages there, applies
-// the per-channel final constant (inverse only: N^-1, or the folded
-// constants of small_fast._fold_consts / moddown_pallas._down_consts) and
-// writes the plane once. Device memory traffic is one read and one write of
-// the plane; what bounds it on an H100 is the serial chain of 14
-// shared-memory stages, each closed by __syncthreads, and the twiddle loads
-// (compact per-stage tables read through the read-only cache).
+// Replaces the Pallas TPU kernels toy_heaan_ckks_tpu/ops/ntt_pallas.py
+// _ntt_kernel (small chains, uint32 words: ckks_ntt), and, for wide chains
+// (uint64 words: ckks_ntt64), ops/ntt_pallas_wide.py _ntt_kernel_wide (K5)
+// and ops/keyswitch_pallas_wide.py _inv_yhat_kernel_wide (K7, the inverse
+// with a folded final constant). One block owns one (item, channel) plane
+// of N residues (N <= 2^15 uint32, N <= 2^14 uint64: 128 KiB of shared
+// memory): it loads the plane once, runs all log2(N) butterfly stages
+// there, applies the per-channel final constant (inverse only: N^-1, or
+// the folded constants of the mod-down yhat emission / the decomposition
+// fold) and writes the plane once. Device memory traffic is one read and
+// one write of the plane plus the compact twiddle tables. What bounds it on
+// an H100: the serial chain of log2(N) shared-memory stages, each closed by
+// __syncthreads; for uint64 words also the integer pipe, since each
+// butterfly's Harvey multiply is several 32-bit multiply instructions.
 #include "ntt.cuh"
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(ckks::kThreads)
-ntt_kernel(const uint32_t* __restrict__ x, long long x_stride,
-           uint32_t* __restrict__ out, const uint32_t* __restrict__ tw,
-           const uint32_t* __restrict__ twp, const uint32_t* __restrict__ q,
-           const uint32_t* __restrict__ fin, const uint32_t* __restrict__ finp,
-           int channels, int log_n, int inverse) {
-  extern __shared__ uint32_t s[];
+ntt_kernel(const T* __restrict__ x, long long x_stride, T* __restrict__ out,
+           const T* __restrict__ tw, const T* __restrict__ twp,
+           const T* __restrict__ q, const T* __restrict__ fin,
+           const T* __restrict__ finp, int channels, int log_n, int inverse) {
+  T* s = ckks::smem_plane<T>();
   const int n = 1 << log_n;
   const int ch = blockIdx.x % channels;
   const long long item = blockIdx.x / channels;
-  const uint32_t qc = q[ch];
-  const uint32_t* src = x + item * x_stride + static_cast<long long>(ch) * n;
-  uint32_t* dst = out + (item * channels + ch) * static_cast<long long>(n);
-  const uint32_t* w = tw + static_cast<long long>(ch) * n;
-  const uint32_t* wp = twp + static_cast<long long>(ch) * n;
+  const T qc = q[ch];
+  const T* src = x + item * x_stride + static_cast<long long>(ch) * n;
+  T* dst = out + (item * channels + ch) * static_cast<long long>(n);
+  const T* w = tw + static_cast<long long>(ch) * n;
+  const T* wp = twp + static_cast<long long>(ch) * n;
 
   for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = src[i];
   __syncthreads();
@@ -38,12 +42,26 @@ ntt_kernel(const uint32_t* __restrict__ x, long long x_stride,
     ckks::ntt_forward_smem(s, log_n, w, wp, qc);
   }
   if (fin != nullptr) {
-    const uint32_t f = fin[ch], fp = finp[ch];
+    const T f = fin[ch], fp = finp[ch];
     for (int i = threadIdx.x; i < n; i += blockDim.x)
       dst[i] = ckks::harvey(s[i], f, fp, qc);
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = s[i];
   }
+}
+
+template <typename T>
+int launch_ntt(const T* x, long long x_stride, T* out, const T* tw,
+               const T* twp, const T* q, const T* fin, const T* finp,
+               int outer, int channels, int log_n, int inverse,
+               cudaStream_t stream) {
+  const size_t smem = ckks::plane_bytes<T>(log_n);
+  cudaError_t err = ckks::reserve_smem(
+      reinterpret_cast<const void*>(ntt_kernel<T>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ntt_kernel<T><<<outer * channels, ckks::kThreads, smem, stream>>>(
+      x, x_stride, out, tw, twp, q, fin, finp, channels, log_n, inverse);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -57,12 +75,19 @@ extern "C" int ckks_ntt(const uint32_t* x, long long x_stride, uint32_t* out,
                         const uint32_t* q, const uint32_t* fin,
                         const uint32_t* finp, int outer, int channels,
                         int log_n, int inverse, cudaStream_t stream) {
-  cudaError_t err = ckks::reserve_smem(reinterpret_cast<const void*>(ntt_kernel), log_n);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(uint32_t) << log_n;
-  ntt_kernel<<<outer * channels, ckks::kThreads, smem, stream>>>(
-      x, x_stride, out, tw, twp, q, fin, finp, channels, log_n, inverse);
-  return static_cast<int>(cudaGetLastError());
+  return launch_ntt(x, x_stride, out, tw, twp, q, fin, finp, outer, channels,
+                    log_n, inverse, stream);
+}
+
+// The same on uint64 words (wide chains, radix-2^64 Shoup companions).
+extern "C" int ckks_ntt64(const uint64_t* x, long long x_stride,
+                          uint64_t* out, const uint64_t* tw,
+                          const uint64_t* twp, const uint64_t* q,
+                          const uint64_t* fin, const uint64_t* finp,
+                          int outer, int channels, int log_n, int inverse,
+                          cudaStream_t stream) {
+  return launch_ntt(x, x_stride, out, tw, twp, q, fin, finp, outer, channels,
+                    log_n, inverse, stream);
 }
 
 extern "C" const char* ckks_error_string(int code) {

@@ -1,7 +1,10 @@
-// Shared device routines of the CKKS kernels (K1 NTT, K2 key switch,
-// K3 mod-down): modular arithmetic on uint32 residues of primes q < 2^31,
-// and the tree-order negacyclic NTT of one N-point plane held in shared
-// memory.
+// Shared device routines of the CKKS kernels (K1/K5 NTT, K2/K6 key
+// switch, K3/K8 mod-down): modular arithmetic on one-word residues and the
+// tree-order negacyclic NTT of one N-point plane held in shared memory,
+// templated on the word type:
+//
+//   uint32_t  small chains, every q < 2^31, Shoup/Montgomery radix 2^32;
+//   uint64_t  wide chains, every q < 2^63, Shoup/Montgomery radix 2^64.
 //
 // Conventions (those of toy_heaan_ckks_tpu/ops/ntt.py and ntt_pallas.py):
 // stage s = 0 .. log2(N)-1 runs distance-d butterflies, d = N >> (s+1);
@@ -10,8 +13,10 @@
 // table (entry 0 unused). Forward (Cooley-Tukey): x_u + w*x_v, x_u - w*x_v.
 // Inverse (Gentleman-Sande, stages in reverse): x_u + x_v, (x_u - x_v)*w.
 // Every multiply by a table constant is a Harvey/Shoup multiply with the
-// companion w' = floor(w * 2^32 / q); every output is canonical in [0, q),
-// so the results are bit-identical to the reference's.
+// companion w' = floor(w * 2^bits / q); every output is canonical in
+// [0, q), so the results are bit-identical to the reference's. The wide
+// butterflies are non-lazy: the reference's [0, 4q) lazy form would
+// overflow 64 bits for the 63-bit special primes of a 62-bit chain.
 #pragma once
 
 #include <cstdint>
@@ -21,23 +26,38 @@ namespace ckks {
 
 constexpr int kThreads = 512;  // threads per block of every kernel
 
-// x * w mod q for any x < 2^32, w < q < 2^31 (Harvey: [0, 2q) then one
-// conditional subtract).
-__device__ __forceinline__ uint32_t harvey(uint32_t x, uint32_t w,
-                                           uint32_t wp, uint32_t q) {
-  uint32_t h = __umulhi(x, wp);
-  uint32_t r = x * w - h * q;
+__device__ __forceinline__ uint32_t mulhi(uint32_t a, uint32_t b) {
+  return __umulhi(a, b);
+}
+
+__device__ __forceinline__ uint64_t mulhi(uint64_t a, uint64_t b) {
+  return __umul64hi(a, b);
+}
+
+// Read-only-cache loads of table words.
+__device__ __forceinline__ uint32_t ldg(const uint32_t* p) { return __ldg(p); }
+
+__device__ __forceinline__ uint64_t ldg(const uint64_t* p) {
+  return __ldg(reinterpret_cast<const unsigned long long*>(p));
+}
+
+// x * w mod q for any word x, w < q < 2^(bits-1) (Harvey: r = x*w - h*q
+// lies in [0, 2q), then one conditional subtract).
+template <typename T>
+__device__ __forceinline__ T harvey(T x, T w, T wp, T q) {
+  const T h = mulhi(x, wp);
+  const T r = x * w - h * q;
   return r >= q ? r - q : r;
 }
 
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  uint32_t s = a + b;  // a, b < q < 2^31: no wrap
+template <typename T>
+__device__ __forceinline__ T add_mod(T a, T b, T q) {
+  const T s = a + b;  // a, b < q < 2^(bits-1): no wrap
   return s >= q ? s - q : s;
 }
 
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
-                                            uint32_t q) {
+template <typename T>
+__device__ __forceinline__ T sub_mod(T a, T b, T q) {
   return a >= b ? a - b : a + q - b;
 }
 
@@ -51,12 +71,35 @@ __device__ __forceinline__ uint32_t mont_redc(uint32_t a, uint32_t b,
   return r >= q ? r - q : r;
 }
 
+// Montgomery product a*b*2^-64 mod q, a, b < q < 2^63; qinv = -q^-1 mod
+// 2^64 (toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py _redc64). The
+// 128-bit t = a*b and m*q are (lo, hi) word pairs; t + m*q < 2^126 + 2^127
+// does not wrap, its low word is 0 mod 2^64 and carries out exactly when
+// t_lo != 0, and its high word is below 2q.
+__device__ __forceinline__ uint64_t mont_redc(uint64_t a, uint64_t b,
+                                              uint64_t q, uint64_t qinv) {
+  const uint64_t t_lo = a * b;
+  const uint64_t t_hi = __umul64hi(a, b);
+  const uint64_t m = t_lo * qinv;
+  const uint64_t mq_hi = __umul64hi(m, q);
+  const uint64_t r = t_hi + mq_hi + (t_lo != 0 ? 1u : 0u);
+  return r >= q ? r - q : r;
+}
+
+// The plane of one block: dynamic shared memory seen as words of type T.
+template <typename T>
+__device__ __forceinline__ T* smem_plane() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<T*>(smem_raw);
+}
+
 // All forward stages on the plane s[0, 2^log_n) in shared memory. The
 // caller has synchronised after writing s; returns synchronised.
-__device__ __forceinline__ void ntt_forward_smem(uint32_t* s, int log_n,
-                                                 const uint32_t* __restrict__ tw,
-                                                 const uint32_t* __restrict__ twp,
-                                                 uint32_t q) {
+template <typename T>
+__device__ __forceinline__ void ntt_forward_smem(T* s, int log_n,
+                                                 const T* __restrict__ tw,
+                                                 const T* __restrict__ twp,
+                                                 T q) {
   const int half = 1 << (log_n - 1);
   for (int st = 0; st < log_n; ++st) {
     const int log_d = log_n - 1 - st;
@@ -65,8 +108,8 @@ __device__ __forceinline__ void ntt_forward_smem(uint32_t* s, int log_n,
       const int g = b >> log_d;
       const int u = (g << (log_d + 1)) | (b & (d - 1));
       const int k = (1 << st) + g;
-      const uint32_t xu = s[u];
-      const uint32_t xv = harvey(s[u + d], __ldg(tw + k), __ldg(twp + k), q);
+      const T xu = s[u];
+      const T xv = harvey(s[u + d], ldg(tw + k), ldg(twp + k), q);
       s[u] = add_mod(xu, xv, q);
       s[u + d] = sub_mod(xu, xv, q);
     }
@@ -75,10 +118,11 @@ __device__ __forceinline__ void ntt_forward_smem(uint32_t* s, int log_n,
 }
 
 // All inverse stages (without the final N^-1 factor), same contract.
-__device__ __forceinline__ void ntt_inverse_smem(uint32_t* s, int log_n,
-                                                 const uint32_t* __restrict__ tw,
-                                                 const uint32_t* __restrict__ twp,
-                                                 uint32_t q) {
+template <typename T>
+__device__ __forceinline__ void ntt_inverse_smem(T* s, int log_n,
+                                                 const T* __restrict__ tw,
+                                                 const T* __restrict__ twp,
+                                                 T q) {
   const int half = 1 << (log_n - 1);
   for (int st = log_n - 1; st >= 0; --st) {
     const int log_d = log_n - 1 - st;
@@ -87,20 +131,26 @@ __device__ __forceinline__ void ntt_inverse_smem(uint32_t* s, int log_n,
       const int g = b >> log_d;
       const int u = (g << (log_d + 1)) | (b & (d - 1));
       const int k = (1 << st) + g;
-      const uint32_t xu = s[u];
-      const uint32_t xv = s[u + d];
+      const T xu = s[u];
+      const T xv = s[u + d];
       s[u] = add_mod(xu, xv, q);
-      s[u + d] = harvey(sub_mod(xu, xv, q), __ldg(tw + k), __ldg(twp + k), q);
+      s[u + d] = harvey(sub_mod(xu, xv, q), ldg(tw + k), ldg(twp + k), q);
     }
     __syncthreads();
   }
 }
 
-// Dynamic shared memory of one plane; above 48 KiB the kernel must opt in.
-inline cudaError_t reserve_smem(const void* kernel, int log_n) {
+// Dynamic shared memory of one plane of T; above 48 KiB the kernel must
+// opt in (a uint64 plane is 64 KiB at 2^13 and 128 KiB at 2^14).
+template <typename T>
+inline size_t plane_bytes(int log_n) {
+  return sizeof(T) << log_n;
+}
+
+inline cudaError_t reserve_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(sizeof(uint32_t)) << log_n);
+                              static_cast<int>(bytes));
 }
 
 }  // namespace ckks

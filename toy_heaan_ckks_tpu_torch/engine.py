@@ -53,11 +53,15 @@ def _combined_down_consts(base_moduli: tuple[int, ...],
     product: the fused relin+rescale scales the tensor terms by P so they
     share the key-switch accumulator's scale before the one division by
     P * q_last. (The reference also returns a mod-down plan that only its
-    generic path reads.)"""
+    generic path reads.) The Montgomery radix is the extended chain's:
+    2^32 when all its primes are below 2^31, else 2^64."""
+    from .ops.modular import radix_bits_of
+
+    rbits = radix_bits_of(ext_moduli)
     p_total = 1
     for p in ext_moduli[len(base_moduli):]:
         p_total *= p
-    return tuple(((p_total % q) << 32) % q for q in base_moduli)
+    return tuple(((p_total % q) << rbits) % q for q in base_moduli)
 
 
 def _check_key_compat(ctx: CkksContext, key_a, digit_size: int):

@@ -3,8 +3,10 @@
 Counterpart of ``toy_heaan_ckks_tpu/keys.py`` for the keys the fused
 multiply needs. The keys draw from the caller's numpy Generator in the
 reference's order, so one seed gives bit-identical keys in both packages.
-Gadget keys are stored as int32 (D, E, N) NTT-domain Montgomery stacks
-(digit, channel incl. specials, coefficient) on the context's device.
+Gadget keys are stored as (D, E, N) NTT-domain Montgomery stacks (digit,
+channel incl. specials, coefficient) of the extended chain's dtype (int32
+with R = 2^32 when every prime is below 2^31, else int64 with R = 2^64)
+on the context's device.
 
 Hybrid (special-prime) key switching: digit t of a relin key encodes
 P * T_t * s^2 over Q*P, where P is the product of the special primes and
@@ -23,7 +25,6 @@ from .context import CkksContext
 from .math import sampling
 from .math.primes import get_first_prime_down
 from .ops import modular as mm
-from .ops.modular import SMALL_BOUND
 from .ops.poly import Poly
 
 
@@ -86,12 +87,16 @@ class PublicKey:
 
 def default_special_primes(ctx: CkksContext, count: int = 1) -> tuple[int, ...]:
     """``count`` NTT-friendly special primes ~ max(q_i), distinct from the
-    chain; for a chain below 2^30 they stay below 2^30, else below 2^31."""
+    chain. A small chain keeps them small (below 2^30 for a chain below
+    2^30, else below 2^31); a wide chain gets one extra bit, up to 2^63
+    (so a 62-bit chain has 63-bit specials)."""
     bits = max(m.bit_length() for m in ctx.moduli)
-    if bits <= 30:
+    if ctx.chain.small and bits <= 30:
         bound, min_bits = 1 << 30, bits - 1
+    elif ctx.chain.small:
+        bound, min_bits = 1 << 31, bits
     else:
-        bound, min_bits = SMALL_BOUND, bits
+        bound, min_bits = 1 << min(63, bits + 1), bits
     out: list[int] = []
     p = get_first_prime_down(bound, ctx.degree)
     while p is not None and len(out) < count:
@@ -143,7 +148,8 @@ def _gadget_pairs(sk: SecretKey, target: Poly, std_dev: float,
                   specials: tuple[int, ...], digit_size: int = 1):
     """Stacked hybrid gadget pairs encoding ``target``: digit t's plaintext
     over QP is (P mod q_j) * target_j on digit t's channels and zero
-    elsewhere. Returns (a, b, ext_ctx, a_seed), a/b int32 (D, E, N)."""
+    elsewhere. Returns (a, b, ext_ctx, a_seed), a/b (D, E, N) of the
+    extended chain's dtype."""
     L = ctx.num_channels
     groups = digit_groups(L, digit_size)
     ext_ctx = CkksContext.build(ctx.moduli + tuple(specials), ctx.degree, ctx.device)
@@ -158,7 +164,7 @@ def _gadget_pairs(sk: SecretKey, target: Poly, std_dev: float,
     t_scaled = mm.mul_mod(target.to_ntt_domain().data, p_mod, ctx.chain.q)
     plain = torch.zeros(
         (len(groups), ext_ctx.num_channels, ctx.degree),
-        dtype=torch.int32, device=ctx.device,
+        dtype=ext_ctx.chain.dtype, device=ctx.device,
     )
     for t, grp in enumerate(groups):
         plain[t, grp[0] : grp[-1] + 1] = t_scaled[grp[0] : grp[-1] + 1]
@@ -190,8 +196,8 @@ def regenerate_gadget_a(ext_ctx: CkksContext, num_digits: int,
 class RnsGadgetRelinKey:
     """Gadget relinearization key: digit t encodes P * T_t * s^2 over QP.
 
-    a/b: int32 (D, L+g', N) NTT-domain stacks; g' = digit_size special
-    primes, whose product is ``special``.
+    a/b: (D, L+g', N) NTT-domain stacks of the extended chain's dtype;
+    g' = digit_size special primes, whose product is ``special``.
     """
 
     a: torch.Tensor

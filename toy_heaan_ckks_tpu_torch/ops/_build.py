@@ -1,12 +1,16 @@
-"""Build and load the CUDA kernels (K1 NTT, K2 key switch, K3 mod-down).
+"""Build and load the CUDA kernels (K1/K5+K7 NTT, K2/K6 key switch, K3/K8
+mod-down).
 
 The sources in ``toy_heaan_ckks_tpu_torch/csrc/`` are compiled at first use
-with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per ``.cu`` file, all started
+together, then one link — into one shared library with a plain C
 interface, keyed by a hash of the sources, under
 ``toy_heaan_ckks_tpu_torch/build/``, and loaded with ctypes. Nothing is
 built when the package is imported, so the CPU-only tests never need
 ``nvcc``. Every C entry returns ``cudaGetLastError()`` of its launch;
-``check`` raises on a non-zero code.
+``check`` raises on a non-zero code. Each kernel has a uint32 entry (small
+chains, int32 tensors) and a uint64 entry with the suffix ``64`` (wide
+chains, int64 tensors) of the same signature.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ _SIGNATURES = {
     "ckks_moddown": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
+_SIGNATURES.update({f"{name}64": sig for name, sig in list(_SIGNATURES.items())})
 
 
 def _nvcc() -> str:
@@ -65,24 +70,45 @@ def library_path() -> Path:
     return BUILD / f"libckks_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _compile(sources: list[Path], out: Path) -> None:
+    """``nvcc -c`` each source in parallel, then link the objects."""
+    flags = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in sources]
+    procs = [
+        subprocess.Popen(
+            [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    for src, proc, log in zip(sources, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src.name} ({proc.returncode}):\n{log[-6000:]}"
+            )
+    link = subprocess.run(
+        [_nvcc(), *flags, "-shared", "-o", str(out), *map(str, objs)],
+        capture_output=True, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(
+            f"nvcc link failed ({link.returncode}):\n{link.stderr[-6000:]}"
+        )
+    out.with_suffix(".log").write_text("".join(logs) + link.stdout + link.stderr)
+    for obj in objs:
+        obj.unlink()
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     so = library_path()
     if not so.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-            *[str(CSRC / s) for s in SOURCES if s.endswith(".cu")],
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}"
-            )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        _compile([CSRC / s for s in SOURCES if s.endswith(".cu")], tmp)
+        tmp.with_suffix(".log").replace(so.with_suffix(".log"))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
@@ -108,17 +134,23 @@ def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Kernel inputs: int32 tensors on one CUDA device (a CPU tensor never
-    reaches here — the wrappers send it to the plain torch version)."""
+def require_dtype(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Residue planes of a small chain are int32, of a wide chain int64."""
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+
+
+def require_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Kernel inputs: ``dtype`` tensors on one CUDA device (a CPU tensor
+    never reaches here — the wrappers send it to the plain torch version)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}, expected CUDA")
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected torch.int32")
+    require_dtype(name, dtype, *tensors)
 
 
 def planes(x: torch.Tensor, channels: int, n: int) -> torch.Tensor:

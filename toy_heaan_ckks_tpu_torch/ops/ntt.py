@@ -16,8 +16,9 @@ reference's Pallas kernel expands them to one full plane per stage only
 because the TPU has no gather; a CUDA block reads the compact table.
 
 ``forward_ntt`` / ``inverse_ntt`` here are the plain int64 torch version
-(the staged reshape formulation of the reference's jnp oracle); the CUDA
-kernel that replaces the Pallas NTT lives in ``ntt_gpu.py``.
+(the staged reshape formulation of the reference's jnp oracle) for small
+(int32) and wide (int64) planes alike, through ``modular.arith``; the
+CUDA kernels that replace the Pallas NTTs live in ``ntt_gpu.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..math.primes import find_primitive_root
+from . import modular as mm
 
 
 def tree_exponent_stages(degree: int) -> list[list[int]]:
@@ -126,7 +128,9 @@ class NttTables:
 def forward_ntt(x: torch.Tensor, tables: NttTables) -> torch.Tensor:
     """Coefficient domain (natural order) -> NTT domain (tree order).
 
-    ``x``: int32 (..., L, N) residues (Montgomery form). Pure function."""
+    ``x``: (..., L, N) residues (Montgomery form), int32 on a small chain
+    or int64 on a wide one; the output has x's dtype. Pure function."""
+    ar = mm.arith(x.dtype)
     n = tables.degree
     lead = x.shape[:-2]
     L = x.shape[-2]
@@ -138,14 +142,11 @@ def forward_ntt(x: torch.Tensor, tables: NttTables) -> torch.Tensor:
         a4 = a.reshape(*lead, L, m, 2, half)
         w = tables.fwd[:, m : 2 * m, None]  # (L, m, 1)
         u = a4[..., 0, :]
-        v = a4[..., 1, :] * w % q
-        s = u + v
-        hi = torch.where(s >= q, s - q, s)
-        d = u - v
-        lo = torch.where(d < 0, d + q, d)
-        a = torch.stack([hi, lo], dim=-2).reshape(*lead, L, 2 * m, half)
+        v = ar.mul(a4[..., 1, :], w, q)
+        a = torch.stack([ar.add(u, v, q), ar.sub(u, v, q)],
+                        dim=-2).reshape(*lead, L, 2 * m, half)
         m, t = 2 * m, half
-    return a.reshape(*lead, L, n).int()
+    return a.reshape(*lead, L, n).to(x.dtype)
 
 
 def inverse_ntt(x: torch.Tensor, tables: NttTables, final=None) -> torch.Tensor:
@@ -153,6 +154,7 @@ def inverse_ntt(x: torch.Tensor, tables: NttTables, final=None) -> torch.Tensor:
 
     ``final``: int64 (L, 1) plain per-channel factor applied after the
     butterflies (default N^{-1}; the fused paths fold more into it)."""
+    ar = mm.arith(x.dtype)
     n = tables.degree
     lead = x.shape[:-2]
     L = x.shape[-2]
@@ -164,12 +166,9 @@ def inverse_ntt(x: torch.Tensor, tables: NttTables, final=None) -> torch.Tensor:
         a4 = a.reshape(*lead, L, m, 2, t)
         c0 = a4[..., 0, :]
         c1 = a4[..., 1, :]
-        s = c0 + c1
-        u = torch.where(s >= q, s - q, s)
-        d = c0 - c1
-        d = torch.where(d < 0, d + q, d)
-        v = d * tables.inv[:, m : 2 * m, None] % q
+        u = ar.add(c0, c1, q)
+        v = ar.mul(ar.sub(c0, c1, q), tables.inv[:, m : 2 * m, None], q)
         a = torch.cat([u, v], dim=-1)
         t *= 2
     fin = tables.n_inv if final is None else final
-    return (a.reshape(*lead, L, n) * fin % tables.q).int()
+    return ar.mul(a.reshape(*lead, L, n), fin, tables.q).to(x.dtype)

@@ -1,11 +1,12 @@
 """RNS polynomial layer: the ``Poly`` wrapper and host <-> device conversion.
 
 Counterpart of ``toy_heaan_ckks_tpu/ops/poly.py``. ``Poly.data`` is an
-int32 (L, N) tensor of Montgomery-form residues on the context's device
-(the reference's (L, 2, N) uint32 limb pairs without the zero hi limb).
-Domain changes go through ``ntt_gpu.ntt_planes``: the CUDA kernel K1 for a
-tensor on the card, its torch twin for one on the CPU. Samplers draw from
-the caller's numpy Generator in the reference's order.
+(L, N) tensor of Montgomery-form residues on the context's device, one
+word per residue: int32 on a small chain (the reference's (L, 2, N) uint32
+limb pairs without the zero hi limb), int64 on a wide chain (lo | hi << 32).
+Domain changes go through ``ntt_gpu``: the CUDA kernel K1 (small) or K5
+(wide) for a tensor on the card, the torch twin for one on the CPU.
+Samplers draw from the caller's numpy Generator in the reference's order.
 """
 
 from __future__ import annotations
@@ -19,22 +20,26 @@ from ..context import CkksContext
 from ..math import sampling
 from ..math.crt import reconstruct_centered, to_residues
 from . import modular as mm
-from .ntt_gpu import ntt_planes
+from .ntt_gpu import ntt_planes, ntt_planes_wide
+
+
+def _ntt(ctx: CkksContext):
+    return ntt_planes if ctx.chain.small else ntt_planes_wide
 
 
 def to_ntt(a: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
-    return ntt_planes(a, ctx.moduli, ctx.degree, inverse=False)
+    return _ntt(ctx)(a, ctx.moduli, ctx.degree, inverse=False)
 
 
 def to_coeff(a: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
-    return ntt_planes(a, ctx.moduli, ctx.degree, inverse=True)
+    return _ntt(ctx)(a, ctx.moduli, ctx.degree, inverse=True)
 
 
 def residues_to_device(res: np.ndarray, ctx: CkksContext) -> torch.Tensor:
     """Plain residues (L, N) in [0, q) (int64/uint64/object) -> Montgomery
-    int32 tensor on the context's device."""
-    plain = torch.from_numpy(np.asarray(res).astype(np.int64)).to(ctx.device)
-    return mm.to_mont(plain, ctx.chain)
+    residues of the chain's dtype on the context's device."""
+    plain = torch.from_numpy(np.asarray(res).astype(np.int64))
+    return mm.to_mont(plain.to(ctx.device, ctx.chain.dtype), ctx.chain)
 
 
 def encode_coeffs_to_device(coeffs, ctx: CkksContext) -> torch.Tensor:
@@ -57,7 +62,8 @@ def decode_device_to_coeffs(data: torch.Tensor, ctx: CkksContext) -> np.ndarray:
 class Poly:
     """Immutable RNS polynomial bound to a context.
 
-    ``data``: int32 (L, N) Montgomery-form residues on ``ctx.device``.
+    ``data``: (L, N) Montgomery-form residues on ``ctx.device``, of the
+    chain's dtype (int32 small, int64 wide).
     ``ntt_domain``: True when data is in NTT (tree) order.
     """
 

@@ -6,6 +6,8 @@ kernels of the path are K1 (``ntt_gpu.ntt_planes``: the inverse NTTs with
 folded constants), K2 (``keyswitch_gpu.gadget_accumulate``) and K3
 (``moddown_gpu.mod_down_combine``); the tensor product and the combine
 glue are elementwise int64 torch, as they are plain jnp in the reference.
+``fused_mul_relin_rescale`` is that glue around any chain's kernels: the
+wide composite (``wide_fast.py``) runs it too.
 """
 
 from __future__ import annotations
@@ -48,14 +50,21 @@ def _dec_inv_ints(moduli: tuple, digit_size: int) -> tuple:
     return dec_inv_ints(moduli, digit_size)
 
 
-def mul_relin_rescale_lo(c0a, c1a, c0b, c1b, key_a, key_b,
-                         ctx: CkksContext, ext_ctx: CkksContext, plan):
-    """Batched multiply + hybrid gadget relin + rescale on lo planes.
+def _y_fold(d_ntt, ctx: CkksContext, plan):
+    """Plain decomposition residues y = mont_mul(iNTT(d), dec_inv) with
+    the dec_inv multiply folded into K1's final constant."""
+    moduli = tuple(int(m) for m in ctx.moduli)
+    return inv_ntt_fold(d_ntt, moduli, ctx.degree,
+                        _dec_inv_ints(moduli, plan.digit_size))
 
-    Inputs int32 (..., L, N) NTT-domain Montgomery planes; keys (D, E, N).
-    Returns (out0, out1) with L-1 channels, NTT domain. The relin mod-down
-    and the rescale are one division by P * q_last.
-    """
+
+def fused_mul_relin_rescale(c0a, c1a, c0b, c1b, key_a, key_b,
+                            ctx: CkksContext, ext_ctx: CkksContext, plan, *,
+                            y_fold, accumulate, to_yhat, mod_down):
+    """The composite shared by small and wide chains: elementwise tensor
+    product and combine glue around the chain's kernels (``y_fold``:
+    decomposition inverse NTT; ``accumulate``: gadget key switch;
+    ``to_yhat``: yhat inverse NTT; ``mod_down``: fused mod-down)."""
     from ..engine import _combined_down_consts
 
     q, rinv = ctx.chain.q, ctx.chain.rinv
@@ -65,10 +74,8 @@ def mul_relin_rescale_lo(c0a, c1a, c0b, c1b, key_a, key_b,
                     mm.mont_mul(c1a, c0b, q, rinv), q)
     t2 = mm.mont_mul(c1a, c1b, q, rinv)
 
-    moduli = tuple(int(m) for m in ctx.moduli)
-    y = inv_ntt_fold(t2, moduli, ctx.degree,
-                     _dec_inv_ints(moduli, plan.digit_size))
-    ks0, ks1 = gadget_accumulate(
+    y = y_fold(t2, ctx, plan)
+    ks0, ks1 = accumulate(
         y, key_a, key_b, base_moduli=ctx.moduli, ext_moduli=ext_ctx.moduli,
         degree=ctx.degree, digit_size=plan.digit_size, d_ntt=t2,
     )
@@ -91,11 +98,26 @@ def mul_relin_rescale_lo(c0a, c1a, c0b, c1b, key_a, key_b,
             [mm.add_mod(t_last_p, ks[..., Lc:L, :], q_last), ks[..., L:, :]],
             dim=-2,
         )
-        yhat = inv_ntt_to_yhat(x_drop, dropped, child_moduli, ctx.degree)
-        return mod_down_combine(
+        yhat = to_yhat(x_drop, dropped, child_moduli, ctx.degree)
+        return mod_down(
             yhat, ks[..., :Lc, :], t[..., :Lc, :],
             child_moduli=child_moduli, dropped_moduli=dropped,
             degree=ctx.degree, t_scale=p_specials,
         )
 
     return combine(t0, ks0), combine(t1, ks1)
+
+
+def mul_relin_rescale_lo(c0a, c1a, c0b, c1b, key_a, key_b,
+                         ctx: CkksContext, ext_ctx: CkksContext, plan):
+    """Batched multiply + hybrid gadget relin + rescale on lo planes.
+
+    Inputs int32 (..., L, N) NTT-domain Montgomery planes; keys (D, E, N).
+    Returns (out0, out1) with L-1 channels, NTT domain. The relin mod-down
+    and the rescale are one division by P * q_last.
+    """
+    return fused_mul_relin_rescale(
+        c0a, c1a, c0b, c1b, key_a, key_b, ctx, ext_ctx, plan,
+        y_fold=_y_fold, accumulate=gadget_accumulate,
+        to_yhat=inv_ntt_to_yhat, mod_down=mod_down_combine,
+    )
