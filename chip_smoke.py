@@ -7,30 +7,45 @@ Builds the port's CUDA kernels from ``toy_heaan_ckks_tpu_torch/csrc`` and
 runs, in order (every phase raises on failure), on two paths:
 
 - small: N = 2^14, 8 x 31-bit primes, digit_size 4, batch 32 (kernels K1
-  NTT, K2 key switch, K3 mod-down on uint32 words);
+  NTT, K2 key switch, K3 / K3' mod-down with / without t, on uint32
+  words);
 - wide: N = 2^13, 4 x 61-bit primes, digit_size 1, batch 8 (kernels K5/K7
-  NTT, K6 key switch, K8 mod-down on uint64 words).
+  NTT, K6 key switch, K8 / K8' mod-down, on uint64 words).
 
 1. the card (``nvidia-smi`` name and power limit), torch / CUDA / nvcc
    versions and the kernel build time (one nvcc per source, in parallel);
 2. each kernel against its plain torch twin on the same CUDA inputs at each
    path's shapes — forward, inverse with folded constants and yhat
-   emission of the NTT, the key switch, the mod-down — plus the wide
-   kernels once at N = 2^14, 3 x 62-bit, ds 1, batch 2 (63-bit special,
-   128 KiB uint64 plane); word equality required;
-3. each main path through the user entry points, with every launch count
-   set to 0 just before it and read just after: generate_primes ->
+   emission of the NTT, the key switch, the mod-down with t (multiply
+   shapes) and without t (key-switch shapes: the whole base kept, the
+   specials dropped) — plus the wide kernels once at N = 2^14, 3 x 62-bit,
+   ds 1, batch 2 (63-bit special, 128 KiB uint64 plane); word equality
+   required;
+3. each multiply path through the user entry points, with every launch
+   count set to 0 just before it and read just after: generate_primes ->
    CkksEngine -> sk / pk / relin key (seed 42) -> encode + encrypt 2 x B
    vectors -> ``batched_mul_relin_rescale`` on the batch and
    ``CkksEngine.mul_rescale`` on one pair -> decrypt + decode. The first 2
    items must equal the CPU twin's result bit for bit, the decoded error
    against a*b must stay within the path's bound (1e-3 small, 1e-6 wide),
    and every kernel of the path must have launched;
+3b. each rotation path, counts again set to 0 just before and read just
+   after: rotation keys for offsets 1..8 (wide: 1..3), -1 and a
+   conjugation key from the same seed-42 stream -> ``batched_rotate`` of
+   the batch by 1 (``rotate_ciphertext`` on item 0 must equal batch item
+   0), ``rotate_ciphertext`` by -1, ``conjugate_ciphertext``,
+   ``rotate_hoisted``, ``rotate_sum_hoisted`` and
+   ``rotate_weighted_sum_hoisted`` + ``rescale_ciphertext`` -> decode
+   within the reference tests' bounds (1e-4 per rotation, 1e-3 for sums;
+   1e-6 on the wide chain); items 0..1 of the batched rotation equal to the
+   CPU twin; K1, K2 and K3' (small) or K5/K7, K6 and K8' (wide) launched;
 4. CUDA-event timings of each kernel and its twin, the least time the card
    could take for the kernel's work (bytes over 3.35 TB/s, or integer
-   operations over the int32 issue rate), the composite (mults/s at the
-   path's batch, latency at batch 1) and a profiler split of each
-   composite's device time into the kernels and the torch glue.
+   operations over the int32 issue rate), the multiply composite (mults/s
+   at the path's batch, latency at batch 1), the batched rotation
+   (rotations/s, batch-1 latency), the hoisted calls, and profiler splits
+   of the multiply composite and the batched rotation into the kernels and
+   the torch glue.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -216,6 +231,15 @@ def kernel_cases(cfg: PathConfig, dev, wide: bool) -> dict:
     md_ops = B * Lc * (n * G * (op["harvey"] + op["add"]) + ntt_ops
                        + n * (2 * op["harvey"] + op["add"] + op["sub"]))
     md_bytes = (B * G + 2 * B * Lc + 2 * Lc + B * Lc) * plane
+    # K3' / K8' at key-switch shapes: the child is the whole base, the
+    # dropped moduli the specials, and there is no t term
+    Gs = len(specials)
+    yhat_sp = planes((B,), specials)
+    ks_base = ks_full[..., :L, :]
+    nt_kw = dict(child_moduli=primes, dropped_moduli=specials, degree=n)
+    nt_ops = B * L * (n * Gs * (op["harvey"] + op["add"]) + ntt_ops
+                      + n * (op["harvey"] + op["sub"]))
+    nt_bytes = (B * Gs + B * L + 2 * L + B * L) * plane
 
     return {
         "forward": Case(lambda: ntt(x, primes, n, False),
@@ -237,6 +261,11 @@ def kernel_cases(cfg: PathConfig, dev, wide: bool) -> dict:
             lambda: mdg.mod_down_combine_twin(yhat, ks, t, child, dropped, n,
                                               p_specials),
             md_bytes, md_ops),
+        "mod_down_no_t": Case(
+            lambda: mod_down(yhat_sp, ks_base, None, **nt_kw),
+            lambda: mdg.mod_down_combine_twin(yhat_sp, ks_base, None, primes,
+                                              specials, n, 0),
+            nt_bytes, nt_ops),
     }
 
 
@@ -341,12 +370,165 @@ def run_path(cfg: PathConfig, dev, counters) -> dict:
     print(f"check [{cfg.name}] composite: GPU items 0..1 == CPU twin "
           f"({time.perf_counter() - t0:.2f} s on the CPU)")
     return dict(launches=launches, ctx=ctx, child=child_ctx, rlk=rlk,
-                batch=(a0, a1, b0, b1))
+                batch=(a0, a1, b0, b1), eng=eng, sk=sk, pk=pk, enc=enc,
+                key_rng=key_rng, values=va, cts=cts_a)
 
 
-def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict, names: dict,
-              int_ops_per_s: float, twin_iters: int) -> list:
-    """Phase 4 on one path: kernel / twin times, bounds, the composite."""
+@dataclasses.dataclass(frozen=True)
+class RotateConfig:
+    offsets: tuple  # rotation keys generated (the hoisted calls use them all)
+    scale_bits: int  # encoder scale of the rotation path's batch
+    rot_err: float  # decode bound of rotate / conjugate
+    sum_err: float  # decode bound of the hoisted sums
+
+
+# At N = 2^14, h = N/2 and scale 2^31 a rotation decodes with ~2.5e-3 error
+# on slot 0, in the JAX reference as in the port: the digits of the
+# decomposition are not centered, and the key switch's mean error term
+# lands on the slot whose root is exp(i pi / N), where 1 + X + ... + X^{N-1}
+# is ~2N/pi (tools/rotation_noise.py estimates it). The reference tests'
+# bounds (1e-4, 1e-3) do not allow that, so the small rotation path checks
+# at 2^45, where the same absolute error is 2^14 times smaller; a rotation
+# spends no level and the weighted sum's rescale leaves 2^59 on the 7-prime
+# child. 2^45 is the check's scale only: a circuit that rescales on this
+# chain keeps ~2^31.
+SMALL_ROT = RotateConfig(tuple(range(1, 9)), 45, 1e-4, 1e-3)
+# the wide hoisted path runs the generic decomposition and key products in
+# bit-serial int64 torch, so it takes 3 keys
+WIDE_ROT = RotateConfig((1, 2, 3), 61, 1e-6, 1e-6)
+
+
+def run_rotation(cfg: PathConfig, rot: RotateConfig, run: dict, counters,
+                 no_t) -> dict:
+    """Phase 3b on one path: rotation keys (offsets, -1, conjugation) from
+    the seed-42 stream of phase 3 and a batch encrypted at the rotation
+    path's scale, then through the user entry points
+    ``batched_rotate`` on the whole batch, ``rotate_ciphertext`` by 1 and
+    -1, ``conjugate_ciphertext``, ``rotate_hoisted``,
+    ``rotate_sum_hoisted`` and ``rotate_weighted_sum_hoisted`` +
+    ``rescale_ciphertext`` (one baby-step block of a diagonal-method
+    matrix-vector product), with every launch count set to 0 just before
+    and read just after; decode bounds, item 0 against the batch, items
+    0..1 against the CPU twin, and every kernel of the path launched."""
+    import numpy as np
+    import torch
+
+    from toy_heaan_ckks_tpu_torch import CkksContext, CkksEncoder, CkksEngine
+    from toy_heaan_ckks_tpu_torch.math.sampling import make_rng
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import _rotate_arrays, batched_rotate
+
+    E = CkksEngine
+    eng, sk, ctx = run["eng"], run["sk"], run["ctx"]
+    n, ds, B = cfg.degree, cfg.digit_size, cfg.batch
+    for f in counters:
+        f.launches = 0
+    no_t.launches_no_t = 0
+    t0 = time.perf_counter()
+    key_rng = run["key_rng"]
+    rotks = {k: eng.generate_gadget_rotation_key(sk, k, key_rng, digit_size=ds)
+             for k in rot.offsets}
+    rk_m1 = eng.generate_gadget_rotation_key(sk, -1, key_rng, digit_size=ds)
+    cjk = eng.generate_conjugation_key(sk, key_rng, digit_size=ds)
+    enc = CkksEncoder(n, rot.scale_bits)
+    va = make_rng(SEED + 3).uniform(-1, 1, size=(B, n // 2))
+    cts = [eng.encrypt(enc.encode(v, ctx), run["pk"], ctx.total_bits(), key_rng)
+           for v in va]
+    a0 = torch.stack([c.c0.data for c in cts])
+    a1 = torch.stack([c.c1.data for c in cts])
+    torch.cuda.synchronize()
+    print(f"[{cfg.name} rotate] keygen {len(rotks)} + 2 keys, encode + encrypt "
+          f"{B} at scale 2^{rot.scale_bits}: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    o0, o1 = batched_rotate((a0, a1), rotks[1], ctx)
+    single = E.rotate_ciphertext(cts[0], rotks[1])
+    r_m1 = E.rotate_ciphertext(cts[0], rk_m1)
+    conj = E.conjugate_ciphertext(cts[0], cjk)
+    keys = [rotks[k] for k in rot.offsets]
+    hoisted = E.rotate_hoisted(cts[0], keys)
+    summed = E.rotate_sum_hoisted(cts[0], keys)
+    diags = make_rng(SEED + 2).uniform(-0.5, 0.5, size=(len(keys), n // 2))
+    pts = [enc.encode(d, keys[0].ext_ctx) for d in diags]
+    wsum = E.rescale_ciphertext(E.rotate_weighted_sum_hoisted(cts[0], keys, pts))
+    torch.cuda.synchronize()
+    # the multiply path's first ciphertext (scale 2^scale_bits of phase 3)
+    # rotated by 1, for its error alone: no bound at that scale
+    mul_ct = run["cts"][0]
+    mul_rot = E.rotate_ciphertext(mul_ct, rotks[1])
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counters}
+    launches[f"{no_t.__name__}[no_t]"] = no_t.launches_no_t
+    print(f"[{cfg.name} rotate] path ({len(keys)} hoisted keys): "
+          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[{cfg.name} rotate] main-path launches: {launches}")
+    if not (torch.equal(single.c0.data, o0[0]) and torch.equal(single.c1.data, o1[0])):
+        raise AssertionError(f"[{cfg.name}] rotate_ciphertext differs from batch item 0")
+    if o0.shape != a0.shape or o0.dtype != ctx.chain.dtype:
+        raise AssertionError(f"[{cfg.name}] unexpected rotation {tuple(o0.shape)}")
+
+    def err(ct, want):
+        got = enc.decode(eng.decrypt(ct, sk.reduce_to(ct.ctx)))
+        if got.shape != (n // 2,) or not np.all(np.isfinite(got)):
+            raise AssertionError(f"[{cfg.name}] decode: bad shape or non-finite values")
+        return float(np.max(np.abs(got - want)))
+
+    from toy_heaan_ckks_tpu_torch.ops.poly import Poly
+    from toy_heaan_ckks_tpu_torch.types import Ciphertext
+
+    batch_cts = [Ciphertext(c0=Poly(o0[i], ctx, True), c1=Poly(o1[i], ctx, True),
+                            logp=single.logp, logq=single.logq, scale=single.scale)
+                 for i in range(2)]
+    errs = {
+        "batched_rotate(1) items 0..1": (max(err(c, np.roll(va[i], -1))
+                                             for i, c in enumerate(batch_cts)), rot.rot_err),
+        "rotate(-1)": (err(r_m1, np.roll(va[0], 1)), rot.rot_err),
+        "conjugate": (err(conj, va[0]), rot.rot_err),
+        "rotate_hoisted": (max(err(c, np.roll(va[0], -k))
+                               for c, k in zip(hoisted, rot.offsets)), rot.rot_err),
+        "rotate_sum_hoisted": (err(summed, sum(np.roll(va[0], -k) for k in rot.offsets)),
+                               rot.sum_err),
+        "weighted_sum+rescale": (err(wsum, sum(d * np.roll(va[0], -k)
+                                               for d, k in zip(diags, rot.offsets))),
+                                 rot.sum_err),
+    }
+    rot_errs = np.abs(enc.decode(eng.decrypt(mul_rot, sk))
+                      - np.roll(run["values"][0], -1))
+    print(f"[{cfg.name} rotate] decode max |err| at the multiply path's scale "
+          f"2^{cfg.scale_bits} (no bound): fresh ciphertext "
+          f"{err(mul_ct, run['values'][0]):.3e}, rotated by 1 "
+          f"{rot_errs.max():.3e} (on slot {int(rot_errs.argmax())})")
+    for name, (e, bound) in errs.items():
+        print(f"[{cfg.name} rotate] decode max |err| {name}: {e:.3e} (bound {bound})")
+        if e > bound:
+            raise AssertionError(f"[{cfg.name}] {name} decode error {e} > {bound}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"[{cfg.name}] a kernel of the rotation path never "
+                             f"launched: {launches}")
+
+    # items 0..1 of the batched rotation again, through the twins on the CPU
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    rk = rotks[1]
+    ctx_cpu = CkksContext.build(ctx.moduli, n, cpu)
+    ext_cpu = CkksContext.build(rk.ext_ctx.moduli, n, cpu)
+    perm = ctx_cpu.automorphism_table_ntt(pow(5, 1, 2 * n))
+    c0, c1 = _rotate_arrays(a0[:2].cpu(), a1[:2].cpu(), rk.a.cpu(), rk.b.cpu(),
+                            perm, ctx_cpu, ext_cpu, ds)
+    if not (torch.equal(c0, o0[:2].cpu()) and torch.equal(c1, o1[:2].cpu())):
+        raise AssertionError(f"[{cfg.name}] GPU rotation differs from the CPU twin")
+    print(f"check [{cfg.name} rotate] batched rotation: GPU items 0..1 == CPU twin "
+          f"({time.perf_counter() - t0:.2f} s on the CPU)")
+    return dict(launches=launches, rotk=rk, keys=keys, pts=pts, ct=cts[0],
+                batch=(a0, a1))
+
+
+def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict,
+              rot_launches: dict, names: dict, int_ops_per_s: float,
+              twin_iters: int) -> list:
+    """Phase 4 on one path: kernel / twin times, bounds, the composite. A
+    row's ``launches`` is its count in the multiply run (phase 3), or for
+    the t-less mod-down in the rotation run (phase 3b), whose counts every
+    row also carries as ``rotate_launches``."""
     from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_mul_relin_rescale
 
     times = {}
@@ -366,12 +548,13 @@ def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict, names: dict,
           f"planes): {fwd_ms * 1000 / (cfg.batch * cfg.count):.3f} us")
 
     rows = []
+    launches = {**rot_launches, **run["launches"]}
     for case_name, (fn, src, rep) in names.items():
         ms, plain_ms, bound_ms, bound_by = times[case_name]
         rows.append({
             "name": fn, "route": "cuda",
             "source": f"toy_heaan_ckks_tpu_torch/{src}", **rep,
-            "launches": run["launches"][fn],
+            "launches": launches[fn], "rotate_launches": rot_launches.get(fn, 0),
             "max_abs_err": max(e for k, e in errs.items()
                                if k in _same_kernel(case_name)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -389,6 +572,30 @@ def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict, names: dict,
           f"{cfg.batch * 1000 / batch_ms:.1f} mults/s")
     print(f"time [{cfg.name}] composite batch 1: {one_ms:.4f} ms latency")
     return rows
+
+
+def time_rotation(cfg: PathConfig, run: dict, rot_run: dict, iters: int) -> None:
+    """Phase 4 of the rotation path: batched rotations per second and the
+    batch-1 latency, the hoisted calls, and a profiler split of the
+    batched rotation."""
+    from toy_heaan_ckks_tpu_torch import CkksEngine as E
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_rotate
+
+    ctx, (a0, a1) = run["ctx"], rot_run["batch"]
+    rk, keys, pts, ct = rot_run["rotk"], rot_run["keys"], rot_run["pts"], rot_run["ct"]
+    batch_ms = _cuda_ms(lambda: batched_rotate((a0, a1), rk, ctx), 20)
+    one_ms = _cuda_ms(lambda: batched_rotate((a0[:1], a1[:1]), rk, ctx), 20)
+    print(f"time [{cfg.name}] batched_rotate batch {cfg.batch}: {batch_ms:.4f} ms/batch "
+          f"= {cfg.batch * 1000 / batch_ms:.1f} rotations/s")
+    print(f"time [{cfg.name}] batched_rotate batch 1: {one_ms:.4f} ms latency")
+    for name, fn in (("rotate_hoisted", lambda: E.rotate_hoisted(ct, keys)),
+                     ("rotate_sum_hoisted", lambda: E.rotate_sum_hoisted(ct, keys)),
+                     ("rotate_weighted_sum_hoisted",
+                      lambda: E.rotate_weighted_sum_hoisted(ct, keys, pts))):
+        ms = _cuda_ms(fn, iters, warmup=2)
+        print(f"time [{cfg.name}] {name} ({len(keys)} keys): {ms:.4f} ms/call")
+    profile_composite(f"{cfg.name} batched_rotate batch {cfg.batch}",
+                      lambda: batched_rotate((a0, a1), rk, ctx))
 
 
 def _same_kernel(case_name: str) -> tuple:
@@ -431,6 +638,7 @@ def profile_composite(label: str, fn, iters: int = 5) -> None:
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -468,16 +676,24 @@ def main() -> int:
 
     # ── phase 2: kernels vs twins at each path's shapes ─────────────────
     small_cases = kernel_cases(SMALL, dev, wide=False)
-    small_errs = check_cases("K1-K3 small", small_cases)
+    small_errs = check_cases("K1-K3' small", small_cases)
     wide_cases = kernel_cases(WIDE, dev, wide=True)
-    wide_errs = check_cases("K5-K8 wide", wide_cases)
-    errs_62 = check_cases("K5-K8 wide 62b 2^14", kernel_cases(WIDE_62, dev, wide=True))
+    wide_errs = check_cases("K5-K8' wide", wide_cases)
+    errs_62 = check_cases("K5-K8' wide 62b 2^14", kernel_cases(WIDE_62, dev, wide=True))
     for k, e in errs_62.items():
         wide_errs[k] = max(wide_errs[k], e)
 
     # ── phase 3: each main path through the user entry points ───────────
     small_run = run_path(SMALL, dev, small_counters)
     wide_run = run_path(WIDE, dev, wide_counters)
+
+    # ── phase 3b: each rotation path through the user entry points ──────
+    small_rot = run_rotation(SMALL, SMALL_ROT, small_run, small_counters,
+                             mdg.mod_down_combine)
+    print(f"[{WIDE.name} rotate] the hoisted calls take {len(WIDE_ROT.offsets)} "
+          f"keys: their decomposition and key products are bit-serial int64 torch")
+    wide_rot = run_rotation(WIDE, WIDE_ROT, wide_run, wide_counters,
+                            mdg.mod_down_combine_wide)
 
     # ── phase 4: timings (CUDA events, after warm-up) ───────────────────
     small_names = {
@@ -487,6 +703,8 @@ def main() -> int:
                               {"replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas.py:157"}),
         "mod_down_combine": ("mod_down_combine", "csrc/moddown.cu",
                              {"replaces": "toy_heaan_ckks_tpu/ops/moddown_pallas.py:173"}),
+        "mod_down_no_t": ("mod_down_combine[no_t]", "csrc/moddown.cu",
+                          {"replaces": "toy_heaan_ckks_tpu/ops/moddown_pallas.py:164"}),
     }
     wide_names = {
         "inverse+fold": ("ntt_planes_wide", "csrc/ntt.cu", {
@@ -497,17 +715,22 @@ def main() -> int:
             "also_replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:184"}),
         "mod_down_combine": ("mod_down_combine_wide", "csrc/moddown.cu", {
             "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:613"}),
+        "mod_down_no_t": ("mod_down_combine_wide[no_t]", "csrc/moddown.cu", {
+            "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:604"}),
     }
-    rows = time_path(SMALL, small_cases, small_errs, small_run, small_names,
-                     int_ops_per_s, twin_iters=5)
-    rows += time_path(WIDE, wide_cases, wide_errs, wide_run, wide_names,
-                      int_ops_per_s, twin_iters=2)
+    rows = time_path(SMALL, small_cases, small_errs, small_run,
+                     small_rot["launches"], small_names, int_ops_per_s, twin_iters=5)
+    rows += time_path(WIDE, wide_cases, wide_errs, wide_run, wide_rot["launches"],
+                      wide_names, int_ops_per_s, twin_iters=2)
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run)):
         ctx, child, rlk, (a0, a1, b0, b1) = (run["ctx"], run["child"], run["rlk"],
                                              run["batch"])
         profile_composite(f"{cfg.name} composite batch {cfg.batch}", lambda:
                           batched_mul_relin_rescale((a0, a1), (b0, b1), rlk, ctx, child))
+    time_rotation(SMALL, small_run, small_rot, iters=5)
+    time_rotation(WIDE, wide_run, wide_rot, iters=3)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    print(f"wall time: {time.perf_counter() - start:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

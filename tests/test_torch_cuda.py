@@ -139,6 +139,64 @@ def test_wide_moddown_kernel_matches_twin(dev, bits, degree):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("bits,degree,count,digit_size", [
+    (31, 1 << 14, 8, 4), (31, 1 << 12, 3, 2), (61, 1 << 13, 4, 1), (62, 1 << 14, 3, 1),
+])
+def test_moddown_no_t_kernel_matches_twin(dev, bits, degree, count, digit_size):
+    """K3' / K8' at key-switch shapes (the whole base kept, the specials
+    dropped, ks a channel slice of a QP stack), and their own counter."""
+    base, ext = _chain(count, digit_size, degree, bits)
+    specials = ext[count:]
+    dtype = torch.int32 if bits < 32 else torch.int64
+    fn = moddown_gpu.mod_down_combine if bits < 32 else moddown_gpu.mod_down_combine_wide
+    yhat = _planes(5, specials, degree, (2,), dev, dtype)
+    ks = _planes(6, ext, degree, (2,), dev, dtype)[..., :count, :]
+    kw = dict(child_moduli=base, dropped_moduli=specials, degree=degree)
+    before = fn.launches_no_t
+    got = fn(yhat, ks, None, **kw)
+    assert fn.launches_no_t == before + 1
+    want = moddown_gpu.mod_down_combine_twin(yhat, ks, None, base, specials,
+                                             degree, 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits,degree,count,digit_size", [
+    (31, 1 << 12, 4, 2), (61, 1 << 10, 3, 1),
+])
+def test_rotation_gpu_matches_cpu(dev, bits, degree, count, digit_size):
+    """Same seeds on both devices: a batched rotation and a
+    rotate_sum_hoisted are bit-identical, and the card ran the key
+    switch's kernels, the t-less mod-down included."""
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_rotate
+
+    wide = bits > 31
+    md = moddown_gpu.mod_down_combine_wide if wide else moddown_gpu.mod_down_combine
+    ks = keyswitch_gpu.gadget_accumulate_wide if wide else keyswitch_gpu.gadget_accumulate
+    values = np.random.default_rng(4).uniform(-1, 1, size=(2, degree // 2))
+    outs = {}
+    for device in (torch.device("cpu"), dev):
+        before = (md.launches_no_t, ks.launches)
+        ctx = port.CkksContext.build(port.generate_primes(bits, count, degree),
+                                     degree, device)
+        eng = port.CkksEngine(ctx, port.CkksParams(3.2, degree // 2, 30))
+        rng = make_rng(42)
+        sk = eng.generate_secret_key(rng)
+        pk = eng.generate_public_key(sk, rng)
+        keys = [eng.generate_gadget_rotation_key(sk, k, rng, digit_size=digit_size)
+                for k in (1, 2, -3)]
+        enc = port.CkksEncoder(degree, 30)
+        cts = [eng.encrypt(enc.encode(v, ctx), pk, ctx.total_bits(), rng)
+               for v in values]
+        o0, o1 = batched_rotate((torch.stack([c.c0.data for c in cts]),
+                                 torch.stack([c.c1.data for c in cts])), keys[0], ctx)
+        summed = port.CkksEngine.rotate_sum_hoisted(cts[0], keys)
+        outs[device.type] = [x.cpu() for x in (o0, o1, summed.c0.data, summed.c1.data)]
+        launched = (md.launches_no_t - before[0], ks.launches - before[1])
+        assert all(n > 0 for n in launched) == (device.type == "cuda")
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert torch.equal(a, b)
+
+
 def test_wide_slice_gpu_matches_cpu(dev):
     """The wide slice (61-bit, ds 1) on both devices: keys and the fused
     product are bit-identical, and the GPU run went through K5/K7, K6, K8."""

@@ -171,7 +171,7 @@ def test_convert_round_trip(both):
     for got, want in zip(convert.ciphertext_to_reference(out),
                          (r["single"].c0.data, r["single"].c1.data)):
         np.testing.assert_array_equal(got, np.asarray(want))
-    for got, want in zip(convert.relin_key_to_reference(p["rlk"]),
+    for got, want in zip(convert.gadget_key_to_reference(p["rlk"]),
                          (r["rlk"].a, r["rlk"].b)):
         np.testing.assert_array_equal(got, np.asarray(want))
     pk = convert.public_key_from_reference(

@@ -375,7 +375,7 @@ def test_wide_convert_round_trip_of_state(both):
     out = port.CkksEngine.mul_rescale(ca, cb, rlk)
     assert torch.equal(out.c0.data, p["single"].c0.data)
     assert torch.equal(out.c1.data, p["single"].c1.data)
-    for got, want in zip(convert.relin_key_to_reference(p["rlk"]),
+    for got, want in zip(convert.gadget_key_to_reference(p["rlk"]),
                          (r["rlk"].a, r["rlk"].b)):
         np.testing.assert_array_equal(got, np.asarray(want))
     sk = convert.secret_key_from_reference(

@@ -1,19 +1,28 @@
 """toy_heaan_ckks_tpu_torch — the PyTorch/CUDA port of ``toy_heaan_ckks_tpu``.
 
-First slice: the fused CKKS multiply (keygen -> encrypt -> multiply with
-hybrid gadget relinearization and rescale -> decrypt) on small-prime
-chains (all q < 2^31). Module paths and names follow the JAX package;
-each module's docstring names its counterpart. Residues are int32 lo
-planes (..., L, N) in Montgomery form (R = 2^32), NTT-resident in the
-reference's tree order, bit-identical to the reference's uint32 limbs.
-The three TPU kernels of the path are CUDA kernels for sm_90a
+Ported so far: keygen, encrypt and decrypt; the fused CKKS multiply
+(hybrid gadget relinearization and rescale); rotations, conjugation and
+hoisted rotation sums with hybrid key switching; the plaintext and level
+ops around them; on small-prime chains (all q < 2^31: int32 planes,
+R = 2^32) and wide ones (q < 2^63: int64 planes, R = 2^64). Module paths
+and names follow the JAX package; each module's docstring names its
+counterpart. Residues are Montgomery-form planes (..., L, N), NTT-resident
+in the reference's tree order, bit-identical to the reference's uint32
+limbs. The TPU kernels of these paths are CUDA kernels for sm_90a
 (``csrc/``), each with a plain torch twin that CPU tensors use.
 """
 
 from .context import CkksContext
 from .encoding.encoder import CkksEncoder
 from .engine import CkksEngine, CkksParams
-from .keys import PublicKey, RnsGadgetRelinKey, SecretKey, SecretKeyParams
+from .keys import (
+    PublicKey,
+    RnsGadgetConjugationKey,
+    RnsGadgetRelinKey,
+    RnsGadgetRotationKey,
+    SecretKey,
+    SecretKeyParams,
+)
 from .math.primes import generate_primes
 from .ops.poly import Poly
 from .types import Ciphertext, Plaintext
@@ -27,7 +36,9 @@ __all__ = [
     "Plaintext",
     "Poly",
     "PublicKey",
+    "RnsGadgetConjugationKey",
     "RnsGadgetRelinKey",
+    "RnsGadgetRotationKey",
     "SecretKey",
     "SecretKeyParams",
     "generate_primes",

@@ -4,7 +4,9 @@ Counterpart of ``toy_heaan_ckks_tpu/context.py``. A context holds the
 chain's constants and NTT tables as tensors on its device (the card unless
 the caller asks for the CPU); ``build`` caches
 one context per (moduli, degree, device), and dropping a level gives the
-(cached) context of the shorter chain on the same device.
+(cached) context of the shorter chain on the same device. The
+automorphism tables of rotations and conjugation are built on the host
+and cached per exponent as index tensors on the context's device.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from .ops.modular import ModulusChain
@@ -82,3 +85,56 @@ class CkksContext:
 
     def total_bits(self) -> int:
         return self.chain.total_bits()
+
+    # ── automorphism tables (host-built, cached per exponent) ────────────
+
+    @functools.lru_cache(maxsize=256)
+    def automorphism_table(self, exponent: int):
+        """(src, negate) for X -> X^exponent on coefficient-domain data:
+        out[j] = (-1)^negate[j] * in[src[j]]; int64 (N,) and bool (N,)
+        tensors on the context's device."""
+        src, neg = _automorphism_gather(self.degree, exponent)
+        return (torch.from_numpy(src).to(self.device),
+                torch.from_numpy(neg).to(self.device))
+
+    @functools.lru_cache(maxsize=256)
+    def automorphism_table_ntt(self, exponent: int) -> torch.Tensor:
+        """NTT-domain automorphism as a pure slot permutation: slot k of the
+        tree-order NTT holds p(psi^{E_k}), and sigma_e(p) there is
+        p(psi^{e*E_k}), another slot. out[k] = in[perm[k]]; int64 (N,)
+        on the context's device."""
+        return torch.from_numpy(_automorphism_perm(self.degree, exponent)).to(
+            self.device)
+
+
+def _odd_exponent(degree: int, exponent: int) -> int:
+    e = exponent % (2 * degree)
+    if e % 2 == 0:
+        raise ValueError("automorphism exponent must be odd")
+    return e
+
+
+@functools.lru_cache(maxsize=256)
+def _automorphism_gather(degree: int, exponent: int):
+    """Host (src, negate) arrays of X -> X^exponent (the reference's
+    scatter i -> i*e mod 2N, inverted into a gather)."""
+    n, e = degree, _odd_exponent(degree, exponent)
+    i = np.arange(n, dtype=np.int64)
+    jf = i * e % (2 * n)
+    src = np.empty(n, np.int64)
+    neg = np.empty(n, bool)
+    src[jf % n] = i
+    neg[jf % n] = jf >= n
+    return src, neg
+
+
+@functools.lru_cache(maxsize=256)
+def _automorphism_perm(degree: int, exponent: int) -> np.ndarray:
+    """Host NTT-domain permutation of X -> X^exponent (tree order)."""
+    from .ops.ntt import tree_leaf_exponents
+
+    n, e = degree, _odd_exponent(degree, exponent)
+    exps = np.array(tree_leaf_exponents(n), dtype=np.int64)
+    idx_of = np.empty(2 * n, np.int64)
+    idx_of[exps] = np.arange(n)
+    return idx_of[exps * e % (2 * n)]

@@ -16,7 +16,13 @@ import numpy as np
 import torch
 
 from .context import CkksContext
-from .keys import PublicKey, RnsGadgetRelinKey, SecretKey
+from .keys import (
+    PublicKey,
+    RnsGadgetConjugationKey,
+    RnsGadgetRelinKey,
+    RnsGadgetRotationKey,
+    SecretKey,
+)
 from .ops.poly import Poly
 from .types import Ciphertext
 
@@ -75,21 +81,45 @@ def public_key_from_reference(a, b, ctx: CkksContext) -> PublicKey:
     )
 
 
-def relin_key_from_reference(a, b, moduli, ext_moduli, digit_size: int,
-                             degree: int, device,
-                             a_seed: int | None = None) -> RnsGadgetRelinKey:
-    """Reference ``RnsGadgetRelinKey`` stacks (D, E, 2, N) -> the port's,
-    on ``device``."""
+def _key_fields(a, b, moduli, ext_moduli, digit_size: int, degree: int,
+                device, a_seed: int | None) -> dict:
+    """The fields every gadget key shares, from reference arrays."""
     ctx = CkksContext.build(moduli, degree, device)
     ext_ctx = CkksContext.build(ext_moduli, degree, device)
     special = 1
     for p in ext_ctx.moduli[ctx.num_channels:]:
         special *= p
-    return RnsGadgetRelinKey(
-        a=_planes(a, ext_ctx), b=_planes(b, ext_ctx),
-        ctx=ctx, ext_ctx=ext_ctx, special=special, digit_size=digit_size,
-        a_seed=a_seed,
-    )
+    return dict(a=_planes(a, ext_ctx), b=_planes(b, ext_ctx), ctx=ctx,
+                ext_ctx=ext_ctx, special=special, digit_size=digit_size,
+                a_seed=a_seed)
+
+
+def relin_key_from_reference(a, b, moduli, ext_moduli, digit_size: int,
+                             degree: int, device,
+                             a_seed: int | None = None) -> RnsGadgetRelinKey:
+    """Reference ``RnsGadgetRelinKey`` stacks (D, E, 2, N) -> the port's,
+    on ``device``."""
+    return RnsGadgetRelinKey(**_key_fields(
+        a, b, moduli, ext_moduli, digit_size, degree, device, a_seed))
+
+
+def rotation_key_from_reference(a, b, rotation: int, moduli, ext_moduli,
+                                digit_size: int, degree: int, device,
+                                a_seed: int | None = None) -> RnsGadgetRotationKey:
+    """Reference ``RnsGadgetRotationKey`` stacks (D, E, 2, N) and its
+    rotation -> the port's, on ``device`` (with an empty hoist cache)."""
+    return RnsGadgetRotationKey(rotation=rotation, **_key_fields(
+        a, b, moduli, ext_moduli, digit_size, degree, device, a_seed))
+
+
+def conjugation_key_from_reference(a, b, moduli, ext_moduli, digit_size: int,
+                                   degree: int, device,
+                                   a_seed: int | None = None
+                                   ) -> RnsGadgetConjugationKey:
+    """Reference ``RnsGadgetConjugationKey`` stacks (D, E, 2, N) -> the
+    port's, on ``device``."""
+    return RnsGadgetConjugationKey(**_key_fields(
+        a, b, moduli, ext_moduli, digit_size, degree, device, a_seed))
 
 
 def ciphertext_from_reference(c0, c1, ctx: CkksContext, logp: int, logq: int,
@@ -107,5 +137,7 @@ def ciphertext_to_reference(ct: Ciphertext) -> tuple[np.ndarray, np.ndarray]:
     return to_reference(ct.c0.data), to_reference(ct.c1.data)
 
 
-def relin_key_to_reference(rlk: RnsGadgetRelinKey) -> tuple[np.ndarray, np.ndarray]:
-    return to_reference(rlk.a), to_reference(rlk.b)
+def gadget_key_to_reference(key) -> tuple[np.ndarray, np.ndarray]:
+    """A gadget key's (a, b) stacks (relin, rotation or conjugation) -> the
+    reference's (D, E, 2, N)."""
+    return to_reference(key.a), to_reference(key.b)

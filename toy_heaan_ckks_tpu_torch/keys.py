@@ -1,7 +1,9 @@
-"""RLWE key material: secret key, public key and the hybrid gadget relin key.
+"""RLWE key material: secret and public keys, and the hybrid gadget keys.
 
-Counterpart of ``toy_heaan_ckks_tpu/keys.py`` for the keys the fused
-multiply needs. The keys draw from the caller's numpy Generator in the
+Counterpart of ``toy_heaan_ckks_tpu/keys.py`` for the keys of the fused
+multiply, rotations and conjugation (the gadget relin, rotation and
+conjugation keys; the legacy single-pair keys and ``KeyLadder`` are not
+ported). The keys draw from the caller's numpy Generator in the
 reference's order, so one seed gives bit-identical keys in both packages.
 Gadget keys are stored as (D, E, N) NTT-domain Montgomery stacks (digit,
 channel incl. specials, coefficient) of the extended chain's dtype (int32
@@ -192,12 +194,41 @@ def regenerate_gadget_a(ext_ctx: CkksContext, num_digits: int,
     ])
 
 
+def _resolve_specials(ctx: CkksContext, special: int | None,
+                      specials: tuple[int, ...] | None,
+                      digit_size: int) -> tuple[int, ...]:
+    """The special primes a key is built over: ``specials`` as given, else
+    the one ``special``, else one default prime per channel of the largest
+    digit group."""
+    if specials is not None:
+        return tuple(int(p) for p in specials)
+    if special is not None:
+        return (int(special),)
+    groups = digit_groups(ctx.num_channels, digit_size)
+    return default_special_primes(ctx, max(len(g) for g in groups))
+
+
+def _gadget_key_fields(sk: SecretKey, target: Poly, std_dev: float,
+                       ctx: CkksContext, rng: np.random.Generator,
+                       special, specials, digit_size: int) -> dict:
+    """The fields every gadget key shares, for a key encoding ``target``."""
+    sp = _resolve_specials(ctx, special, specials, digit_size)
+    a, b, ext_ctx, a_seed = _gadget_pairs(
+        sk, target, std_dev, ctx, rng, sp, digit_size
+    )
+    p_total = 1
+    for p in sp:
+        p_total *= p
+    return dict(a=a, b=b, ctx=ctx, ext_ctx=ext_ctx, special=p_total,
+                digit_size=digit_size, a_seed=a_seed)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class RnsGadgetRelinKey:
     """Gadget relinearization key: digit t encodes P * T_t * s^2 over QP.
 
     a/b: (D, L+g', N) NTT-domain stacks of the extended chain's dtype;
-    g' = digit_size special primes, whose product is ``special``.
+    g' special primes, whose product is ``special``.
     """
 
     a: torch.Tensor
@@ -210,19 +241,63 @@ class RnsGadgetRelinKey:
 
     @staticmethod
     def generate(sk: SecretKey, std_dev: float, ctx: CkksContext,
-                 rng: np.random.Generator,
+                 rng: np.random.Generator, special: int | None = None,
+                 specials: tuple[int, ...] | None = None,
                  digit_size: int = 1) -> "RnsGadgetRelinKey":
-        """One special prime per channel of the largest digit group, as the
-        reference's default."""
-        groups = digit_groups(ctx.num_channels, digit_size)
-        sp = default_special_primes(ctx, max(len(g) for g in groups))
-        a, b, ext_ctx, a_seed = _gadget_pairs(
-            sk, sk.poly * sk.poly, std_dev, ctx, rng, sp, digit_size
-        )
-        p_total = 1
-        for p in sp:
-            p_total *= p
-        return RnsGadgetRelinKey(
-            a=a, b=b, ctx=ctx, ext_ctx=ext_ctx, special=p_total,
-            digit_size=digit_size, a_seed=a_seed,
-        )
+        return RnsGadgetRelinKey(**_gadget_key_fields(
+            sk, sk.poly * sk.poly, std_dev, ctx, rng, special, specials,
+            digit_size,
+        ))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RnsGadgetRotationKey:
+    """Gadget rotation key: digit t encodes P * T_t * s(X^{5^k}) over QP.
+
+    ``hoist_cache`` holds the inverse-permuted key planes of hoisted
+    rotation, built on first use (the dict is mutable, the key frozen)."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    rotation: int
+    ctx: CkksContext
+    ext_ctx: CkksContext
+    special: int
+    digit_size: int = 1
+    a_seed: int | None = None
+    hoist_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @staticmethod
+    def generate(sk: SecretKey, rotation: int, std_dev: float,
+                 ctx: CkksContext, rng: np.random.Generator,
+                 special: int | None = None,
+                 specials: tuple[int, ...] | None = None,
+                 digit_size: int = 1) -> "RnsGadgetRotationKey":
+        return RnsGadgetRotationKey(rotation=rotation, **_gadget_key_fields(
+            sk, sk.poly.rotate_slots(rotation), std_dev, ctx, rng, special,
+            specials, digit_size,
+        ))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RnsGadgetConjugationKey:
+    """Gadget key for slot conjugation: digit t encodes
+    P * T_t * s(X^{2N-1}) over QP."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    ctx: CkksContext
+    ext_ctx: CkksContext
+    special: int
+    digit_size: int = 1
+    a_seed: int | None = None
+
+    @staticmethod
+    def generate(sk: SecretKey, std_dev: float, ctx: CkksContext,
+                 rng: np.random.Generator, special: int | None = None,
+                 specials: tuple[int, ...] | None = None,
+                 digit_size: int = 1) -> "RnsGadgetConjugationKey":
+        return RnsGadgetConjugationKey(**_gadget_key_fields(
+            sk, sk.poly.conjugate(), std_dev, ctx, rng, special, specials,
+            digit_size,
+        ))

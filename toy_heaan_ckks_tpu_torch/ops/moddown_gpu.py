@@ -1,11 +1,15 @@
-"""K3 / K8: fused RNS mod-down with combine, CUDA kernel and twin.
+"""K3 / K8 (and K3' / K8' without t): fused RNS mod-down, kernel and twin.
 
 Counterpart of ``toy_heaan_ckks_tpu/ops/moddown_pallas.py``
 (``_down_consts``, ``inv_ntt_to_yhat``, ``_md_kernel_t`` /
 ``_md_kernel_no_t``, ``mod_down_combine_pallas``) for small chains, and of
 ``ops/keyswitch_pallas_wide.py`` (``_down_consts_wide``,
 ``_fold_consts_wide``, ``inv_ntt_to_yhat_wide``, ``inv_ntt_fold_wide``,
-``_md_kernel_wide_t``, ``mod_down_combine_pallas_wide``) for wide ones.
+``_md_kernel_wide_t`` / ``_md_kernel_wide_no_t``,
+``mod_down_combine_pallas_wide``) for wide ones. The fused multiply runs
+the t form (K3, K8: relin + rescale, t scaled by the special product); a
+key switch runs the t-less form (K3', K8': the division by P alone, the
+child the whole base and the dropped moduli the specials).
 Per kept channel j:
 
     ext_j  = sum_m  yhat_m * (Phat_m * R mod q_j)
@@ -210,27 +214,31 @@ def _combine(yhat, ks, t, child_moduli, dropped_moduli, degree: int,
 
 def mod_down_combine(yhat, ks, t=None, *, child_moduli, dropped_moduli,
                      degree: int, t_scale: int = 0):
-    """K3: out_j = ((t_j * t_scale if t) + ks_j - NTT(ext_j)) * P^{-1}.
+    """K3 (with t) / K3' (t None): out_j = ((t_j * t_scale if t) + ks_j -
+    NTT(ext_j)) * P^{-1}.
 
     yhat: int32 (..., G, N) plain; ks/t: int32 (..., L', N) Montgomery
     NTT-domain planes (channel slices of larger stacks are read in place).
-    P = prod(dropped_moduli). Returns int32 (..., L', N).
+    P = prod(dropped_moduli). Returns int32 (..., L', N). ``launches``
+    counts every launch, ``launches_no_t`` those without t (K3').
     """
     out, launched = _combine(yhat, ks, t, child_moduli, dropped_moduli,
                              degree, t_scale, wide=False)
     mod_down_combine.launches += launched
+    mod_down_combine.launches_no_t += launched and t is None
     return out
 
 
 def mod_down_combine_wide(yhat, ks, t=None, *, child_moduli, dropped_moduli,
                           degree: int, t_scale: int = 0):
-    """K8: ``mod_down_combine`` on int64 planes of a wide chain (any
-    q < 2^63, R = 2^64, N <= 2^14)."""
+    """K8 (with t) / K8' (t None): ``mod_down_combine`` on int64 planes of a
+    wide chain (any q < 2^63, R = 2^64, N <= 2^14)."""
     out, launched = _combine(yhat, ks, t, child_moduli, dropped_moduli,
                              degree, t_scale, wide=True)
     mod_down_combine_wide.launches += launched
+    mod_down_combine_wide.launches_no_t += launched and t is None
     return out
 
 
-mod_down_combine.launches = 0
-mod_down_combine_wide.launches = 0
+mod_down_combine.launches = mod_down_combine.launches_no_t = 0
+mod_down_combine_wide.launches = mod_down_combine_wide.launches_no_t = 0

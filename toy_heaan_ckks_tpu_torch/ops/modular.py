@@ -33,6 +33,7 @@ The reference's 16-bit half-word emulation (``ops/u64.py``) is not ported.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -54,6 +55,14 @@ def word_table(values, radix_bits: int) -> torch.Tensor:
     if radix_bits == 32:
         return torch.from_numpy(arr.astype(np.uint32).view(np.int32).copy())
     return torch.from_numpy(arr.view(np.int64).copy())
+
+
+@functools.lru_cache(maxsize=512)
+def column(values: tuple, device) -> torch.Tensor:
+    """Host ints < 2^63 -> a cached int64 column (..., 1) on ``device``
+    that broadcasts against (..., L, N) planes (nested tuples give more
+    leading axes)."""
+    return torch.tensor(values, dtype=torch.int64, device=device)[..., None]
 
 
 def shoup(w, q, radix_bits: int) -> np.ndarray:

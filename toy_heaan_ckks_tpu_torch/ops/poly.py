@@ -35,6 +35,38 @@ def to_coeff(a: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
     return _ntt(ctx)(a, ctx.moduli, ctx.degree, inverse=True)
 
 
+def rescale_ntt(a: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
+    """Exact RNS rescale with NTT-domain input and output: drop q_last and
+    divide by it, (..., L, N) -> (..., L-1, N). Only the dropped channel is
+    inverse-transformed (its de-Montgomery folded into the inverse's final
+    constant); the correction q_last-residue is re-read mod each kept q_i
+    and forward-transformed there."""
+    num = a.shape[-2]
+    if num < 2:
+        raise ValueError("rescale_ntt: need at least two channels")
+    chain, n = ctx.chain, ctx.degree
+    moduli = ctx.moduli
+    q_last, kept = moduli[-1], moduli[:-1]
+    fold = pow(n, -1, q_last) * pow(1 << chain.radix_bits, -1, q_last) % q_last
+    plain_last = _ntt(ctx)(a[..., num - 1 :, :], (q_last,), n, inverse=True,
+                           final=(fold,))
+    q, rmod = chain.q[:-1], chain.rmod[:-1]
+    mont_x = mm.mul_mod(plain_last.expand(*a.shape[:-2], num - 1, n), rmod, q)
+    x_ntt = _ntt(ctx)(mont_x, kept, n, inverse=False)
+    diff = mm.sub_mod(a[..., : num - 1, :], x_ntt, q)
+    qlast_inv = mm.column(tuple(pow(q_last % qi, -1, qi) for qi in kept),
+                          a.device)
+    return mm.mul_mod(diff, qlast_inv, q)
+
+
+def automorphism(a: torch.Tensor, src: torch.Tensor, negate: torch.Tensor,
+                 ctx: CkksContext) -> torch.Tensor:
+    """X -> X^e on coefficient-domain planes: out[..., j] = +/- a[..., src[j]]
+    with ``(src, negate) = ctx.automorphism_table(e)``."""
+    gathered = a.index_select(-1, src)
+    return torch.where(negate, mm.neg_mod(gathered, ctx.chain.q), gathered)
+
+
 def residues_to_device(res: np.ndarray, ctx: CkksContext) -> torch.Tensor:
     """Plain residues (L, N) in [0, q) (int64/uint64/object) -> Montgomery
     residues of the chain's dtype on the context's device."""
@@ -163,6 +195,38 @@ class Poly:
     def mod_drop_last(self, count: int = 1) -> "Poly":
         child_ctx = self.ctx.drop_last(count)
         return Poly(self.data[:-count], child_ctx, self.ntt_domain)
+
+    def rescale_ntt(self) -> "Poly":
+        """Drop q_last and divide by it, staying in the NTT domain."""
+        ntt = self.to_ntt_domain()
+        return Poly(rescale_ntt(ntt.data, self.ctx), self.ctx.drop_last(1), True)
+
+    # ── automorphisms ────────────────────────────────────────────────────
+
+    def automorphism(self, exponent: int) -> "Poly":
+        """X -> X^e. In the NTT domain this is a pure slot permutation (a
+        gather, no negation); in the coefficient domain a gather plus
+        negation."""
+        e = exponent % (2 * self.ctx.degree)
+        if e == 1:
+            return self
+        if self.ntt_domain:
+            perm = self.ctx.automorphism_table_ntt(e)
+            return Poly(self.data.index_select(-1, perm), self.ctx, True)
+        src, negate = self.ctx.automorphism_table(e)
+        return Poly(automorphism(self.data, src, negate, self.ctx), self.ctx, False)
+
+    def rotate_slots(self, k: int) -> "Poly":
+        """Rotate the slots left by k: X -> X^{5^k mod 2N}. A negative k is
+        reduced mod N/2 (the order of 5 mod 2N), so 5^k is always the exact
+        inverse power: the reference's departure from the Rust original,
+        whose k < 0 composes the positive automorphism with conjugation."""
+        half = self.ctx.degree // 2
+        return self.automorphism(pow(5, k % half, 2 * self.ctx.degree))
+
+    def conjugate(self) -> "Poly":
+        """Complex-conjugate the slots: X -> X^{2N-1}."""
+        return self.automorphism(2 * self.ctx.degree - 1)
 
     # ── export ───────────────────────────────────────────────────────────
 

@@ -1,13 +1,17 @@
-"""The fused multiply + relinearize + rescale on lo planes (all q < 2^31).
+"""The fused multiply and the key switch on lo planes (all q < 2^31).
 
 Counterpart of ``toy_heaan_ckks_tpu/ops/small_fast.py`` (``_fold_consts``,
-``inv_ntt_fold``, ``_dec_inv_ints``, ``mul_relin_rescale_lo``). The three
-kernels of the path are K1 (``ntt_gpu.ntt_planes``: the inverse NTTs with
-folded constants), K2 (``keyswitch_gpu.gadget_accumulate``) and K3
-(``moddown_gpu.mod_down_combine``); the tensor product and the combine
-glue are elementwise int64 torch, as they are plain jnp in the reference.
-``fused_mul_relin_rescale`` is that glue around any chain's kernels: the
-wide composite (``wide_fast.py``) runs it too.
+``inv_ntt_fold``, ``_dec_inv_ints``, ``mul_relin_rescale_lo``,
+``key_switch_lo``). The kernels are K1 (``ntt_gpu.ntt_planes``: the
+inverse NTTs with folded constants), K2 (``keyswitch_gpu.gadget_accumulate``)
+and K3 / K3' (``moddown_gpu.mod_down_combine`` with / without t); the
+tensor product and the combine glue are elementwise int64 torch, as they
+are plain jnp in the reference. ``fused_mul_relin_rescale``,
+``key_switch`` and ``mod_down_by_p`` are that glue around any chain's
+kernels: the wide composites (``wide_fast.py``) and the engine's hoisted
+rotations run them too. The reference's ``mod_down_lo`` (K1 plus
+elementwise glue) gives the same words as ``mod_down_by_p`` on K1 and K3',
+so the port has only the latter.
 """
 
 from __future__ import annotations
@@ -121,3 +125,43 @@ def mul_relin_rescale_lo(c0a, c1a, c0b, c1b, key_a, key_b,
         y_fold=_y_fold, accumulate=gadget_accumulate,
         to_yhat=inv_ntt_to_yhat, mod_down=mod_down_combine,
     )
+
+
+def mod_down_by_p(x, ctx: CkksContext, ext_ctx: CkksContext, *, to_yhat,
+                  mod_down):
+    """Divide NTT-domain planes over QP by P, (..., E, N) -> (..., L, N):
+    the specials' yhat inverse NTT (``to_yhat``) and the t-less fused
+    mod-down (``mod_down``), whose child is the whole base."""
+    L = len(ctx.moduli)
+    specials = ext_ctx.moduli[L:]
+    yhat = to_yhat(x[..., L:, :], specials, ctx.moduli, ctx.degree)
+    return mod_down(yhat, x[..., :L, :], None, child_moduli=ctx.moduli,
+                    dropped_moduli=specials, degree=ctx.degree)
+
+
+def key_switch(d, key_a, key_b, ctx: CkksContext, ext_ctx: CkksContext,
+               plan, *, y_fold, accumulate, to_yhat, mod_down):
+    """The hybrid gadget key switch shared by small and wide chains: the
+    decomposition inverse NTT (``y_fold``), the gadget accumulation over QP
+    with the skip-own shortcut (``accumulate``), then ``mod_down_by_p`` of
+    ks0 and ks1."""
+    y = y_fold(d, ctx, plan)
+    ks0, ks1 = accumulate(
+        y, key_a, key_b, base_moduli=ctx.moduli, ext_moduli=ext_ctx.moduli,
+        degree=ctx.degree, digit_size=plan.digit_size, d_ntt=d,
+    )
+    return tuple(mod_down_by_p(ks, ctx, ext_ctx, to_yhat=to_yhat,
+                               mod_down=mod_down) for ks in (ks0, ks1))
+
+
+def key_switch_lo(d, key_a, key_b, ctx: CkksContext, ext_ctx: CkksContext,
+                  plan):
+    """Hybrid gadget key switch of int32 NTT-domain planes (..., L, N) over
+    Q: K1 fold -> K2 -> (K1 yhat -> K3' no-t) for ks0 and ks1. Keys
+    (D, E, N); returns (ks0, ks1), int32 (..., L, N)."""
+    return key_switch(
+        d, key_a, key_b, ctx, ext_ctx, plan, y_fold=_y_fold,
+        accumulate=gadget_accumulate, to_yhat=inv_ntt_to_yhat,
+        mod_down=mod_down_combine,
+    )
+

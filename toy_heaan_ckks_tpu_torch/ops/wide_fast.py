@@ -1,14 +1,15 @@
-"""The fused multiply + relinearize + rescale on wide chains (q < 2^63).
+"""The fused multiply and the key switch on wide chains (q < 2^63).
 
 Counterpart of ``toy_heaan_ckks_tpu/ops/wide_fast.py`` (``_y_fold_wide``,
-``mul_relin_rescale_wide``) on int64 planes (..., L, N) with R = 2^64. The
-kernels of the path are K7 (``moddown_gpu.inv_ntt_fold_wide`` and
-``inv_ntt_to_yhat_wide``: the inverse NTTs with folded constants, on
-``ntt_gpu.ntt_planes_wide``), K6 (``keyswitch_gpu.gadget_accumulate_wide``)
-and K8 (``moddown_gpu.mod_down_combine_wide``); the tensor product and the
-combine glue are ``small_fast.fused_mul_relin_rescale``'s elementwise torch
-ops (``ops/modular.py``'s overflow-free int64 arithmetic on these planes),
-as they are plain jnp in the reference.
+``mul_relin_rescale_wide``, ``key_switch_wide``) on int64 planes
+(..., L, N) with R = 2^64. The kernels are K7
+(``moddown_gpu.inv_ntt_fold_wide`` and ``inv_ntt_to_yhat_wide``: the
+inverse NTTs with folded constants, on ``ntt_gpu.ntt_planes_wide``), K6
+(``keyswitch_gpu.gadget_accumulate_wide``) and K8 / K8'
+(``moddown_gpu.mod_down_combine_wide`` with / without t); the tensor
+product and the combine glue are ``small_fast``'s shared composites of
+elementwise torch ops (``ops/modular.py``'s overflow-free int64
+arithmetic on these planes), as they are plain jnp in the reference.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from .keyswitch_gpu import gadget_accumulate_wide
 from .moddown_gpu import (
     inv_ntt_fold_wide, inv_ntt_to_yhat_wide, mod_down_combine_wide,
 )
-from .small_fast import _dec_inv_ints, fused_mul_relin_rescale
+from .small_fast import _dec_inv_ints, fused_mul_relin_rescale, key_switch
 
 
 def _y_fold_wide(d_ntt, ctx: CkksContext, plan):
@@ -41,4 +42,16 @@ def mul_relin_rescale_wide(c0a, c1a, c0b, c1b, key_a, key_b,
         c0a, c1a, c0b, c1b, key_a, key_b, ctx, ext_ctx, plan,
         y_fold=_y_fold_wide, accumulate=gadget_accumulate_wide,
         to_yhat=inv_ntt_to_yhat_wide, mod_down=mod_down_combine_wide,
+    )
+
+
+def key_switch_wide(d, key_a, key_b, ctx: CkksContext, ext_ctx: CkksContext,
+                    plan):
+    """Hybrid gadget key switch of int64 NTT-domain planes (..., L, N) of a
+    wide chain: K7 fold -> K6 -> (K7 yhat -> K8' no-t) for ks0 and ks1.
+    Keys (D, E, N); returns (ks0, ks1), int64 (..., L, N)."""
+    return key_switch(
+        d, key_a, key_b, ctx, ext_ctx, plan, y_fold=_y_fold_wide,
+        accumulate=gadget_accumulate_wide, to_yhat=inv_ntt_to_yhat_wide,
+        mod_down=mod_down_combine_wide,
     )
