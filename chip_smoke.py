@@ -4,13 +4,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``toy_heaan_ckks_tpu_torch/csrc`` and
-runs, in order (every phase raises on failure), on two paths:
+runs, in order (every phase raises on failure), on four paths:
 
 - small: N = 2^14, 8 x 31-bit primes, digit_size 4, batch 32 (kernels K1
   NTT, K2 key switch, K3 / K3' mod-down with / without t, on uint32
   words);
 - wide: N = 2^13, 4 x 61-bit primes, digit_size 1, batch 8 (kernels K5/K7
-  NTT, K6 key switch, K8 / K8' mod-down, on uint64 words).
+  NTT, K6 key switch, K8 / K8' mod-down, on uint64 words);
+- big: N = 2^16, 4 x 30-bit primes, digit_size 2, batch 4 (bench.py's third
+  configuration: K4 NTT, K2, K3 / K3', each plane over a thread-block
+  cluster of 2 blocks);
+- big-wide: N = 2^15, 3 x 61-bit primes, digit_size 1, batch 4
+  (tools/ab_check.py's wide-2^15-61b-ds1: K5'/K7, K6, K8 / K8' on clusters
+  of 2 blocks); its rotation phase runs ``batched_rotate`` and
+  ``rotate_ciphertext`` only.
+
+Every kernel of the small and wide paths must run with one block per plane
+and every kernel of the big paths on clusters (``launches_cluster``).
 
 1. the card (``nvidia-smi`` name and power limit), torch / CUDA / nvcc
    versions and the kernel build time (one nvcc per source, in parallel);
@@ -19,16 +29,17 @@ runs, in order (every phase raises on failure), on two paths:
    emission of the NTT, the key switch, the mod-down with t (multiply
    shapes) and without t (key-switch shapes: the whole base kept, the
    specials dropped) — plus the wide kernels once at N = 2^14, 3 x 62-bit,
-   ds 1, batch 2 (63-bit special, 128 KiB uint64 plane); word equality
-   required;
+   ds 1, batch 2 (63-bit special, 128 KiB uint64 plane) and once at
+   N = 2^16, 2 x 61-bit, ds 1, batch 1 (clusters of 4 blocks); word
+   equality required;
 3. each multiply path through the user entry points, with every launch
    count set to 0 just before it and read just after: generate_primes ->
    CkksEngine -> sk / pk / relin key (seed 42) -> encode + encrypt 2 x B
    vectors -> ``batched_mul_relin_rescale`` on the batch and
    ``CkksEngine.mul_rescale`` on one pair -> decrypt + decode. The first 2
    items must equal the CPU twin's result bit for bit, the decoded error
-   against a*b must stay within the path's bound (1e-3 small, 1e-6 wide),
-   and every kernel of the path must have launched;
+   against a*b must stay within the path's bound (PathConfig), and every
+   kernel of the path must have launched;
 3b. each rotation path, counts again set to 0 just before and read just
    after: rotation keys for offsets 1..8 (wide: 1..3), -1 and a
    conjugation key from the same seed-42 stream -> ``batched_rotate`` of
@@ -36,9 +47,9 @@ runs, in order (every phase raises on failure), on two paths:
    0), ``rotate_ciphertext`` by -1, ``conjugate_ciphertext``,
    ``rotate_hoisted``, ``rotate_sum_hoisted`` and
    ``rotate_weighted_sum_hoisted`` + ``rescale_ciphertext`` -> decode
-   within the reference tests' bounds (1e-4 per rotation, 1e-3 for sums;
-   1e-6 on the wide chain); items 0..1 of the batched rotation equal to the
-   CPU twin; K1, K2 and K3' (small) or K5/K7, K6 and K8' (wide) launched;
+   within the path's bounds (RotateConfig); items 0..1 of the batched
+   rotation equal to the CPU twin; K1, K2 and K3' (small) or K5/K7, K6 and
+   K8' (wide) launched;
 4. CUDA-event timings of each kernel and its twin, the least time the card
    could take for the kernel's work (bytes over 3.35 TB/s, or integer
    operations over the int32 issue rate), the multiply composite (mults/s
@@ -61,6 +72,12 @@ import sys
 import time
 
 SEED = 42
+# decode bounds of the big paths' multiply: twice the JAX reference's max
+# error on the CPU at the same N, seeds and draws, rounded up (python -m
+# tools.big_decode --impl reference --path big: 8.755e-3 at N = 2^16 and
+# scale 2^30, h = N/2; --path big-wide: 5.377e-13)
+BIG_MUL_ERR = 1.8e-2
+BIG_WIDE_MUL_ERR = 1.1e-12
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (Hopper white paper)
 
@@ -88,6 +105,12 @@ class PathConfig:
 SMALL = PathConfig("small", 1 << 14, 31, 8, 4, 32, 31, 1e-3)
 WIDE = PathConfig("wide", 1 << 13, 61, 4, 1, 8, 61, 1e-6)
 WIDE_62 = PathConfig("wide-62b", 1 << 14, 62, 3, 1, 2, 62, 1e-6)
+# bench.py:58-63
+BIG = PathConfig("big", 1 << 16, 30, 4, 2, 4, 30, BIG_MUL_ERR)
+# tools/ab_check.py:49 (wide-2^15-61b-ds1)
+BIG_WIDE = PathConfig("big-wide", 1 << 15, 61, 3, 1, 4, 61, BIG_WIDE_MUL_ERR)
+# uint64 planes at N = 2^16 (clusters of 4 blocks): kernel checks only
+WIDE_16 = PathConfig("wide-2^16", 1 << 16, 61, 2, 1, 1, 61, 0.0)
 
 
 def _smi(query: str) -> str:
@@ -144,6 +167,31 @@ def _same(name: str, got, want) -> int:
     print(f"check {name}: kernel == twin (tolerance: exact, uint{bits} "
           f"equality), shape {tuple(got.shape)}")
     return err
+
+
+def clustered(cfg: PathConfig, wide: bool) -> bool:
+    """Whether the path's planes span a thread-block cluster."""
+    from toy_heaan_ckks_tpu_torch.ops.ntt_gpu import plane_split
+
+    return plane_split(cfg.degree, wide)[1] > 1
+
+
+def zero_counts(counters) -> None:
+    for f in counters:
+        f.launches = f.launches_cluster = 0
+
+
+def read_counts(cfg: PathConfig, counters, wide: bool) -> dict:
+    """Each counter's launches, and on a clustered path its cluster
+    launches as ``name[cluster]``; raises if a launch ran on clusters on a
+    path whose planes fit one block."""
+    counts = {f.__name__: f.launches for f in counters}
+    cluster = {f"{f.__name__}[cluster]": f.launches_cluster for f in counters}
+    if clustered(cfg, wide):
+        counts.update(cluster)
+    elif any(cluster.values()):
+        raise AssertionError(f"[{cfg.name}] cluster launches at one block per plane: {cluster}")
+    return counts
 
 
 @dataclasses.dataclass
@@ -283,7 +331,7 @@ def check_cases(label: str, cases: dict) -> dict:
     return errs
 
 
-def run_path(cfg: PathConfig, dev, counters) -> dict:
+def run_path(cfg: PathConfig, dev, counters, wide: bool) -> dict:
     """Phase 3 on one path: the main path through the user entry points,
     checked against a*b, the CPU twin and the launch counts."""
     import numpy as np
@@ -300,8 +348,7 @@ def run_path(cfg: PathConfig, dev, counters) -> dict:
     from toy_heaan_ckks_tpu_torch.types import Ciphertext
 
     n, B = cfg.degree, cfg.batch
-    for f in counters:
-        f.launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     ctx = CkksContext.build(generate_primes(cfg.bits, cfg.count, n), n,
                             device=dev)
@@ -337,6 +384,7 @@ def run_path(cfg: PathConfig, dev, counters) -> dict:
 
     sk_child = sk.reduce_to(child_ctx)
     max_err = 0.0
+    t0 = time.perf_counter()
     for i in range(2):
         ct = Ciphertext(
             c0=Poly(o0[i], child_ctx, True), c1=Poly(o1[i], child_ctx, True),
@@ -346,7 +394,9 @@ def run_path(cfg: PathConfig, dev, counters) -> dict:
         if got.shape != (n // 2,) or not np.all(np.isfinite(got)):
             raise AssertionError(f"[{cfg.name}] decode {i}: bad shape or non-finite values")
         max_err = max(max_err, float(np.max(np.abs(got - va[i] * vb[i]))))
-    launches = {f.__name__: f.launches for f in counters}
+    decode_s = time.perf_counter() - t0
+    launches = read_counts(cfg, counters, wide)
+    print(f"[{cfg.name}] decrypt + decode 2 items: {decode_s:.2f} s")
     print(f"[{cfg.name}] decode max |err| vs a*b over 2 items: {max_err:.3e} "
           f"(bound {cfg.max_decode_err})")
     print(f"[{cfg.name}] main-path launches: {launches}")
@@ -380,6 +430,9 @@ class RotateConfig:
     scale_bits: int  # encoder scale of the rotation path's batch
     rot_err: float  # decode bound of rotate / conjugate
     sum_err: float  # decode bound of the hoisted sums
+    # the whole rotation surface; False: batched_rotate and
+    # rotate_ciphertext by the first offset only (no -1 or conjugation key)
+    full: bool = True
 
 
 # At N = 2^14, h = N/2 and scale 2^31 a rotation decodes with ~2.5e-3 error
@@ -396,10 +449,19 @@ SMALL_ROT = RotateConfig(tuple(range(1, 9)), 45, 1e-4, 1e-3)
 # the wide hoisted path runs the generic decomposition and key products in
 # bit-serial int64 torch, so it takes 3 keys
 WIDE_ROT = RotateConfig((1, 2, 3), 61, 1e-6, 1e-6)
+# N = 2^16, 4 x 30-bit, ds 2: at the multiply path's 2^30 the same
+# non-centered key-switch term is ~4x the 2^14 chain's (2N / pi on slot 0)
+# over a 2x smaller scale, so the rotation check runs at 2^45 as on the
+# small path (the 120-bit chain holds 2^45 * 8 after the weighted sum's
+# rescale); bounds: the reference tests' 1e-4 / 1e-3
+BIG_ROT = RotateConfig((1, 2), 45, 1e-4, 1e-3)
+# N = 2^15, 3 x 61-bit, ds 1: batched_rotate and rotate_ciphertext only;
+# bound as for the wide path
+BIG_WIDE_ROT = RotateConfig((1,), 61, 1e-6, 1e-6, full=False)
 
 
 def run_rotation(cfg: PathConfig, rot: RotateConfig, run: dict, counters,
-                 no_t) -> dict:
+                 no_t, wide: bool) -> dict:
     """Phase 3b on one path: rotation keys (offsets, -1, conjugation) from
     the seed-42 stream of phase 3 and a batch encrypted at the rotation
     path's scale, then through the user entry points
@@ -409,7 +471,9 @@ def run_rotation(cfg: PathConfig, rot: RotateConfig, run: dict, counters,
     ``rescale_ciphertext`` (one baby-step block of a diagonal-method
     matrix-vector product), with every launch count set to 0 just before
     and read just after; decode bounds, item 0 against the batch, items
-    0..1 against the CPU twin, and every kernel of the path launched."""
+    0..1 against the CPU twin, and every kernel of the path launched. With
+    ``rot.full`` False: the keys of ``rot.offsets`` and ``batched_rotate``
+    and ``rotate_ciphertext`` by the first offset only."""
     import numpy as np
     import torch
 
@@ -420,15 +484,15 @@ def run_rotation(cfg: PathConfig, rot: RotateConfig, run: dict, counters,
     E = CkksEngine
     eng, sk, ctx = run["eng"], run["sk"], run["ctx"]
     n, ds, B = cfg.degree, cfg.digit_size, cfg.batch
-    for f in counters:
-        f.launches = 0
+    zero_counts(counters)
     no_t.launches_no_t = 0
     t0 = time.perf_counter()
     key_rng = run["key_rng"]
     rotks = {k: eng.generate_gadget_rotation_key(sk, k, key_rng, digit_size=ds)
              for k in rot.offsets}
-    rk_m1 = eng.generate_gadget_rotation_key(sk, -1, key_rng, digit_size=ds)
-    cjk = eng.generate_conjugation_key(sk, key_rng, digit_size=ds)
+    if rot.full:
+        rk_m1 = eng.generate_gadget_rotation_key(sk, -1, key_rng, digit_size=ds)
+        cjk = eng.generate_conjugation_key(sk, key_rng, digit_size=ds)
     enc = CkksEncoder(n, rot.scale_bits)
     va = make_rng(SEED + 3).uniform(-1, 1, size=(B, n // 2))
     cts = [eng.encrypt(enc.encode(v, ctx), run["pk"], ctx.total_bits(), key_rng)
@@ -436,27 +500,29 @@ def run_rotation(cfg: PathConfig, rot: RotateConfig, run: dict, counters,
     a0 = torch.stack([c.c0.data for c in cts])
     a1 = torch.stack([c.c1.data for c in cts])
     torch.cuda.synchronize()
-    print(f"[{cfg.name} rotate] keygen {len(rotks)} + 2 keys, encode + encrypt "
-          f"{B} at scale 2^{rot.scale_bits}: {time.perf_counter() - t0:.2f} s")
+    print(f"[{cfg.name} rotate] keygen {len(rotks)} + {2 * rot.full} keys, encode + "
+          f"encrypt {B} at scale 2^{rot.scale_bits}: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    o0, o1 = batched_rotate((a0, a1), rotks[1], ctx)
-    single = E.rotate_ciphertext(cts[0], rotks[1])
-    r_m1 = E.rotate_ciphertext(cts[0], rk_m1)
-    conj = E.conjugate_ciphertext(cts[0], cjk)
+    k1 = rot.offsets[0]
     keys = [rotks[k] for k in rot.offsets]
-    hoisted = E.rotate_hoisted(cts[0], keys)
-    summed = E.rotate_sum_hoisted(cts[0], keys)
-    diags = make_rng(SEED + 2).uniform(-0.5, 0.5, size=(len(keys), n // 2))
-    pts = [enc.encode(d, keys[0].ext_ctx) for d in diags]
-    wsum = E.rescale_ciphertext(E.rotate_weighted_sum_hoisted(cts[0], keys, pts))
+    o0, o1 = batched_rotate((a0, a1), rotks[k1], ctx)
+    single = E.rotate_ciphertext(cts[0], rotks[k1])
+    if rot.full:
+        r_m1 = E.rotate_ciphertext(cts[0], rk_m1)
+        conj = E.conjugate_ciphertext(cts[0], cjk)
+        hoisted = E.rotate_hoisted(cts[0], keys)
+        summed = E.rotate_sum_hoisted(cts[0], keys)
+        diags = make_rng(SEED + 2).uniform(-0.5, 0.5, size=(len(keys), n // 2))
+        pts = [enc.encode(d, keys[0].ext_ctx) for d in diags]
+        wsum = E.rescale_ciphertext(E.rotate_weighted_sum_hoisted(cts[0], keys, pts))
     torch.cuda.synchronize()
     # the multiply path's first ciphertext (scale 2^scale_bits of phase 3)
-    # rotated by 1, for its error alone: no bound at that scale
+    # rotated, for its error alone: no bound at that scale
     mul_ct = run["cts"][0]
-    mul_rot = E.rotate_ciphertext(mul_ct, rotks[1])
+    mul_rot = E.rotate_ciphertext(mul_ct, rotks[k1])
     torch.cuda.synchronize()
-    launches = {f.__name__: f.launches for f in counters}
+    launches = read_counts(cfg, counters, wide)
     launches[f"{no_t.__name__}[no_t]"] = no_t.launches_no_t
     print(f"[{cfg.name} rotate] path ({len(keys)} hoisted keys): "
           f"{time.perf_counter() - t0:.2f} s")
@@ -479,23 +545,26 @@ def run_rotation(cfg: PathConfig, rot: RotateConfig, run: dict, counters,
                             logp=single.logp, logq=single.logq, scale=single.scale)
                  for i in range(2)]
     errs = {
-        "batched_rotate(1) items 0..1": (max(err(c, np.roll(va[i], -1))
-                                             for i, c in enumerate(batch_cts)), rot.rot_err),
-        "rotate(-1)": (err(r_m1, np.roll(va[0], 1)), rot.rot_err),
-        "conjugate": (err(conj, va[0]), rot.rot_err),
-        "rotate_hoisted": (max(err(c, np.roll(va[0], -k))
-                               for c, k in zip(hoisted, rot.offsets)), rot.rot_err),
-        "rotate_sum_hoisted": (err(summed, sum(np.roll(va[0], -k) for k in rot.offsets)),
-                               rot.sum_err),
-        "weighted_sum+rescale": (err(wsum, sum(d * np.roll(va[0], -k)
-                                               for d, k in zip(diags, rot.offsets))),
-                                 rot.sum_err),
+        f"batched_rotate({k1}) items 0..1": (max(err(c, np.roll(va[i], -k1))
+                                                 for i, c in enumerate(batch_cts)), rot.rot_err),
     }
+    if rot.full:
+        errs.update({
+            "rotate(-1)": (err(r_m1, np.roll(va[0], 1)), rot.rot_err),
+            "conjugate": (err(conj, va[0]), rot.rot_err),
+            "rotate_hoisted": (max(err(c, np.roll(va[0], -k))
+                                   for c, k in zip(hoisted, rot.offsets)), rot.rot_err),
+            "rotate_sum_hoisted": (err(summed, sum(np.roll(va[0], -k)
+                                                   for k in rot.offsets)), rot.sum_err),
+            "weighted_sum+rescale": (err(wsum, sum(d * np.roll(va[0], -k)
+                                                   for d, k in zip(diags, rot.offsets))),
+                                     rot.sum_err),
+        })
     rot_errs = np.abs(enc.decode(eng.decrypt(mul_rot, sk))
-                      - np.roll(run["values"][0], -1))
+                      - np.roll(run["values"][0], -k1))
     print(f"[{cfg.name} rotate] decode max |err| at the multiply path's scale "
           f"2^{cfg.scale_bits} (no bound): fresh ciphertext "
-          f"{err(mul_ct, run['values'][0]):.3e}, rotated by 1 "
+          f"{err(mul_ct, run['values'][0]):.3e}, rotated by {k1} "
           f"{rot_errs.max():.3e} (on slot {int(rot_errs.argmax())})")
     for name, (e, bound) in errs.items():
         print(f"[{cfg.name} rotate] decode max |err| {name}: {e:.3e} (bound {bound})")
@@ -508,29 +577,23 @@ def run_rotation(cfg: PathConfig, rot: RotateConfig, run: dict, counters,
     # items 0..1 of the batched rotation again, through the twins on the CPU
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
-    rk = rotks[1]
+    rk = rotks[k1]
     ctx_cpu = CkksContext.build(ctx.moduli, n, cpu)
     ext_cpu = CkksContext.build(rk.ext_ctx.moduli, n, cpu)
-    perm = ctx_cpu.automorphism_table_ntt(pow(5, 1, 2 * n))
+    perm = ctx_cpu.automorphism_table_ntt(pow(5, k1, 2 * n))
     c0, c1 = _rotate_arrays(a0[:2].cpu(), a1[:2].cpu(), rk.a.cpu(), rk.b.cpu(),
                             perm, ctx_cpu, ext_cpu, ds)
     if not (torch.equal(c0, o0[:2].cpu()) and torch.equal(c1, o1[:2].cpu())):
         raise AssertionError(f"[{cfg.name}] GPU rotation differs from the CPU twin")
     print(f"check [{cfg.name} rotate] batched rotation: GPU items 0..1 == CPU twin "
           f"({time.perf_counter() - t0:.2f} s on the CPU)")
-    return dict(launches=launches, rotk=rk, keys=keys, pts=pts, ct=cts[0],
-                batch=(a0, a1))
+    return dict(launches=launches, rotk=rk, keys=keys,
+                pts=pts if rot.full else None, ct=cts[0], batch=(a0, a1))
 
 
-def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict,
-              rot_launches: dict, names: dict, int_ops_per_s: float,
-              twin_iters: int) -> list:
-    """Phase 4 on one path: kernel / twin times, bounds, the composite. A
-    row's ``launches`` is its count in the multiply run (phase 3), or for
-    the t-less mod-down in the rotation run (phase 3b), whose counts every
-    row also carries as ``rotate_launches``."""
-    from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_mul_relin_rescale
-
+def time_cases(cfg: PathConfig, cases: dict, int_ops_per_s: float,
+               twin_iters: int) -> dict:
+    """Kernel and twin times of each case, with its bound."""
     times = {}
     for name, case in cases.items():
         ms = _cuda_ms(case.kernel, 100, warmup=10)
@@ -543,18 +606,35 @@ def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict,
               f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); bound "
               f"{times[name][2]:.4f} ms by {times[name][3]} "
               f"({case.bytes} B, {case.ops} int ops; {times[name][2] / ms:.1%} of it)")
+    return times
+
+
+def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict,
+              rot_launches: dict, names: dict, int_ops_per_s: float,
+              twin_iters: int) -> list:
+    """Phase 4 on one path: kernel / twin times, bounds, the composite. A
+    row's ``launches`` is its count in the multiply run (phase 3), or for
+    the t-less mod-down in the rotation run (phase 3b), whose counts every
+    row also carries as ``rotate_launches``; ``cluster_launches`` counts
+    the launches on clusters in the run ``launches`` comes from. Rows of a
+    clustered path are named ``kernel@path``."""
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_mul_relin_rescale
+
+    times = time_cases(cfg, cases, int_ops_per_s, twin_iters)
     fwd_ms = times["forward"][0]
     print(f"time [{cfg.name}] per channel-NTT (forward, {cfg.batch}x{cfg.count} "
           f"planes): {fwd_ms * 1000 / (cfg.batch * cfg.count):.3f} us")
 
     rows = []
-    launches = {**rot_launches, **run["launches"]}
+    cluster = any(k.endswith("[cluster]") for k in run["launches"])
     for case_name, (fn, src, rep) in names.items():
         ms, plain_ms, bound_ms, bound_by = times[case_name]
+        launches = run["launches"] if fn in run["launches"] else rot_launches
         rows.append({
-            "name": fn, "route": "cuda",
+            "name": f"{fn}@{cfg.name}" if cluster else fn, "route": "cuda",
             "source": f"toy_heaan_ckks_tpu_torch/{src}", **rep,
             "launches": launches[fn], "rotate_launches": rot_launches.get(fn, 0),
+            "cluster_launches": launches.get(f"{fn.split('[')[0]}[cluster]", 0),
             "max_abs_err": max(e for k, e in errs.items()
                                if k in _same_kernel(case_name)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -588,10 +668,12 @@ def time_rotation(cfg: PathConfig, run: dict, rot_run: dict, iters: int) -> None
     print(f"time [{cfg.name}] batched_rotate batch {cfg.batch}: {batch_ms:.4f} ms/batch "
           f"= {cfg.batch * 1000 / batch_ms:.1f} rotations/s")
     print(f"time [{cfg.name}] batched_rotate batch 1: {one_ms:.4f} ms latency")
-    for name, fn in (("rotate_hoisted", lambda: E.rotate_hoisted(ct, keys)),
-                     ("rotate_sum_hoisted", lambda: E.rotate_sum_hoisted(ct, keys)),
-                     ("rotate_weighted_sum_hoisted",
-                      lambda: E.rotate_weighted_sum_hoisted(ct, keys, pts))):
+    hoisted_calls = () if pts is None else (
+        ("rotate_hoisted", lambda: E.rotate_hoisted(ct, keys)),
+        ("rotate_sum_hoisted", lambda: E.rotate_sum_hoisted(ct, keys)),
+        ("rotate_weighted_sum_hoisted",
+         lambda: E.rotate_weighted_sum_hoisted(ct, keys, pts)))
+    for name, fn in hoisted_calls:
         ms = _cuda_ms(fn, iters, warmup=2)
         print(f"time [{cfg.name}] {name} ({len(keys)} keys): {ms:.4f} ms/call")
     profile_composite(f"{cfg.name} batched_rotate batch {cfg.batch}",
@@ -682,18 +764,34 @@ def main() -> int:
     errs_62 = check_cases("K5-K8' wide 62b 2^14", kernel_cases(WIDE_62, dev, wide=True))
     for k, e in errs_62.items():
         wide_errs[k] = max(wide_errs[k], e)
+    big_cases = kernel_cases(BIG, dev, wide=False)
+    big_errs = check_cases("K4/K2/K3/K3' big 2^16 (clusters of 2)", big_cases)
+    big_wide_cases = kernel_cases(BIG_WIDE, dev, wide=True)
+    big_wide_errs = check_cases("K5'/K6/K7/K8/K8' big-wide 2^15 (clusters of 2)",
+                                big_wide_cases)
+    wide_16_cases = kernel_cases(WIDE_16, dev, wide=True)
+    wide_16_errs = check_cases("K5'/K6/K7/K8/K8' wide 2^16 (clusters of 4)",
+                               wide_16_cases)
+    for k, e in wide_16_errs.items():
+        big_wide_errs[k] = max(big_wide_errs[k], e)
 
     # ── phase 3: each main path through the user entry points ───────────
-    small_run = run_path(SMALL, dev, small_counters)
-    wide_run = run_path(WIDE, dev, wide_counters)
+    small_run = run_path(SMALL, dev, small_counters, wide=False)
+    wide_run = run_path(WIDE, dev, wide_counters, wide=True)
+    big_run = run_path(BIG, dev, small_counters, wide=False)
+    big_wide_run = run_path(BIG_WIDE, dev, wide_counters, wide=True)
 
     # ── phase 3b: each rotation path through the user entry points ──────
     small_rot = run_rotation(SMALL, SMALL_ROT, small_run, small_counters,
-                             mdg.mod_down_combine)
+                             mdg.mod_down_combine, wide=False)
     print(f"[{WIDE.name} rotate] the hoisted calls take {len(WIDE_ROT.offsets)} "
           f"keys: their decomposition and key products are bit-serial int64 torch")
     wide_rot = run_rotation(WIDE, WIDE_ROT, wide_run, wide_counters,
-                            mdg.mod_down_combine_wide)
+                            mdg.mod_down_combine_wide, wide=True)
+    big_rot = run_rotation(BIG, BIG_ROT, big_run, small_counters,
+                           mdg.mod_down_combine, wide=False)
+    big_wide_rot = run_rotation(BIG_WIDE, BIG_WIDE_ROT, big_wide_run, wide_counters,
+                                mdg.mod_down_combine_wide, wide=True)
 
     # ── phase 4: timings (CUDA events, after warm-up) ───────────────────
     small_names = {
@@ -718,17 +816,56 @@ def main() -> int:
         "mod_down_no_t": ("mod_down_combine_wide[no_t]", "csrc/moddown.cu", {
             "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:604"}),
     }
+    # the large rings: K4 and K5' are the factored kernels' ports; K2/K6,
+    # K3/K8 and K7 run their factored branches (cluster launches)
+    big_names = {
+        "inverse+fold": ("ntt_planes", "csrc/ntt.cu",
+                         {"replaces": "toy_heaan_ckks_tpu/ops/ntt_pallas.py:502"}),
+        "gadget_accumulate": ("gadget_accumulate", "csrc/keyswitch.cu", {
+            "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas.py:157",
+            "factored_branch": "toy_heaan_ckks_tpu/ops/keyswitch_pallas.py:117"}),
+        "mod_down_combine": ("mod_down_combine", "csrc/moddown.cu", {
+            "replaces": "toy_heaan_ckks_tpu/ops/moddown_pallas.py:173",
+            "factored_branch": "toy_heaan_ckks_tpu/ops/moddown_pallas.py:140"}),
+        "mod_down_no_t": ("mod_down_combine[no_t]", "csrc/moddown.cu", {
+            "replaces": "toy_heaan_ckks_tpu/ops/moddown_pallas.py:164",
+            "factored_branch": "toy_heaan_ckks_tpu/ops/moddown_pallas.py:140"}),
+    }
+    big_wide_names = {
+        "inverse+fold": ("ntt_planes_wide", "csrc/ntt.cu", {
+            "replaces": "toy_heaan_ckks_tpu/ops/ntt_pallas_wide.py:353",
+            "also_replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:433"}),
+        "gadget_accumulate": ("gadget_accumulate_wide", "csrc/keyswitch.cu", {
+            "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:144",
+            "factored_branch": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:149"}),
+        "mod_down_combine": ("mod_down_combine_wide", "csrc/moddown.cu", {
+            "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:613",
+            "factored_branch": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:575"}),
+        "mod_down_no_t": ("mod_down_combine_wide[no_t]", "csrc/moddown.cu", {
+            "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:604",
+            "factored_branch": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:575"}),
+    }
     rows = time_path(SMALL, small_cases, small_errs, small_run,
                      small_rot["launches"], small_names, int_ops_per_s, twin_iters=5)
     rows += time_path(WIDE, wide_cases, wide_errs, wide_run, wide_rot["launches"],
                       wide_names, int_ops_per_s, twin_iters=2)
-    for cfg, run in ((SMALL, small_run), (WIDE, wide_run)):
+    rows += time_path(BIG, big_cases, big_errs, big_run, big_rot["launches"],
+                      big_names, int_ops_per_s, twin_iters=3)
+    rows += time_path(BIG_WIDE, big_wide_cases, big_wide_errs, big_wide_run,
+                      big_wide_rot["launches"], big_wide_names, int_ops_per_s,
+                      twin_iters=1)
+    time_cases(WIDE_16, {k: wide_16_cases[k] for k in ("forward", "inverse+fold")},
+               int_ops_per_s, twin_iters=1)
+    for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
+                     (BIG_WIDE, big_wide_run)):
         ctx, child, rlk, (a0, a1, b0, b1) = (run["ctx"], run["child"], run["rlk"],
                                              run["batch"])
         profile_composite(f"{cfg.name} composite batch {cfg.batch}", lambda:
                           batched_mul_relin_rescale((a0, a1), (b0, b1), rlk, ctx, child))
     time_rotation(SMALL, small_run, small_rot, iters=5)
     time_rotation(WIDE, wide_run, wide_rot, iters=3)
+    time_rotation(BIG, big_run, big_rot, iters=3)
+    time_rotation(BIG_WIDE, big_wide_run, big_wide_rot, iters=3)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     print(f"wall time: {time.perf_counter() - start:.1f} s")
 

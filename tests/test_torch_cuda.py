@@ -44,13 +44,23 @@ def _chain(count, digit_size, degree, bits=31):
     return base, base + default_special_primes(ctx, digit_size)
 
 
-@pytest.mark.parametrize("degree", [1 << 10, 1 << 12, 1 << 15])
+def _counted(fn, call):
+    """``call()`` and the (launches, launches_cluster) it added to ``fn``."""
+    before = fn.launches, fn.launches_cluster
+    out = call()
+    return out, (fn.launches - before[0], fn.launches_cluster - before[1])
+
+
+@pytest.mark.parametrize("degree", [1 << 10, 1 << 12, 1 << 15, 1 << 16])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_ntt_kernel_matches_twin(dev, degree, inverse):
+    """K1, and K4 at N = 2^16 (a plane over a cluster of 2 blocks)."""
     moduli, _ = _chain(3, 1, degree)
     x = _planes(degree, moduli, degree, (3,), dev)
     final = tuple(range(5, 8)) if inverse else None
-    got = ntt_gpu.ntt_planes(x, moduli, degree, inverse, final)
+    got, counts = _counted(ntt_gpu.ntt_planes, lambda: ntt_gpu.ntt_planes(
+        x, moduli, degree, inverse, final))
+    assert counts == (1, int(degree == 1 << 16))
     assert torch.equal(got, ntt_gpu.ntt_twin(x, moduli, degree, inverse, final))
 
 
@@ -73,9 +83,28 @@ def test_keyswitch_kernel_matches_twin(dev, digit_size, count, with_d):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("with_d", [True, False])
+def test_keyswitch_kernel_2_16_matches_twin(dev, with_d):
+    """K2 at N = 2^16 on a cluster of 2 blocks per plane: the big path's
+    chain (4 x 30-bit, ds 2: D = 2, E = 6)."""
+    degree = 1 << 16
+    base, ext = _chain(4, 2, degree, 30)
+    y = _planes(1, base, degree, (2,), dev)
+    d = _planes(2, base, degree, (2,), dev) if with_d else None
+    ka = _planes(3, ext, degree, (2,), dev)
+    kb = _planes(4, ext, degree, (2,), dev)
+    got, counts = _counted(keyswitch_gpu.gadget_accumulate, lambda: keyswitch_gpu.gadget_accumulate(
+        y, ka, kb, base_moduli=base, ext_moduli=ext, degree=degree,
+        digit_size=2, d_ntt=d))
+    assert counts == (1, 1)
+    want = keyswitch_gpu.gadget_accumulate_twin(y, ka, kb, base, ext, degree, 2, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("degree", [1 << 12, 1 << 16])
 @pytest.mark.parametrize("with_t", [True, False])
-def test_moddown_kernel_matches_twin(dev, with_t):
-    degree = 1 << 12
+def test_moddown_kernel_matches_twin(dev, with_t, degree):
+    """K3 / K3', and on a cluster of 2 blocks per plane at N = 2^16."""
     base, ext = _chain(5, 2, degree)
     child, dropped = base[:4], ext[4:]
     t_scale = 123456789 if with_t else 0
@@ -84,15 +113,18 @@ def test_moddown_kernel_matches_twin(dev, with_t):
     t = _planes(7, base, degree, (3,), dev)[..., :4, :] if with_t else None
     kw = dict(child_moduli=child, dropped_moduli=dropped, degree=degree,
               t_scale=t_scale)
-    got = moddown_gpu.mod_down_combine(yhat, ks, t, **kw)
+    got, counts = _counted(moddown_gpu.mod_down_combine,
+                           lambda: moddown_gpu.mod_down_combine(yhat, ks, t, **kw))
+    assert counts == (1, int(degree == 1 << 16))
     want = moddown_gpu.mod_down_combine_twin(yhat, ks, t, child, dropped,
                                              degree, t_scale)
     assert torch.equal(got, want)
 
 
 # wide chains: 61-bit at 2^13 (the wide main path), 62-bit with 63-bit
-# specials at 2^14 (the 128 KiB uint64 plane), 40-bit at 2^10
-WIDE = [(61, 1 << 13), (62, 1 << 14), (40, 1 << 10)]
+# specials at 2^14 (the 128 KiB uint64 plane), 40-bit at 2^10, and 61-bit
+# at 2^15 / 2^16 (K5', K6, K8 on clusters of 2 / 4 blocks per plane)
+WIDE = [(61, 1 << 13), (62, 1 << 14), (40, 1 << 10), (61, 1 << 15), (61, 1 << 16)]
 
 
 @pytest.mark.parametrize("bits,degree", WIDE)
@@ -101,7 +133,9 @@ def test_wide_ntt_kernel_matches_twin(dev, bits, degree, inverse):
     _, moduli = _chain(2, 1, degree, bits)  # a base prime and a special
     x = _planes(degree + bits, moduli, degree, (2,), dev, torch.int64)
     final = tuple((q - 1) // 3 for q in moduli) if inverse else None
-    got = ntt_gpu.ntt_planes_wide(x, moduli, degree, inverse, final)
+    got, counts = _counted(ntt_gpu.ntt_planes_wide, lambda: ntt_gpu.ntt_planes_wide(
+        x, moduli, degree, inverse, final))
+    assert counts == (1, int(degree >= 1 << 15))
     assert torch.equal(got, ntt_gpu.ntt_twin(x, moduli, degree, inverse, final))
 
 

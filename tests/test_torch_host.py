@@ -113,13 +113,23 @@ def test_chain_constants_match():
 
 
 def test_wide_chain_not_ported():
-    """Wide chains are ported up to N = 2^14; above that (the factored
-    kernel K5') the wide NTT is not ported and refuses the input."""
-    ctx = port.CkksContext.build(ref_primes.generate_primes(40, 2, 64), 64, "cpu")
-    assert not ctx.chain.small and ctx.chain.dtype == torch.int64
-    x = torch.zeros((1, 2, 1 << 15), dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        ntt_gpu.ntt_planes_wide(x, ctx.moduli, 1 << 15, False)
+    """Wide chains are ported to N = 2^16 (above 2^14 the kernels spread a
+    plane over a thread-block cluster): at N = 2^15 the NTT of X is
+    word-equal to the reference's evaluation points psi^{E_k} (tree order,
+    ``ops/ntt.tree_leaf_exponents``) and its inverse returns X; N = 2^17
+    is refused on every device."""
+    n = 1 << 15
+    q = ref_primes.generate_primes(61, 1, n)[0]
+    x = torch.zeros((1, n), dtype=torch.int64)
+    x[0, 1] = 1
+    got = ntt_gpu.ntt_planes_wide(x, (q,), n, False)
+    psi = ref_primes.find_primitive_root(q, 2 * n)
+    assert got[0].tolist() == [pow(psi, e, q) for e in ref_ntt.tree_leaf_exponents(n)]
+    assert torch.equal(ntt_gpu.ntt_planes_wide(got, (q,), n, True), x)
+    for device in ("cpu", "meta"):
+        too_big = torch.zeros((1, 1 << 17), dtype=torch.int64, device=device)
+        with pytest.raises(ValueError, match=r"2\^16"):
+            ntt_gpu.ntt_planes_wide(too_big, (q,), 1 << 17, False)
 
 
 def test_context_defaults_to_cuda(monkeypatch):

@@ -1,9 +1,9 @@
-"""PyTorch port, kernel twins: K1 (NTT), K2 (key switch), K3 (mod-down).
+"""PyTorch port, kernel twins: K1/K4 (NTT), K2 (key switch), K3 (mod-down).
 
 Each kernel's plain torch twin — what a CPU tensor runs — is held to the
 Pallas kernel it replaces, run as the reference tests run it on the CPU
-(interpret mode), at N = 1024 on the same numpy-seeded inputs, with uint32
-equality. The host constant tables are held to the reference's. The CUDA
+(interpret mode), at N = 1024 (K4, the factored NTT: N = 4096) on the
+same numpy-seeded inputs, with uint32 equality. The host constant tables are held to the reference's. The CUDA
 kernels themselves are compared with these twins on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -17,6 +17,7 @@ from toy_heaan_ckks_tpu.math.primes import generate_primes
 from toy_heaan_ckks_tpu.ops import keyswitch_pallas as ref_ks
 from toy_heaan_ckks_tpu.ops import moddown_pallas as ref_md
 from toy_heaan_ckks_tpu.ops import small_fast as ref_sf
+from toy_heaan_ckks_tpu.ops import ntt_pallas as ref_npal
 from toy_heaan_ckks_tpu.ops.ntt_pallas import ntt_pallas
 
 from toy_heaan_ckks_tpu_torch import CkksContext
@@ -64,6 +65,26 @@ def test_k1_twin_matches_pallas_ntt(inverse):
     want = ntt_pallas(convert.to_reference(x), moduli, DEGREE, inverse,
                       interpret=True)[..., 0, :]
     _eq(ntt_gpu.ntt_planes(x, moduli, DEGREE, inverse), want)
+
+
+@pytest.mark.parametrize("bits", [30, 31])
+def test_k4_twin_matches_pallas_factored_ntt(bits):
+    """K4 (``_ntt_factored_call``, row x lane twiddles, lazy below 2^30;
+    the TPU runs it at N = 2^16) in interpret mode at N = 4096, forward;
+    the twin's inverse returns the input."""
+    degree = 4096
+    moduli = tuple(generate_primes(bits, 2, degree))
+    rng = np.random.default_rng(bits)
+    x = torch.from_numpy(np.stack([rng.integers(0, q, size=degree, dtype=np.int64)
+                                   for q in moduli]).astype(np.int32))
+    frw, frwp, flw, flwp, _, _, _, _, q, ninv, ninvp = (
+        ref_npal._planes_factored_cached(moduli, degree))
+    want = ref_npal._ntt_factored_call(
+        _j(x), frw, frwp, flw, flwp, q, ninv, ninvp, degree=degree,
+        inverse=False, interpret=True, lazy=ref_npal.lazy_ok(moduli))
+    fwd = ntt_gpu.ntt_planes(x, moduli, degree, False)
+    _eq(fwd, want)
+    assert torch.equal(ntt_gpu.ntt_planes(fwd, moduli, degree, True), x)
 
 
 def test_k1_twin_matches_pallas_inv_ntt_fold():

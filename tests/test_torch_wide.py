@@ -3,9 +3,10 @@
 Held to the JAX reference on the CPU with uint64 equality of residues:
 the overflow-free int64 primitives against Python ints (q up to just below
 2^63); the conversion to and from the reference's (..., L, 2, N) limbs;
-the K5/K7 twin against the staged jnp NTT on a chain with a 63-bit prime;
-each wide Pallas kernel (interpret mode, N = 256, 3 x 61-bit, B = 2)
-against the twin that replaces it; and the slice — same-seed keys,
+the K5/K7 twin against the staged jnp NTT on a chain with a 63-bit prime
+and, on a 60-bit prime, at N = 2^15 (K5' on the card); each wide Pallas
+kernel (interpret mode, N = 256, 3 x 61-bit, B = 2; the factored K5' at
+N = 2048) against the twin that replaces it; and the slice — same-seed keys,
 ciphertexts and the fused multiply — against the reference's generic
 ``_mul_relin_rescale_arrays`` at N = 256 on a 3 x 61-bit chain (ds 1) and
 a 3 x 40-bit chain (ds 2, short last digit group), with the decoded
@@ -23,7 +24,7 @@ from toy_heaan_ckks_tpu.keys import default_special_primes as ref_specials
 from toy_heaan_ckks_tpu.ops import keyswitch_pallas_wide as ref_kw
 from toy_heaan_ckks_tpu.ops.modular import ModulusChain as RefChain
 from toy_heaan_ckks_tpu.ops import poly as ref_pops
-from toy_heaan_ckks_tpu.ops.ntt_pallas_wide import ntt_pallas_wide
+from toy_heaan_ckks_tpu.ops.ntt_pallas_wide import _ntt_factored_wide, ntt_pallas_wide
 from toy_heaan_ckks_tpu.parallel.sharded import (
     _mul_relin_rescale_arrays as ref_mul_arrays,
 )
@@ -197,12 +198,20 @@ def test_k5_twin_matches_staged_reference_63bit(inverse):
 
 
 def test_wide_ntt_above_2_14_not_ported():
-    """N > 2^14 on a wide chain needs the factored kernel (K5'), which is
-    not ported: the entry point refuses it on every device."""
+    """N > 2^14 on a wide chain (K5': a plane over a cluster of blocks on
+    the card) is ported: at N = 2^15 the forward NTT is word-equal to the
+    staged jnp NTT and the inverse returns the input; N = 2^17 is refused
+    on every device."""
+    degree = 1 << 15
     moduli = (1152921504606584833,)  # 60-bit, NTT-friendly at 2^15
-    x = torch.zeros((1, 1, 1 << 15), dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        ntt_gpu.ntt_planes_wide(x, moduli, 1 << 15, False)
+    x = _planes(15, moduli, lead=(), degree=degree)
+    fwd = ntt_gpu.ntt_planes_wide(x, moduli, degree, False)
+    _eq(fwd, ref_pops.to_ntt(_j(x), ref.CkksContext.build(moduli, degree)))
+    assert torch.equal(ntt_gpu.ntt_planes_wide(fwd, moduli, degree, True), x)
+    for device in ("cpu", "meta"):
+        too_big = torch.zeros((1, 1 << 17), dtype=torch.int64, device=device)
+        with pytest.raises(ValueError, match=r"2\^16"):
+            ntt_gpu.ntt_planes_wide(too_big, moduli, 1 << 17, False)
 
 
 # ── each wide Pallas kernel (interpret mode) against its twin ────────────
@@ -211,6 +220,18 @@ def test_wide_ntt_above_2_14_not_ported():
 @pytest.fixture(scope="module")
 def k_chain():
     return _wide_chain(61, 3, DEGREE, 1)
+
+
+def test_k5f_twin_matches_pallas_factored_wide():
+    """K5' (``_ntt_factored_wide``, row x lane twiddles; the TPU runs it at
+    N >= 2^15) in interpret mode at N = 2048, forward; the twin's inverse
+    returns the input."""
+    degree = 2048
+    moduli = tuple(ref.generate_primes(61, 2, degree))
+    x = _planes(11, moduli, lead=(), degree=degree)
+    fwd = ntt_gpu.ntt_planes_wide(x, moduli, degree, False)
+    _eq(fwd, _ntt_factored_wide(_j(x), moduli, degree, False, interpret=True))
+    assert torch.equal(ntt_gpu.ntt_planes_wide(fwd, moduli, degree, True), x)
 
 
 def test_k5_twin_matches_pallas_ntt_wide(k_chain):

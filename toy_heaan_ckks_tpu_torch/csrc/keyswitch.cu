@@ -6,10 +6,14 @@
 // uint32 words (small chains: ckks_keyswitch); and their wide twins
 // ops/keyswitch_pallas_wide.py _ks_kernel_wide / _ks_kernel_wide_base,
 // called through gadget_accumulate_pallas_wide, on uint64 words (wide
-// chains, Harvey64 and REDC64 with radix 2^64: ckks_keyswitch64). One block
-// owns one (extended channel j, item) pair and loops over the digits itself
-// (the TPU carried nothing across grid steps either, but its grid ran in
-// order; here blocks run in any order and share nothing):
+// chains, Harvey64 and REDC64 with radix 2^64: ckks_keyswitch64). One block,
+// or one cluster of 2 or 4 blocks for a plane above 128 KiB (ntt.cuh
+// PlanePart; the reference's factored branches keyswitch_pallas.py:117,
+// :170 and keyswitch_pallas_wide.py:149, :194), owns one (extended channel
+// j, item) pair and loops over the digits itself (the TPU carried nothing
+// across grid steps either, but its grid ran in order; here blocks run in
+// any order and share nothing outside their cluster); each block runs the
+// raise, the key products and the accumulation on its own slice:
 //
 //   for each digit t:
 //     alpha = sum_{k in t} Harvey(y_k, c[k,j], cs[k,j])      (mod q_j)
@@ -28,7 +32,7 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool kCluster>
 __global__ void __launch_bounds__(ckks::kThreads)
 keyswitch_kernel(const T* __restrict__ y, long long y_stride,
                  const T* __restrict__ d, long long d_stride,
@@ -39,26 +43,28 @@ keyswitch_kernel(const T* __restrict__ y, long long y_stride,
                  T* __restrict__ out0, T* __restrict__ out1, int base, int ext,
                  int digits, int digit_size, int log_n) {
   T* s = ckks::smem_plane<T>();
+  const ckks::PlanePart<kCluster> pp(log_n);
   const int n = 1 << log_n;
-  const int j = blockIdx.x % ext;
-  const long long item = blockIdx.x / ext;
+  const int m = pp.size();
+  const int j = pp.plane % ext;
+  const long long item = pp.plane / ext;
   const T qj = q[j], qi = qinv[j];
-  const T* yi = y + item * y_stride;
+  const T* yi = y + item * y_stride + pp.off;
   const T* w = tw + static_cast<long long>(j) * n;
   const T* wp = twp + static_cast<long long>(j) * n;
-  const long long o_off = (item * ext + j) * static_cast<long long>(n);
+  const long long o_off = (item * ext + j) * static_cast<long long>(n) + pp.off;
   T* o0 = out0 + o_off;
   T* o1 = out1 + o_off;
   // key planes (digits, ext, N): digit t of channel j at (t * ext + j) * n
   const long long key_t = static_cast<long long>(ext) * n;
-  const T* ka = key_a + static_cast<long long>(j) * n;
-  const T* kb = key_b + static_cast<long long>(j) * n;
+  const T* ka = key_a + static_cast<long long>(j) * n + pp.off;
+  const T* kb = key_b + static_cast<long long>(j) * n + pp.off;
 
   int own = -1;
   if (d != nullptr && j < base) {
     own = j / digit_size;
-    const T* dj = d + item * d_stride + static_cast<long long>(j) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const T* dj = d + item * d_stride + static_cast<long long>(j) * n + pp.off;
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
       const T x = dj[i];
       o0[i] = ckks::mont_redc(x, kb[own * key_t + i], qj, qi);
       o1[i] = ckks::mont_redc(x, ka[own * key_t + i], qj, qi);
@@ -69,7 +75,9 @@ keyswitch_kernel(const T* __restrict__ y, long long y_stride,
     if (t == own) continue;
     const int k0 = t * digit_size;
     const int k1 = min(k0 + digit_size, base);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    // no peer reads this slice now: the previous digit's ntt_forward ended
+    // with a cluster barrier after its last cross-block stage
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
       T acc = 0;
       for (int k = k0; k < k1; ++k) {
         const int cj = k * ext + j;
@@ -80,8 +88,8 @@ keyswitch_kernel(const T* __restrict__ y, long long y_stride,
       s[i] = acc;
     }
     __syncthreads();
-    ckks::ntt_forward_smem(s, log_n, w, wp, qj);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    ckks::ntt_forward(s, pp, log_n, w, wp, qj);
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
       const T x = s[i];
       const T v0 = ckks::mont_redc(x, kb[t * key_t + i], qj, qi);
       const T v1 = ckks::mont_redc(x, ka[t * key_t + i], qj, qi);
@@ -99,15 +107,11 @@ int launch_keyswitch(const T* y, long long y_stride, const T* d,
                      const T* c, const T* cs, const T* q, const T* qinv,
                      const T* tw, const T* twp, T* out0, T* out1, int outer,
                      int base, int ext, int digits, int digit_size, int log_n,
-                     cudaStream_t stream) {
-  const size_t smem = ckks::plane_bytes<T>(log_n);
-  cudaError_t err = ckks::reserve_smem(
-      reinterpret_cast<const void*>(keyswitch_kernel<T>), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  keyswitch_kernel<T><<<outer * ext, ckks::kThreads, smem, stream>>>(
-      y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp, out0,
-      out1, base, ext, digits, digit_size, log_n);
-  return static_cast<int>(cudaGetLastError());
+                     int parts, cudaStream_t stream) {
+  return ckks::launch_planes<T>(
+      keyswitch_kernel<T, false>, keyswitch_kernel<T, true>, outer * ext,
+      log_n, parts, stream, y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
+      qinv, tw, twp, out0, out1, base, ext, digits, digit_size, log_n);
 }
 
 }  // namespace
@@ -116,7 +120,8 @@ int launch_keyswitch(const T* y, long long y_stride, const T* d,
 // input (outer, base, N) with stride d_stride, or nullptr (no skip-own);
 // key_a/key_b: (digits, ext, N); c/cs: (digits * digit_size, ext);
 // q/qinv: (ext,); tw/twp: (ext, N) forward twiddles; out0/out1: contiguous
-// (outer, ext, N). Returns cudaGetLastError() of the launch.
+// (outer, ext, N); parts: blocks per plane (1, or a cluster of 2 or 4).
+// Returns the launch's error code (0 on success).
 extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
                               const uint32_t* d, long long d_stride,
                               const uint32_t* key_a, const uint32_t* key_b,
@@ -125,10 +130,10 @@ extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
                               const uint32_t* tw, const uint32_t* twp,
                               uint32_t* out0, uint32_t* out1, int outer,
                               int base, int ext, int digits, int digit_size,
-                              int log_n, cudaStream_t stream) {
+                              int log_n, int parts, cudaStream_t stream) {
   return launch_keyswitch(y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
                           qinv, tw, twp, out0, out1, outer, base, ext, digits,
-                          digit_size, log_n, stream);
+                          digit_size, log_n, parts, stream);
 }
 
 // The same on uint64 words (wide chains; qinv = -q^-1 mod 2^64).
@@ -140,8 +145,8 @@ extern "C" int ckks_keyswitch64(const uint64_t* y, long long y_stride,
                                 const uint64_t* tw, const uint64_t* twp,
                                 uint64_t* out0, uint64_t* out1, int outer,
                                 int base, int ext, int digits, int digit_size,
-                                int log_n, cudaStream_t stream) {
+                                int log_n, int parts, cudaStream_t stream) {
   return launch_keyswitch(y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
                           qinv, tw, twp, out0, out1, outer, base, ext, digits,
-                          digit_size, log_n, stream);
+                          digit_size, log_n, parts, stream);
 }

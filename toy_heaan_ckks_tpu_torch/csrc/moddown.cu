@@ -6,8 +6,11 @@
 // and ops/keyswitch_pallas_wide.py _md_kernel_wide_t (core _md_core_wide;
 // with t == nullptr _md_kernel_wide_no_t), called through
 // mod_down_combine_pallas_wide, on uint64 words (wide chains, Harvey64 with
-// radix 2^64: ckks_moddown64). One block owns one (kept channel j, item)
-// pair:
+// radix 2^64: ckks_moddown64). One block, or one cluster of 2 or 4 blocks
+// for a plane above 128 KiB (ntt.cuh PlanePart; the factored branch of the
+// reference, moddown_pallas.py:140, keyswitch_pallas_wide.py:575), owns one
+// (kept channel j, item) pair; each block runs the sums and the combine on
+// its own slice of the plane:
 //
 //   ext  = sum_m Harvey(yhat_m, c[m,j], cs[m,j])            (mod q_j)
 //   ext  = forward NTT of ext (shared memory, all stages)
@@ -22,7 +25,7 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool kCluster>
 __global__ void __launch_bounds__(ckks::kThreads)
 moddown_kernel(const T* __restrict__ yhat, long long y_stride,
                const T* __restrict__ ks, long long ks_stride,
@@ -34,31 +37,33 @@ moddown_kernel(const T* __restrict__ yhat, long long y_stride,
                const T* __restrict__ twp, T* __restrict__ out, int dropped,
                int kept, int log_n) {
   T* s = ckks::smem_plane<T>();
+  const ckks::PlanePart<kCluster> pp(log_n);
   const int n = 1 << log_n;
-  const int j = blockIdx.x % kept;
-  const long long item = blockIdx.x / kept;
+  const int m = pp.size();
+  const int j = pp.plane % kept;
+  const long long item = pp.plane / kept;
   const T qj = q[j];
-  const T* yi = yhat + item * y_stride;
+  const T* yi = yhat + item * y_stride + pp.off;
   const long long jn = static_cast<long long>(j) * n;
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
     T acc = 0;
-    for (int m = 0; m < dropped; ++m) {
-      const int cj = m * kept + j;
+    for (int k = 0; k < dropped; ++k) {
+      const int cj = k * kept + j;
       acc = ckks::add_mod(
-          acc, ckks::harvey(yi[static_cast<long long>(m) * n + i], c[cj], cs[cj], qj),
+          acc, ckks::harvey(yi[static_cast<long long>(k) * n + i], c[cj], cs[cj], qj),
           qj);
     }
     s[i] = acc;
   }
   __syncthreads();
-  ckks::ntt_forward_smem(s, log_n, tw + jn, twp + jn, qj);
+  ckks::ntt_forward(s, pp, log_n, tw + jn, twp + jn, qj);
 
-  const T* ksj = ks + item * ks_stride + jn;
-  const T* tj = t == nullptr ? nullptr : t + item * t_stride + jn;
-  T* o = out + (item * kept + j) * static_cast<long long>(n);
+  const T* ksj = ks + item * ks_stride + jn + pp.off;
+  const T* tj = t == nullptr ? nullptr : t + item * t_stride + jn + pp.off;
+  T* o = out + (item * kept + j) * static_cast<long long>(n) + pp.off;
   const T p = pm[j], ps = pms[j], pi = pinv[j], pis = pinvs[j];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
     T head = ksj[i];
     if (tj != nullptr) head = ckks::add_mod(head, ckks::harvey(tj[i], p, ps, qj), qj);
     o[i] = ckks::harvey(ckks::sub_mod(head, s[i], qj), pi, pis, qj);
@@ -71,15 +76,11 @@ int launch_moddown(const T* yhat, long long y_stride, const T* ks,
                    const T* c, const T* cs, const T* q, const T* pm,
                    const T* pms, const T* pinv, const T* pinvs, const T* tw,
                    const T* twp, T* out, int outer, int dropped, int kept,
-                   int log_n, cudaStream_t stream) {
-  const size_t smem = ckks::plane_bytes<T>(log_n);
-  cudaError_t err = ckks::reserve_smem(
-      reinterpret_cast<const void*>(moddown_kernel<T>), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  moddown_kernel<T><<<outer * kept, ckks::kThreads, smem, stream>>>(
-      yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv,
-      pinvs, tw, twp, out, dropped, kept, log_n);
-  return static_cast<int>(cudaGetLastError());
+                   int log_n, int parts, cudaStream_t stream) {
+  return ckks::launch_planes<T>(
+      moddown_kernel<T, false>, moddown_kernel<T, true>, outer * kept, log_n,
+      parts, stream, yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm,
+      pms, pinv, pinvs, tw, twp, out, dropped, kept, log_n);
 }
 
 }  // namespace
@@ -87,8 +88,9 @@ int launch_moddown(const T* yhat, long long y_stride, const T* ks,
 // yhat: (outer, dropped, N) plain values, item stride y_stride; ks/t:
 // (outer, kept, N) NTT-domain planes with item strides ks_stride/t_stride
 // (t may be nullptr); c/cs: (dropped, kept); q/pm/pms/pinv/pinvs: (kept,);
-// tw/twp: (kept, N) forward twiddles; out: contiguous (outer, kept, N).
-// Returns cudaGetLastError() of the launch.
+// tw/twp: (kept, N) forward twiddles; out: contiguous (outer, kept, N);
+// parts: blocks per plane (1, or a cluster of 2 or 4). Returns the launch's
+// error code (0 on success).
 extern "C" int ckks_moddown(const uint32_t* yhat, long long y_stride,
                             const uint32_t* ks, long long ks_stride,
                             const uint32_t* t, long long t_stride,
@@ -97,11 +99,11 @@ extern "C" int ckks_moddown(const uint32_t* yhat, long long y_stride,
                             const uint32_t* pms, const uint32_t* pinv,
                             const uint32_t* pinvs, const uint32_t* tw,
                             const uint32_t* twp, uint32_t* out, int outer,
-                            int dropped, int kept, int log_n,
+                            int dropped, int kept, int log_n, int parts,
                             cudaStream_t stream) {
   return launch_moddown(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q,
                         pm, pms, pinv, pinvs, tw, twp, out, outer, dropped,
-                        kept, log_n, stream);
+                        kept, log_n, parts, stream);
 }
 
 // The same on uint64 words (wide chains, radix-2^64 Shoup companions).
@@ -113,9 +115,9 @@ extern "C" int ckks_moddown64(const uint64_t* yhat, long long y_stride,
                               const uint64_t* pms, const uint64_t* pinv,
                               const uint64_t* pinvs, const uint64_t* tw,
                               const uint64_t* twp, uint64_t* out, int outer,
-                              int dropped, int kept, int log_n,
+                              int dropped, int kept, int log_n, int parts,
                               cudaStream_t stream) {
   return launch_moddown(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q,
                         pm, pms, pinv, pinvs, tw, twp, out, outer, dropped,
-                        kept, log_n, stream);
+                        kept, log_n, parts, stream);
 }

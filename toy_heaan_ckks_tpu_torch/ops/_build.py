@@ -1,5 +1,5 @@
-"""Build and load the CUDA kernels (K1/K5+K7 NTT, K2/K6 key switch, K3/K8
-mod-down).
+"""Build and load the CUDA kernels (K1/K4/K5+K7/K5' NTT, K2/K6 key switch,
+K3/K8 mod-down).
 
 The sources in ``toy_heaan_ckks_tpu_torch/csrc/`` are compiled at first use
 with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per ``.cu`` file, all started
@@ -7,10 +7,12 @@ together, then one link — into one shared library with a plain C
 interface, keyed by a hash of the sources, under
 ``toy_heaan_ckks_tpu_torch/build/``, and loaded with ctypes. Nothing is
 built when the package is imported, so the CPU-only tests never need
-``nvcc``. Every C entry returns ``cudaGetLastError()`` of its launch;
+``nvcc``. Every C entry returns its launch's error code (0 on success; a
+cluster launch that cannot be resident returns its own code, 100001);
 ``check`` raises on a non-zero code. Each kernel has a uint32 entry (small
 chains, int32 tensors) and a uint64 entry with the suffix ``64`` (wide
-chains, int64 tensors) of the same signature.
+chains, int64 tensors) of the same signature; ``parts`` is the number of
+blocks per plane (``ntt_gpu.plane_split``).
 """
 
 from __future__ import annotations
@@ -37,16 +39,16 @@ _LL = ctypes.c_longlong
 
 _SIGNATURES = {
     # x, x_stride, out, tw, twp, q, fin, finp, outer, channels, log_n,
-    # inverse, stream
-    "ckks_ntt": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # parts, inverse, stream
+    "ckks_ntt": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp,
-    # out0, out1, outer, base, ext, digits, digit_size, log_n, stream
+    # out0, out1, outer, base, ext, digits, digit_size, log_n, parts, stream
     "ckks_keyswitch": [_P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv,
-    # pinvs, tw, twp, out, outer, dropped, kept, log_n, stream
+    # pinvs, tw, twp, out, outer, dropped, kept, log_n, parts, stream
     "ckks_moddown": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P,
-                     _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                     _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 _SIGNATURES.update({f"{name}64": sig for name, sig in list(_SIGNATURES.items())})
 

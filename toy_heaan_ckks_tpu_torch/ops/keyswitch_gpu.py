@@ -29,7 +29,7 @@ import torch
 from . import _build
 from .modular import arith, mont_mul, shoup, word_table
 from .ntt import NttTables, forward_ntt
-from .ntt_gpu import MAX_LOG_N, MAX_LOG_N_WIDE, kernel_tables
+from .ntt_gpu import count_launch, kernel_tables, plane_split
 
 
 @functools.lru_cache(maxsize=64)
@@ -142,24 +142,22 @@ def gadget_accumulate_twin(y, key_a, key_b, base_moduli: tuple,
 
 def _accumulate(y_plain, key_a, key_b, base_moduli, ext_moduli, degree: int,
                 digit_size: int, d_ntt, wide: bool):
-    """Shared body of the two entry points; returns ((ks0, ks1), launched)."""
+    """Shared body of the two entry points; returns ((ks0, ks1), parts):
+    the blocks per plane of the launch, 0 where nothing was launched."""
     base_moduli = tuple(int(m) for m in base_moduli)
     ext_moduli = tuple(int(m) for m in ext_moduli)
     L, E = len(base_moduli), len(ext_moduli)
     D = key_a.shape[0]
     ds = min(digit_size, L)
-    dtype, rbits, max_log_n = ((torch.int64, 64, MAX_LOG_N_WIDE) if wide
-                               else (torch.int32, 32, MAX_LOG_N))
+    dtype, rbits = (torch.int64, 64) if wide else (torch.int32, 32)
+    log_n, parts = plane_split(degree, wide)
     if D != -(-L // ds) or tuple(key_a.shape) != (D, E, degree):
         raise ValueError("key digit count does not match digit_size")
     if y_plain.device.type == "cpu":
         _build.require_dtype("gadget_accumulate", dtype, y_plain, key_a, key_b)
         return gadget_accumulate_twin(y_plain, key_a, key_b, base_moduli,
                                       ext_moduli, degree, digit_size,
-                                      d_ntt), False
-    log_n = degree.bit_length() - 1
-    if degree != 1 << log_n or not 2 <= log_n <= max_log_n:
-        raise ValueError(f"gadget_accumulate: N = {degree} unsupported")
+                                      d_ntt), 0
     lead = y_plain.shape[:-2]
     y3 = _build.planes(y_plain, L, degree)
     d3 = None if d_ntt is None else _build.planes(d_ntt, L, degree)
@@ -183,16 +181,17 @@ def _accumulate(y_plain, key_a, key_b, base_moduli, ext_moduli, degree: int,
             p(y3), y3.stride(0), p(d3), 0 if d3 is None else d3.stride(0),
             p(ka), p(kb), p(consts.c), p(consts.cs), p(kt.q), p(consts.qinv),
             p(kt.fwd), p(kt.fwd_shoup), p(out0), p(out1),
-            outer, L, E, D, ds, log_n, _build.stream(dev),
+            outer, L, E, D, ds, log_n, parts, _build.stream(dev),
         )
         _build.check(rc, "gadget_accumulate")
     outs = out0.reshape(*lead, E, degree), out1.reshape(*lead, E, degree)
-    return outs, bool(outer)
+    return outs, parts if outer else 0
 
 
 def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
                       degree: int, digit_size: int = 1, d_ntt=None):
-    """K2: fused decompose + raise + NTT + key inner product (small chains).
+    """K2: fused decompose + raise + NTT + key inner product (small chains;
+    at N = 2^16 on a cluster of 2 blocks per plane).
 
     y_plain: int32 (..., L, N) plain digit values (the inverse NTT of d
              times the digit-local CRT inverses).
@@ -201,23 +200,24 @@ def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
              polynomial (enables the skip-own-tower shortcut).
     Returns (ks0, ks1): int32 (..., E, N) digit inner products over QP.
     """
-    outs, launched = _accumulate(y_plain, key_a, key_b, base_moduli,
-                                 ext_moduli, degree, digit_size, d_ntt,
-                                 wide=False)
-    gadget_accumulate.launches += launched
+    outs, parts = _accumulate(y_plain, key_a, key_b, base_moduli,
+                              ext_moduli, degree, digit_size, d_ntt,
+                              wide=False)
+    count_launch(gadget_accumulate, parts)
     return outs
 
 
 def gadget_accumulate_wide(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
                            degree: int, digit_size: int = 1, d_ntt=None):
     """K6: ``gadget_accumulate`` on int64 planes of a wide chain (any
-    q < 2^63, R = 2^64, N <= 2^14)."""
-    outs, launched = _accumulate(y_plain, key_a, key_b, base_moduli,
-                                 ext_moduli, degree, digit_size, d_ntt,
-                                 wide=True)
-    gadget_accumulate_wide.launches += launched
+    q < 2^63, R = 2^64, N <= 2^16; a cluster of 2 / 4 blocks per plane at
+    2^15 / 2^16)."""
+    outs, parts = _accumulate(y_plain, key_a, key_b, base_moduli,
+                              ext_moduli, degree, digit_size, d_ntt,
+                              wide=True)
+    count_launch(gadget_accumulate_wide, parts)
     return outs
 
 
-gadget_accumulate.launches = 0
-gadget_accumulate_wide.launches = 0
+gadget_accumulate.launches = gadget_accumulate.launches_cluster = 0
+gadget_accumulate_wide.launches = gadget_accumulate_wide.launches_cluster = 0

@@ -36,7 +36,7 @@ from . import _build
 from .modular import arith, shoup, word_table
 from .ntt import NttTables, forward_ntt
 from .ntt_gpu import (
-    MAX_LOG_N, MAX_LOG_N_WIDE, kernel_tables, ntt_planes, ntt_planes_wide,
+    count_launch, kernel_tables, ntt_planes, ntt_planes_wide, plane_split,
 )
 
 
@@ -166,22 +166,20 @@ def mod_down_combine_twin(yhat, ks, t, child_moduli: tuple,
 
 def _combine(yhat, ks, t, child_moduli, dropped_moduli, degree: int,
              t_scale: int, wide: bool):
-    """Shared body of the two entry points; returns (out, launched)."""
+    """Shared body of the two entry points; returns (out, parts): the
+    blocks per plane of the launch, 0 where nothing was launched."""
     child_moduli = tuple(int(m) for m in child_moduli)
     dropped_moduli = tuple(int(m) for m in dropped_moduli)
     G, Lc = len(dropped_moduli), len(child_moduli)
-    dtype, rbits, max_log_n = ((torch.int64, 64, MAX_LOG_N_WIDE) if wide
-                               else (torch.int32, 32, MAX_LOG_N))
+    dtype, rbits = (torch.int64, 64) if wide else (torch.int32, 32)
+    log_n, parts = plane_split(degree, wide)
     if (t is None) != (t_scale == 0):
         raise ValueError("mod_down_combine: t and t_scale go together")
     if yhat.device.type == "cpu":
         _build.require_dtype("mod_down_combine", dtype, yhat, ks,
                              *([] if t is None else [t]))
         return mod_down_combine_twin(yhat, ks, t, child_moduli,
-                                     dropped_moduli, degree, t_scale), False
-    log_n = degree.bit_length() - 1
-    if degree != 1 << log_n or not 2 <= log_n <= max_log_n:
-        raise ValueError(f"mod_down_combine: N = {degree} unsupported")
+                                     dropped_moduli, degree, t_scale), 0
     lead = ks.shape[:-2]
     y3 = _build.planes(yhat, G, degree)
     k3 = _build.planes(ks, Lc, degree)
@@ -205,11 +203,11 @@ def _combine(yhat, ks, t, child_moduli, dropped_moduli, degree: int,
             p(y3), y3.stride(0), p(k3), k3.stride(0),
             p(t3), 0 if t3 is None else t3.stride(0),
             p(c), p(cs), p(kt.q), p(pm), p(pms), p(pinv), p(pinvs),
-            p(kt.fwd), p(kt.fwd_shoup), p(out), outer, G, Lc, log_n,
+            p(kt.fwd), p(kt.fwd_shoup), p(out), outer, G, Lc, log_n, parts,
             _build.stream(dev),
         )
         _build.check(rc, "mod_down_combine")
-    return out.reshape(*lead, Lc, degree), bool(outer)
+    return out.reshape(*lead, Lc, degree), parts if outer else 0
 
 
 def mod_down_combine(yhat, ks, t=None, *, child_moduli, dropped_moduli,
@@ -220,25 +218,29 @@ def mod_down_combine(yhat, ks, t=None, *, child_moduli, dropped_moduli,
     yhat: int32 (..., G, N) plain; ks/t: int32 (..., L', N) Montgomery
     NTT-domain planes (channel slices of larger stacks are read in place).
     P = prod(dropped_moduli). Returns int32 (..., L', N). ``launches``
-    counts every launch, ``launches_no_t`` those without t (K3').
+    counts every launch, ``launches_no_t`` those without t (K3'),
+    ``launches_cluster`` those on a cluster of 2 blocks per plane
+    (N = 2^16).
     """
-    out, launched = _combine(yhat, ks, t, child_moduli, dropped_moduli,
-                             degree, t_scale, wide=False)
-    mod_down_combine.launches += launched
-    mod_down_combine.launches_no_t += launched and t is None
+    out, parts = _combine(yhat, ks, t, child_moduli, dropped_moduli,
+                          degree, t_scale, wide=False)
+    count_launch(mod_down_combine, parts)
+    mod_down_combine.launches_no_t += parts > 0 and t is None
     return out
 
 
 def mod_down_combine_wide(yhat, ks, t=None, *, child_moduli, dropped_moduli,
                           degree: int, t_scale: int = 0):
     """K8 (with t) / K8' (t None): ``mod_down_combine`` on int64 planes of a
-    wide chain (any q < 2^63, R = 2^64, N <= 2^14)."""
-    out, launched = _combine(yhat, ks, t, child_moduli, dropped_moduli,
-                             degree, t_scale, wide=True)
-    mod_down_combine_wide.launches += launched
-    mod_down_combine_wide.launches_no_t += launched and t is None
+    wide chain (any q < 2^63, R = 2^64, N <= 2^16; a cluster of 2 / 4
+    blocks per plane at 2^15 / 2^16)."""
+    out, parts = _combine(yhat, ks, t, child_moduli, dropped_moduli,
+                          degree, t_scale, wide=True)
+    count_launch(mod_down_combine_wide, parts)
+    mod_down_combine_wide.launches_no_t += parts > 0 and t is None
     return out
 
 
 mod_down_combine.launches = mod_down_combine.launches_no_t = 0
 mod_down_combine_wide.launches = mod_down_combine_wide.launches_no_t = 0
+mod_down_combine.launches_cluster = mod_down_combine_wide.launches_cluster = 0

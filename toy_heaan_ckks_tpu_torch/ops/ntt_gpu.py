@@ -1,13 +1,17 @@
-"""K1 and K5+K7: the whole-plane NTT as CUDA kernels, with the torch twin.
+"""K1/K4 and K5+K7/K5': the whole-plane NTT as CUDA kernels, with the twin.
 
 Counterpart of ``toy_heaan_ckks_tpu/ops/ntt_pallas.py`` (``_ntt_kernel``,
-``_ntt_planes_call``, ``ntt_pallas``) for small chains and of
-``ops/ntt_pallas_wide.py`` (``_ntt_kernel_wide``, ``ntt_pallas_wide``) plus
+``_ntt_kernel_fac``, ``_ntt_planes_call``, ``ntt_pallas``) for small
+chains and of ``ops/ntt_pallas_wide.py`` (``_ntt_kernel_wide``,
+``_ntt_kernel_fac_wide``, ``ntt_pallas_wide``) plus
 ``ops/keyswitch_pallas_wide.py`` (``_inv_yhat_kernel_wide``,
 ``_inv_fold_call_wide``) for wide ones. The kernels are ``csrc/ntt.cu``:
-``ckks_ntt`` on uint32 words (K1) and ``ckks_ntt64`` on uint64 words (K5,
-and K7 when a folded final constant is given); the twin is ``ops/ntt.py``'s
-int64 transform. ``ntt_planes`` takes int32 planes (small chains, Shoup
+``ckks_ntt`` on uint32 words (K1; K4 at N = 2^16) and ``ckks_ntt64`` on
+uint64 words (K5, K5' at N >= 2^15, and K7 when a folded final constant
+is given); the twin is ``ops/ntt.py``'s int64 transform. Every kernel
+holds a plane on chip: one block up to 128 KiB, a thread-block cluster of
+``plane_split``'s P blocks above (each wrapper counts those launches in
+``launches_cluster``). ``ntt_planes`` takes int32 planes (small chains, Shoup
 radix 2^32), ``ntt_planes_wide`` int64 planes (wide chains, radix 2^64).
 Each sends a CPU tensor to the twin and launches its kernel for a CUDA
 tensor — there is no fallback from one to the other. One entry point
@@ -28,8 +32,21 @@ from . import _build
 from .modular import shoup, word_table
 from .ntt import NttTables, compact_twiddles, forward_ntt, inverse_ntt
 
-MAX_LOG_N = 15  # one uint32 plane in shared memory: 128 KiB at 2^15
-MAX_LOG_N_WIDE = 14  # one uint64 plane: 128 KiB at 2^14
+MAX_LOG_N = 16  # the largest ring of the kernels, for both word sizes
+SLICE_BYTES = 128 << 10  # the most of a plane one block holds
+
+
+def plane_split(degree: int, wide: bool) -> tuple[int, int]:
+    """(log2 N, P) for the kernels on a ring of ``degree``: P blocks hold
+    one plane, 1 up to 128 KiB (uint32 N <= 2^15, uint64 N <= 2^14), else
+    a cluster of plane bytes / 128 KiB (2 or 4). Raises unless N is a
+    power of two in [4, 2^16], on every device."""
+    log_n = degree.bit_length() - 1
+    if degree != 1 << log_n or not 2 <= log_n <= MAX_LOG_N:
+        raise ValueError(
+            f"N = {degree}: the kernels take powers of two in [4, 2^{MAX_LOG_N}]")
+    plane = (8 if wide else 4) << log_n
+    return log_n, max(1, plane // SLICE_BYTES)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -86,25 +103,18 @@ def ntt_twin(x, moduli: tuple, degree: int, inverse: bool, final=None):
 
 def _ntt(x: torch.Tensor, moduli, degree: int, inverse: bool,
          final: tuple | None, wide: bool):
-    """Shared body of the two entry points; returns (out, launched)."""
+    """Shared body of the two entry points; returns (out, parts): the
+    blocks per plane of the launch, 0 where nothing was launched."""
     moduli = tuple(int(m) for m in moduli)
     if final is not None and not inverse:
         raise ValueError("ntt_planes: a final factor needs inverse=True")
     if inverse and final is None:
         final = tuple(pow(degree, -1, q) for q in moduli)
-    dtype, rbits, max_log_n = ((torch.int64, 64, MAX_LOG_N_WIDE) if wide
-                               else (torch.int32, 32, MAX_LOG_N))
-    log_n = degree.bit_length() - 1
-    if wide and log_n > MAX_LOG_N_WIDE:
-        raise NotImplementedError(
-            f"wide NTT at N = {degree}: N > 2^{MAX_LOG_N_WIDE} needs the "
-            "factored-twiddle kernel, which is not ported yet"
-        )
+    dtype, rbits = (torch.int64, 64) if wide else (torch.int32, 32)
+    log_n, parts = plane_split(degree, wide)
     if x.device.type == "cpu":
         _build.require_dtype("ntt_planes", dtype, x)
-        return ntt_twin(x, moduli, degree, inverse, final), False
-    if degree != 1 << log_n or not 2 <= log_n <= max_log_n:
-        raise ValueError(f"ntt_planes: N = {degree} outside [4, 2^{max_log_n}]")
+        return ntt_twin(x, moduli, degree, inverse, final), 0
     L = len(moduli)
     x3 = _build.planes(x, L, degree)
     _build.require_cuda("ntt_planes", dtype, x3)
@@ -114,39 +124,49 @@ def _ntt(x: torch.Tensor, moduli, degree: int, inverse: bool,
     if inverse:
         fin, finp = final_consts(moduli, final, x.device, rbits)
     out = torch.empty((x3.shape[0], L, degree), dtype=dtype, device=x.device)
-    launched = bool(out.numel())
-    if launched:
-        tw, twp = (kt.inv, kt.inv_shoup) if inverse else (kt.fwd, kt.fwd_shoup)
-        p = _build.ptr
-        entry = lib.ckks_ntt64 if wide else lib.ckks_ntt
-        rc = entry(
-            p(x3), x3.stride(0), p(out), p(tw), p(twp), p(kt.q), p(fin),
-            p(finp), x3.shape[0], L, log_n, int(inverse),
-            _build.stream(x.device),
-        )
-        _build.check(rc, "ntt_planes")
-    return out.reshape(x.shape), launched
+    if not out.numel():
+        return out.reshape(x.shape), 0
+    tw, twp = (kt.inv, kt.inv_shoup) if inverse else (kt.fwd, kt.fwd_shoup)
+    p = _build.ptr
+    entry = lib.ckks_ntt64 if wide else lib.ckks_ntt
+    rc = entry(
+        p(x3), x3.stride(0), p(out), p(tw), p(twp), p(kt.q), p(fin),
+        p(finp), x3.shape[0], L, log_n, parts, int(inverse),
+        _build.stream(x.device),
+    )
+    _build.check(rc, "ntt_planes")
+    return out.reshape(x.shape), parts
+
+
+def count_launch(fn, parts: int) -> None:
+    """Add a launch of ``parts`` blocks per plane (0: none) to ``fn``'s
+    counters: ``launches`` every launch, ``launches_cluster`` those on a
+    thread-block cluster (P > 1)."""
+    fn.launches += parts > 0
+    fn.launches_cluster += parts > 1
 
 
 def ntt_planes(x: torch.Tensor, moduli, degree: int, inverse: bool,
                final: tuple | None = None) -> torch.Tensor:
-    """K1: NTT of int32 (..., L, N) planes of a small chain over ``moduli``.
+    """K1 (N <= 2^15) / K4 (N = 2^16, a cluster of 2 blocks per plane): NTT
+    of int32 (..., L, N) planes of a small chain over ``moduli``.
 
     ``final``: per-channel plain factors applied after the inverse
     butterflies (default N^{-1} mod q). Output canonical, contiguous."""
-    out, launched = _ntt(x, moduli, degree, inverse, final, wide=False)
-    ntt_planes.launches += launched
+    out, parts = _ntt(x, moduli, degree, inverse, final, wide=False)
+    count_launch(ntt_planes, parts)
     return out
 
 
 def ntt_planes_wide(x: torch.Tensor, moduli, degree: int, inverse: bool,
                     final: tuple | None = None) -> torch.Tensor:
-    """K5 (forward, inverse) and K7 (inverse with a folded ``final``): NTT
-    of int64 (..., L, N) planes of a wide chain (any q < 2^63), N <= 2^14."""
-    out, launched = _ntt(x, moduli, degree, inverse, final, wide=True)
-    ntt_planes_wide.launches += launched
+    """K5 (forward, inverse; K5' at N >= 2^15 on a cluster of 2 or 4 blocks
+    per plane) and K7 (inverse with a folded ``final``): NTT of int64
+    (..., L, N) planes of a wide chain (any q < 2^63), N <= 2^16."""
+    out, parts = _ntt(x, moduli, degree, inverse, final, wide=True)
+    count_launch(ntt_planes_wide, parts)
     return out
 
 
-ntt_planes.launches = 0
-ntt_planes_wide.launches = 0
+ntt_planes.launches = ntt_planes.launches_cluster = 0
+ntt_planes_wide.launches = ntt_planes_wide.launches_cluster = 0
