@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``toy_heaan_ckks_tpu_torch/csrc`` and
-runs, in order (every phase raises on failure), on four paths:
+runs, in order (every phase raises on failure), on four paths, and the
+small one again with ``CKKS_NTT_MXU=1`` (K9, the matrix-product NTT, in
+place of the K1 folds):
 
 - small: N = 2^14, 8 x 31-bit primes, digit_size 4, batch 32 (kernels K1
   NTT, K2 key switch, K3 / K3' mod-down with / without t, on uint32
@@ -30,8 +32,11 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    shapes) and without t (key-switch shapes: the whole base kept, the
    specials dropped) — plus the wide kernels once at N = 2^14, 3 x 62-bit,
    ds 1, batch 2 (63-bit special, 128 KiB uint64 plane) and once at
-   N = 2^16, 2 x 61-bit, ds 1, batch 1 (clusters of 4 blocks); word
-   equality required;
+   N = 2^16, 2 x 61-bit, ds 1, batch 1 (clusters of 4 blocks); and K9 small,
+   the matrix-product NTT (forward, inverse, inverse with the
+   decomposition fold) against its twin and against K1 on the same
+   inputs at (32, 8, 2^14), (2, 2, 2^15) and (4, 3, 2^10); word equality
+   required;
 3. each multiply path through the user entry points, with every launch
    count set to 0 just before it and read just after: generate_primes ->
    CkksEngine -> sk / pk / relin key (seed 42) -> encode + encrypt 2 x B
@@ -50,13 +55,21 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    within the path's bounds (RotateConfig); items 0..1 of the batched
    rotation equal to the CPU twin; K1, K2 and K3' (small) or K5/K7, K6 and
    K8' (wide) launched;
+3c. small-mxu: the small path's multiply, rotation and hoisted calls of
+   phases 3 and 3b again with ``CKKS_NTT_MXU=1`` (set for this phase
+   only), on the same keys and ciphertexts: each output equal to the
+   default path's word for word, ``ntt_lo`` (both directions),
+   ``rescale_ntt_lo`` and ``mod_down_lo`` equal to their K1 forms, K9
+   launched in every call (counts set to 0 just before, read just after),
+   and the multiply's decomposition fold moved from K1 to K9;
 4. CUDA-event timings of each kernel and its twin, the least time the card
    could take for the kernel's work (bytes over 3.35 TB/s, or integer
-   operations over the int32 issue rate), the multiply composite (mults/s
-   at the path's batch, latency at batch 1), the batched rotation
-   (rotations/s, batch-1 latency), the hoisted calls, and profiler splits
-   of the multiply composite and the batched rotation into the kernels and
-   the torch glue.
+   operations over the int32 instruction rate, or K9's u8 MACs over the dense
+   int8 tensor rate), the multiply composite (mults/s at the path's batch,
+   latency at batch 1), the batched rotation (rotations/s, batch-1
+   latency), the hoisted calls, and profiler splits of the multiply
+   composite and the batched rotation into the kernels and the torch glue;
+   the same for the small path under ``CKKS_NTT_MXU=1`` (small-mxu).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -65,6 +78,7 @@ CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -80,6 +94,7 @@ BIG_MUL_ERR = 1.8e-2
 BIG_WIDE_MUL_ERR = 1.1e-12
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (Hopper white paper)
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (NVIDIA data sheet)
 
 # Integer operations per modular primitive, counted from csrc/ntt.cuh as
 # 32-bit integer instructions (a lower bound: a 64-bit add, subtract,
@@ -88,6 +103,12 @@ OPS = {
     32: dict(harvey=6, add=3, sub=3, redc=5),
     64: dict(harvey=18, add=8, sub=8, redc=26),
 }
+# K9 (csrc/ntt_mxu.cu) per output word, as 32-bit integer instructions:
+# the limb split (8 byte permutes per 4 words), each product's fold (seven
+# 32x32->64 multiply-adds, 2 each) and REDC (5), the twist (Harvey, 6) and
+# the byte scatter of the middle limbs (4). Its u8 products count as MACs
+# on the tensor cores (2 operations each at the dense int8 rate).
+MXU_OPS_PER_WORD = 2 + 2 * (7 * 2 + OPS[32]["redc"]) + OPS[32]["harvey"] + 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,7 +175,7 @@ def _rand_planes(rng, lead: tuple, moduli, degree: int, device, dtype):
     return torch.from_numpy(planes).to(device, dtype)
 
 
-def _same(name: str, got, want) -> int:
+def _same(name: str, got, want, what: str = "kernel == twin") -> int:
     """Require bit equality; returns the max |difference| (0)."""
     import torch
 
@@ -162,11 +183,16 @@ def _same(name: str, got, want) -> int:
         raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     err = int((got.long() - want.long()).abs().max().item())
     if not torch.equal(got, want):
-        raise AssertionError(f"{name}: kernel differs from twin (max |diff| {err})")
+        raise AssertionError(f"{name}: {what} fails (max |diff| {err})")
     bits = 32 if got.dtype == torch.int32 else 64
-    print(f"check {name}: kernel == twin (tolerance: exact, uint{bits} "
+    print(f"check {name}: {what} (tolerance: exact, uint{bits} "
           f"equality), shape {tuple(got.shape)}")
     return err
+
+
+def _pair(ct) -> tuple:
+    """A ciphertext's (c0, c1) planes."""
+    return ct.c0.data, ct.c1.data
 
 
 def clustered(cfg: PathConfig, wide: bool) -> bool:
@@ -197,12 +223,14 @@ def read_counts(cfg: PathConfig, counters, wide: bool) -> dict:
 @dataclasses.dataclass
 class Case:
     """One kernel call at a path's shapes: the kernel, its twin, and the
-    bytes and integer operations of the work (for the bound)."""
+    bytes, integer operations and tensor-core MACs of the work (for the
+    bound)."""
 
     kernel: object
     twin: object
     bytes: int
     ops: int
+    macs: int = 0
 
 
 def kernel_cases(cfg: PathConfig, dev, wide: bool) -> dict:
@@ -421,7 +449,8 @@ def run_path(cfg: PathConfig, dev, counters, wide: bool) -> dict:
           f"({time.perf_counter() - t0:.2f} s on the CPU)")
     return dict(launches=launches, ctx=ctx, child=child_ctx, rlk=rlk,
                 batch=(a0, a1, b0, b1), eng=eng, sk=sk, pk=pk, enc=enc,
-                key_rng=key_rng, values=va, cts=cts_a)
+                key_rng=key_rng, values=va, cts=cts_a, cts_b=cts_b,
+                outputs=dict(batched=(o0, o1), single=_pair(single)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -587,8 +616,192 @@ def run_rotation(cfg: PathConfig, rot: RotateConfig, run: dict, counters,
         raise AssertionError(f"[{cfg.name}] GPU rotation differs from the CPU twin")
     print(f"check [{cfg.name} rotate] batched rotation: GPU items 0..1 == CPU twin "
           f"({time.perf_counter() - t0:.2f} s on the CPU)")
+    outputs = dict(batched=(o0, o1), single=_pair(single))
+    if rot.full:
+        outputs.update(rotate_m1=_pair(r_m1), conjugate=_pair(conj),
+                       hoisted=[_pair(c) for c in hoisted], summed=_pair(summed),
+                       weighted=_pair(wsum))
     return dict(launches=launches, rotk=rk, keys=keys,
-                pts=pts if rot.full else None, ct=cts[0], batch=(a0, a1))
+                pts=pts if rot.full else None, ct=cts[0], batch=(a0, a1),
+                rk_m1=rk_m1 if rot.full else None, cjk=cjk if rot.full else None,
+                outputs=outputs)
+
+
+# K9 (items, channels, N, prime bits): the small path's shape (R = 128), the
+# envelope's largest plane (R = 256, 136 KiB of shared memory) and its
+# smallest (R = 8, padded to the mma depth)
+MXU_SHAPES = {"small": (SMALL.batch, SMALL.count, SMALL.degree, SMALL.bits),
+              "2^15": (2, 2, 1 << 15, 31), "2^10": (4, 3, 1 << 10, 31)}
+
+
+@contextlib.contextmanager
+def mxu_env():
+    """CKKS_NTT_MXU=1 for the block only (the small chain's folds, ntt_lo
+    and the engine's mod-down run K9)."""
+    import os
+
+    os.environ["CKKS_NTT_MXU"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("CKKS_NTT_MXU", None)
+
+
+def mxu_cases(dev, shape: str) -> tuple:
+    """K9's kernel/twin pairs at one of MXU_SHAPES (forward, inverse,
+    inverse + fold by the chain's decomposition factors), and K1 on the
+    same inputs for each."""
+    import numpy as np
+    import torch
+
+    from toy_heaan_ckks_tpu_torch import generate_primes
+    from toy_heaan_ckks_tpu_torch.ops.ntt_gpu import ntt_planes
+    from toy_heaan_ckks_tpu_torch.ops.ntt_mxu import layout, ntt_mxu
+    from toy_heaan_ckks_tpu_torch.ops.ntt_mxu_gpu import ntt_mxu_planes
+    from toy_heaan_ckks_tpu_torch.ops.small_fast import _dec_inv_ints, _fold_consts
+
+    B, L, n, bits = MXU_SHAPES[shape]
+    primes = tuple(generate_primes(bits, L, n))
+    post = _dec_inv_ints(primes, SMALL.digit_size)
+    fin = _fold_consts(primes, n, post)
+    rng = np.random.Generator(np.random.PCG64(4321))
+    x = _rand_planes(rng, (B,), primes, n, dev, torch.int32)
+    r, c = layout(n)
+    # each plane read and written once, and the tables: both matrices' limbs,
+    # the twist and its companions, the per-channel constants
+    work = dict(bytes=2 * B * L * n * 4 + L * (4 * (r * r + c * c) + 2 * n * 4 + 9 * 4),
+                ops=B * L * n * MXU_OPS_PER_WORD, macs=16 * B * L * n * (r + c))
+    modes = {"forward": (False, None, None), "inverse": (True, None, None),
+             "inverse+fold": (True, post, fin)}
+    cases, k1 = {}, {}
+    for name, (inv, pst, final) in modes.items():
+        cases[name] = Case(
+            lambda inv=inv, pst=pst: ntt_mxu_planes(x, primes, n, inv, pst),
+            lambda inv=inv, pst=pst: ntt_mxu(x, primes, n, inv, pst), **work)
+        k1[name] = lambda inv=inv, final=final: ntt_planes(x, primes, n, inv, final)
+    return cases, k1
+
+
+def check_mxu(dev) -> tuple:
+    """Phase 2, K9 small: K9 against its twin and against K1 at each of
+    MXU_SHAPES; returns the small shape's cases and the max |error|."""
+    import torch
+
+    errs, small = {}, None
+    for shape in MXU_SHAPES:
+        cases, k1 = mxu_cases(dev, shape)
+        B, L, n, _ = MXU_SHAPES[shape]
+        label = f"K9 {shape} ({B}, {L}, 2^{n.bit_length() - 1})"
+        for name, err in check_cases(label, cases).items():
+            errs[name] = max(errs.get(name, 0), err)
+        for name, case in cases.items():
+            got, want = case.kernel(), k1[name]()
+            torch.cuda.synchronize()
+            _same(f"{label} {name}", got, want, "K9 == K1")
+        if shape == "small":
+            small = cases
+    return small, errs
+
+
+def run_mxu(cfg: PathConfig, run: dict, rot_run: dict, counters) -> dict:
+    """Phase 3c, small-mxu: phase 3's and 3b's small calls again under
+    CKKS_NTT_MXU=1 on the same keys and ciphertexts, each output equal to
+    the default path's word for word; then ``ntt_lo`` (both directions),
+    ``rescale_ntt_lo`` and ``mod_down_lo`` against their K1 forms. Every
+    count is set to 0 just before and read just after; K9 must launch in
+    each call, and the multiply's decomposition fold moves from K1 to K9."""
+    import torch
+
+    from toy_heaan_ckks_tpu_torch import CkksEngine as E
+    from toy_heaan_ckks_tpu_torch.ops import moddown_gpu as mdg
+    from toy_heaan_ckks_tpu_torch.ops import small_fast as sf
+    from toy_heaan_ckks_tpu_torch.ops.ntt_gpu import ntt_planes
+    from toy_heaan_ckks_tpu_torch.ops.ntt_mxu_gpu import ntt_mxu_planes
+    from toy_heaan_ckks_tpu_torch.ops.poly import rescale_ntt
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import (
+        batched_mul_relin_rescale, batched_rotate,
+    )
+
+    ctx, child, rlk = run["ctx"], run["child"], run["rlk"]
+    ext_ctx, n = rlk.ext_ctx, cfg.degree
+    a0, a1, b0, b1 = run["batch"]
+    ct, keys, pts, rk = rot_run["ct"], rot_run["keys"], rot_run["pts"], rot_run["rotk"]
+    calls = {
+        "batched_mul_relin_rescale": (lambda: batched_mul_relin_rescale(
+            (a0, a1), (b0, b1), rlk, ctx, child), run["outputs"]["batched"]),
+        "mul_rescale": (lambda: _pair(E.mul_rescale(run["cts"][0], run["cts_b"][0], rlk)),
+                        run["outputs"]["single"]),
+        "batched_rotate": (lambda: batched_rotate(rot_run["batch"], rk, ctx),
+                           rot_run["outputs"]["batched"]),
+        "rotate_ciphertext": (lambda: _pair(E.rotate_ciphertext(ct, rk)),
+                              rot_run["outputs"]["single"]),
+        "rotate_ciphertext(-1)": (lambda: _pair(E.rotate_ciphertext(ct, rot_run["rk_m1"])),
+                                  rot_run["outputs"]["rotate_m1"]),
+        "conjugate_ciphertext": (lambda: _pair(E.conjugate_ciphertext(ct, rot_run["cjk"])),
+                                 rot_run["outputs"]["conjugate"]),
+        "rotate_hoisted": (lambda: [_pair(c) for c in E.rotate_hoisted(ct, keys)],
+                           rot_run["outputs"]["hoisted"]),
+        "rotate_sum_hoisted": (lambda: _pair(E.rotate_sum_hoisted(ct, keys)),
+                               rot_run["outputs"]["summed"]),
+        "rotate_weighted_sum_hoisted+rescale": (lambda: _pair(E.rescale_ciphertext(
+            E.rotate_weighted_sum_hoisted(ct, keys, pts))), rot_run["outputs"]["weighted"]),
+        # the staged entry points against their K1 forms (the multiply's
+        # batch; the relin key's b digits as planes over QP)
+        "ntt_lo forward": (lambda: sf.ntt_lo(a0, ctx.moduli, n, False),
+                           lambda: ntt_planes(a0, ctx.moduli, n, False)),
+        "ntt_lo inverse": (lambda: sf.ntt_lo(a0, ctx.moduli, n, True),
+                           lambda: ntt_planes(a0, ctx.moduli, n, True)),
+        "rescale_ntt_lo": (lambda: sf.rescale_ntt_lo(a0, ctx), lambda: rescale_ntt(a0, ctx)),
+        "mod_down_lo": (lambda: sf.mod_down_lo(rlk.b, ctx, ext_ctx),
+                        lambda: sf.mod_down_by_p(rlk.b, ctx, ext_ctx,
+                                                 to_yhat=mdg.inv_ntt_to_yhat,
+                                                 mod_down=mdg.mod_down_combine)),
+    }
+    k9 = ntt_mxu_planes
+    flat = lambda out: [t for p in (out if isinstance(out, list) else [out])
+                        for t in (p if isinstance(p, tuple) else (p,))]
+    per_call = {}
+    with mxu_env():
+        zero_counts(counters + (k9,))
+        t0 = time.perf_counter()
+        for name, (fn, want) in calls.items():
+            before = (k9.launches, ntt_planes.launches)
+            got = fn()
+            per_call[name] = (k9.launches - before[0], ntt_planes.launches - before[1])
+            if callable(want):
+                want = want()
+            torch.cuda.synchronize()
+            staged = name.startswith(("ntt_lo", "rescale", "mod_down"))
+            for i, (g, w) in enumerate(zip(flat(got), flat(want))):
+                _same(f"[{cfg.name}-mxu] {name}[{i}]", g, w,
+                      "K9 form == K1 form" if staged else "K9 path == default path")
+        launches = read_counts(cfg, counters + (k9,), wide=False)
+    print(f"[{cfg.name}-mxu] path: {time.perf_counter() - t0:.2f} s")
+    print(f"[{cfg.name}-mxu] main-path launches: {launches}")
+    print(f"[{cfg.name}-mxu] (K9, K1) launches per call: {per_call}")
+    if min(k for k, _ in per_call.values()) < 1:
+        raise AssertionError(f"[{cfg.name}-mxu] a call ran no K9: {per_call}")
+    if per_call["batched_mul_relin_rescale"] != (1, 2):
+        raise AssertionError(f"[{cfg.name}-mxu] the multiply's fold did not move to K9: "
+                             f"{per_call['batched_mul_relin_rescale']}")
+    return dict(launches=launches, per_call=per_call)
+
+
+def time_composite(cfg: PathConfig, run: dict) -> None:
+    """mults/s of the batched multiply at the path's batch and its batch-1
+    latency."""
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_mul_relin_rescale
+
+    ctx, child, rlk = run["ctx"], run["child"], run["rlk"]
+    a0, a1, b0, b1 = run["batch"]
+    batch_ms = _cuda_ms(
+        lambda: batched_mul_relin_rescale((a0, a1), (b0, b1), rlk, ctx, child), 10)
+    one = (a0[:1], a1[:1], b0[:1], b1[:1])
+    one_ms = _cuda_ms(
+        lambda: batched_mul_relin_rescale(one[:2], one[2:], rlk, ctx, child), 20)
+    print(f"time [{cfg.name}] composite batch {cfg.batch}: {batch_ms:.4f} ms/batch = "
+          f"{cfg.batch * 1000 / batch_ms:.1f} mults/s")
+    print(f"time [{cfg.name}] composite batch 1: {one_ms:.4f} ms latency")
 
 
 def time_cases(cfg: PathConfig, cases: dict, int_ops_per_s: float,
@@ -599,13 +812,15 @@ def time_cases(cfg: PathConfig, cases: dict, int_ops_per_s: float,
         ms = _cuda_ms(case.kernel, 100, warmup=10)
         plain_ms = _cuda_ms(case.twin, twin_iters, warmup=1)
         bytes_ms = case.bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = case.ops / int_ops_per_s * 1e3
+        ops_ms = max(case.ops / int_ops_per_s, 2 * case.macs / INT8_OPS_PER_S) * 1e3
         times[name] = (ms, plain_ms, max(bytes_ms, ops_ms),
                        "bytes" if bytes_ms >= ops_ms else "operations")
+        macs = f", {case.macs} u8 MACs" if case.macs else ""
         print(f"time [{cfg.name}] {name}: kernel {ms:.4f} ms, twin "
               f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); bound "
               f"{times[name][2]:.4f} ms by {times[name][3]} "
-              f"({case.bytes} B, {case.ops} int ops; {times[name][2] / ms:.1%} of it)")
+              f"({case.bytes} B, {case.ops} int ops{macs}; "
+              f"{times[name][2] / ms:.1%} of it)")
     return times
 
 
@@ -618,8 +833,6 @@ def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict,
     row also carries as ``rotate_launches``; ``cluster_launches`` counts
     the launches on clusters in the run ``launches`` comes from. Rows of a
     clustered path are named ``kernel@path``."""
-    from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_mul_relin_rescale
-
     times = time_cases(cfg, cases, int_ops_per_s, twin_iters)
     fwd_ms = times["forward"][0]
     print(f"time [{cfg.name}] per channel-NTT (forward, {cfg.batch}x{cfg.count} "
@@ -641,16 +854,7 @@ def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict,
             "bound_by": bound_by, "library_ms": None,
         })
 
-    ctx, child, rlk = run["ctx"], run["child"], run["rlk"]
-    a0, a1, b0, b1 = run["batch"]
-    batch_ms = _cuda_ms(
-        lambda: batched_mul_relin_rescale((a0, a1), (b0, b1), rlk, ctx, child), 10)
-    one = (a0[:1], a1[:1], b0[:1], b1[:1])
-    one_ms = _cuda_ms(
-        lambda: batched_mul_relin_rescale(one[:2], one[2:], rlk, ctx, child), 20)
-    print(f"time [{cfg.name}] composite batch {cfg.batch}: {batch_ms:.4f} ms/batch = "
-          f"{cfg.batch * 1000 / batch_ms:.1f} mults/s")
-    print(f"time [{cfg.name}] composite batch 1: {one_ms:.4f} ms latency")
+    time_composite(cfg, run)
     return rows
 
 
@@ -701,8 +905,8 @@ def profile_composite(label: str, fn, iters: int = 5) -> None:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    split = {"ntt_kernel": 0.0, "keyswitch_kernel": 0.0, "moddown_kernel": 0.0,
-             "other": 0.0}
+    split = {"ntt_kernel": 0.0, "ntt_mxu_kernel": 0.0, "keyswitch_kernel": 0.0,
+             "moddown_kernel": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
@@ -774,6 +978,7 @@ def main() -> int:
                                wide_16_cases)
     for k, e in wide_16_errs.items():
         big_wide_errs[k] = max(big_wide_errs[k], e)
+    mxu_cases_small, mxu_errs = check_mxu(dev)
 
     # ── phase 3: each main path through the user entry points ───────────
     small_run = run_path(SMALL, dev, small_counters, wide=False)
@@ -792,6 +997,9 @@ def main() -> int:
                            mdg.mod_down_combine, wide=False)
     big_wide_rot = run_rotation(BIG_WIDE, BIG_WIDE_ROT, big_wide_run, wide_counters,
                                 mdg.mod_down_combine_wide, wide=True)
+
+    # ── phase 3c: the small paths again under CKKS_NTT_MXU=1 (K9) ────────
+    small_mxu = run_mxu(SMALL, small_run, small_rot, small_counters)
 
     # ── phase 4: timings (CUDA events, after warm-up) ───────────────────
     small_names = {
@@ -866,6 +1074,30 @@ def main() -> int:
     time_rotation(WIDE, wide_run, wide_rot, iters=3)
     time_rotation(BIG, big_run, big_rot, iters=3)
     time_rotation(BIG_WIDE, big_wide_run, big_wide_rot, iters=3)
+
+    # K9 at the small path's shapes, and the small path under CKKS_NTT_MXU=1
+    mxu_times = time_cases(dataclasses.replace(SMALL, name="K9 small"),
+                           mxu_cases_small, int_ops_per_s, twin_iters=5)
+    ms, plain_ms, bound_ms, bound_by = mxu_times["inverse+fold"]
+    rows.append({
+        "name": "ntt_mxu_planes", "route": "cuda",
+        "source": "toy_heaan_ckks_tpu_torch/csrc/ntt_mxu.cu",
+        "replaces": "toy_heaan_ckks_tpu/ops/ntt_mxu.py:348",
+        "launches": small_mxu["launches"]["ntt_mxu_planes"],
+        "launches_per_mul": small_mxu["per_call"]["batched_mul_relin_rescale"][0],
+        "cluster_launches": 0, "max_abs_err": max(mxu_errs.values()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "forward_ms": mxu_times["forward"][0],
+        "inverse_ms": mxu_times["inverse"][0],
+    })
+    mxu_cfg = dataclasses.replace(SMALL, name="small-mxu")
+    with mxu_env():
+        time_composite(mxu_cfg, small_run)
+        ctx, child, rlk, (a0, a1, b0, b1) = (small_run["ctx"], small_run["child"],
+                                             small_run["rlk"], small_run["batch"])
+        profile_composite(f"{mxu_cfg.name} composite batch {SMALL.batch}", lambda:
+                          batched_mul_relin_rescale((a0, a1), (b0, b1), rlk, ctx, child))
+        time_rotation(mxu_cfg, small_run, small_rot, iters=5)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     print(f"wall time: {time.perf_counter() - start:.1f} s")
 

@@ -16,7 +16,9 @@ import torch
 import toy_heaan_ckks_tpu_torch as port
 from toy_heaan_ckks_tpu_torch.keys import default_special_primes
 from toy_heaan_ckks_tpu_torch.math.sampling import make_rng
-from toy_heaan_ckks_tpu_torch.ops import keyswitch_gpu, moddown_gpu, ntt_gpu
+from toy_heaan_ckks_tpu_torch.ops import (
+    keyswitch_gpu, moddown_gpu, ntt_gpu, ntt_mxu, ntt_mxu_gpu, small_fast,
+)
 from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_mul_relin_rescale
 
 pytestmark = pytest.mark.cuda
@@ -119,6 +121,38 @@ def test_moddown_kernel_matches_twin(dev, with_t, degree):
     want = moddown_gpu.mod_down_combine_twin(yhat, ks, t, child, dropped,
                                              degree, t_scale)
     assert torch.equal(got, want)
+
+
+# K9: N = 2^10 (R = 8, padded to the mma depth 32), 2^12, the small path's
+# 2^14 and 2^15 (R = 256, 136 KiB of shared memory)
+MXU_DEGREES = [1 << 10, 1 << 12, 1 << 14, 1 << 15]
+
+
+@pytest.mark.parametrize("degree", MXU_DEGREES)
+@pytest.mark.parametrize("mode", ["forward", "inverse", "fold"])
+def test_mxu_kernel_matches_twin_and_k1(dev, degree, mode):
+    """K9 against its twin and against K1 on the same planes (the folded
+    inverse against K1 with ``inv_ntt_fold``'s final constants)."""
+    moduli, _ = _chain(3, 1, degree)
+    x = _planes(degree + 5, moduli, degree, (3,), dev)
+    inverse = mode != "forward"
+    post = tuple((q - 1) // 3 for q in moduli) if mode == "fold" else None
+    got, counts = _counted(ntt_mxu_gpu.ntt_mxu_planes, lambda: ntt_mxu_gpu.ntt_mxu_planes(
+        x, moduli, degree, inverse, post))
+    assert counts == (1, 0)
+    assert torch.equal(got, ntt_mxu.ntt_mxu(x, moduli, degree, inverse, post))
+    final = None if post is None else small_fast._fold_consts(moduli, degree, post)
+    assert torch.equal(got, ntt_gpu.ntt_planes(x, moduli, degree, inverse, final))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_mxu_kernel_reads_channel_slices(dev, inverse):
+    """K9 on a channel slice of a larger stack (item stride 5 N)."""
+    degree = 1 << 13
+    moduli, _ = _chain(5, 1, degree)
+    x = _planes(11, moduli, degree, (2,), dev)[..., 2:, :]
+    got = ntt_mxu_gpu.ntt_mxu_planes(x, moduli[2:], degree, inverse)
+    assert torch.equal(got, ntt_gpu.ntt_planes(x, moduli[2:], degree, inverse))
 
 
 # wide chains: 61-bit at 2^13 (the wide main path), 62-bit with 63-bit
@@ -291,5 +325,39 @@ def test_slice_gpu_matches_cpu(dev):
             (ntt_gpu.ntt_planes, keyswitch_gpu.gadget_accumulate,
              moddown_gpu.mod_down_combine), counts)]
         assert all(n > 0 for n in launched) == (device.type == "cuda")
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert torch.equal(a, b)
+
+
+def test_mxu_slice_gpu_matches_cpu(dev, monkeypatch):
+    """Under CKKS_NTT_MXU=1 the fused multiply and a hoisted rotation sum
+    on the GPU equal the CPU's words, and the GPU run launched K9."""
+    monkeypatch.setenv("CKKS_NTT_MXU", "1")
+    degree, count, ds = 1 << 12, 4, 2
+    values = np.random.default_rng(9).uniform(-1, 1, size=(2, 2, degree // 2))
+    outs = {}
+    for device in (torch.device("cpu"), dev):
+        before = ntt_mxu_gpu.ntt_mxu_planes.launches
+        ctx = port.CkksContext.build(port.generate_primes(31, count, degree),
+                                     degree, device)
+        eng = port.CkksEngine(ctx, port.CkksParams(3.2, degree // 2, 30))
+        rng = make_rng(42)
+        sk = eng.generate_secret_key(rng)
+        pk = eng.generate_public_key(sk, rng)
+        rlk = eng.generate_gadget_relin_key(sk, rng, digit_size=ds)
+        rotks = [eng.generate_gadget_rotation_key(sk, k, rng, digit_size=ds)
+                 for k in (1, 2)]
+        enc = port.CkksEncoder(degree, 30)
+        cts = [[eng.encrypt(enc.encode(v, ctx), pk, ctx.total_bits(), rng)
+                for v in side] for side in values]
+        stack = lambda side, part: torch.stack([getattr(c, part).data for c in cts[side]])
+        o0, o1 = batched_mul_relin_rescale(
+            (stack(0, "c0"), stack(0, "c1")), (stack(1, "c0"), stack(1, "c1")),
+            rlk, ctx, ctx.drop_last(1))
+        summed = port.CkksEngine.rotate_sum_hoisted(cts[0][0], rotks)
+        outs[device.type] = (o0.cpu(), o1.cpu(), summed.c0.data.cpu(),
+                             summed.c1.data.cpu())
+        launched = ntt_mxu_gpu.ntt_mxu_planes.launches - before
+        assert (launched > 0) == (device.type == "cuda")
     for a, b in zip(outs["cpu"], outs["cuda"]):
         assert torch.equal(a, b)

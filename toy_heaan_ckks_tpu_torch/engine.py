@@ -11,7 +11,8 @@ Key switching (relinearization, rotation, conjugation) goes through
 ``_gadget_key_switch``, which dispatches by chain width to the fused
 composites of ``ops/small_fast.py`` and ``ops/wide_fast.py``; hoisted
 rotations run the generic decomposition (``_decompose_alpha``) once and
-the chain's t-less fused mod-down (``_mod_down_dispatch``) per rotation or
+the chain's t-less fused mod-down (``_mod_down_dispatch``; the staged
+``small_fast.mod_down_lo`` on K9 under ``CKKS_NTT_MXU=1``) per rotation or
 per sum.
 """
 
@@ -151,8 +152,8 @@ def _gadget_key_switch(d_ntt, key_a, key_b, ctx: CkksContext,
     """Hybrid gadget key switch of NTT-domain planes (..., L, N) over Q:
     decompose into digits, raise each to QP, accumulate the digit inner
     products against the key and divide by P. The chain's width picks the
-    composite: small -> ``small_fast.key_switch_lo`` (K1, K2, K3'), wide ->
-    ``wide_fast.key_switch_wide`` (K7, K6, K8')."""
+    composite: small -> ``small_fast.key_switch_lo`` (K1 or K9, K2, K3'),
+    wide -> ``wide_fast.key_switch_wide`` (K7, K6, K8')."""
     from .ops import small_fast as sf
     from .ops import wide_fast as wf
 
@@ -200,17 +201,21 @@ def _gadget_accumulate(d_ntt, key_a, key_b, ctx: CkksContext,
 
 def _mod_down_dispatch(x, ctx: CkksContext, ext_ctx: CkksContext):
     """Division by P of NTT-domain planes (..., E, N) over QP through the
-    chain's kernels: small K1 yhat -> K3' no-t, wide K7 yhat -> K8' no-t
-    (the words of the reference's staged small ``mod_down_lo``)."""
+    chain's kernels: small K1 yhat -> K3' no-t, wide K7 yhat -> K8' no-t.
+    Under ``CKKS_NTT_MXU=1`` a small chain runs the reference's staged
+    ``small_fast.mod_down_lo`` instead (K9 fold, Phat sum, K9 forward),
+    as its engine does; the words are the same."""
     from .ops import moddown_gpu as mdg
-    from .ops.small_fast import mod_down_by_p
+    from .ops import small_fast as sf
 
+    if ext_ctx.chain.small and sf._use_mxu(ext_ctx.moduli, ctx.degree):
+        return sf.mod_down_lo(x, ctx, ext_ctx)
     if ext_ctx.chain.small:
         kernels = dict(to_yhat=mdg.inv_ntt_to_yhat, mod_down=mdg.mod_down_combine)
     else:
         kernels = dict(to_yhat=mdg.inv_ntt_to_yhat_wide,
                        mod_down=mdg.mod_down_combine_wide)
-    return mod_down_by_p(x, ctx, ext_ctx, **kernels)
+    return sf.mod_down_by_p(x, ctx, ext_ctx, **kernels)
 
 
 def _gather_slots(x, perms):

@@ -1,5 +1,5 @@
 """Build and load the CUDA kernels (K1/K4/K5+K7/K5' NTT, K2/K6 key switch,
-K3/K8 mod-down).
+K3/K8 mod-down, K9 matrix-product NTT).
 
 The sources in ``toy_heaan_ckks_tpu_torch/csrc/`` are compiled at first use
 with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per ``.cu`` file, all started
@@ -12,7 +12,8 @@ cluster launch that cannot be resident returns its own code, 100001);
 ``check`` raises on a non-zero code. Each kernel has a uint32 entry (small
 chains, int32 tensors) and a uint64 entry with the suffix ``64`` (wide
 chains, int64 tensors) of the same signature; ``parts`` is the number of
-blocks per plane (``ntt_gpu.plane_split``).
+blocks per plane (``ntt_gpu.plane_split``). K9 (``ckks_ntt_mxu``) takes
+uint32 words only.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("ntt.cuh", "ntt.cu", "keyswitch.cu", "moddown.cu")
+SOURCES = ("ntt.cuh", "ntt.cu", "keyswitch.cu", "moddown.cu", "ntt_mxu.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -51,6 +52,10 @@ _SIGNATURES = {
                      _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 _SIGNATURES.update({f"{name}64": sig for name, sig in list(_SIGNATURES.items())})
+# x, x_stride, out, w_first, w_second, t, t_shoup, rs, q, qinv, outer,
+# channels, rows, inverse, stream
+_SIGNATURES["ckks_ntt_mxu"] = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _P]
 
 
 def _nvcc() -> str:

@@ -1,0 +1,64 @@
+"""K9: the matrix-product NTT as a CUDA tensor-core kernel, with its twin.
+
+Counterpart of ``toy_heaan_ckks_tpu/ops/ntt_mxu.py`` (``_mxu_kernel``,
+``ntt_mxu_pallas``). The kernel is ``csrc/ntt_mxu.cu`` (``ckks_ntt_mxu``:
+one block per (channel, item) plane, channel-major grid, u8 x u8 -> s32
+``mma.sync``); the twin is ``ntt_mxu.ntt_mxu``. ``ntt_mxu_planes`` sends a
+CPU tensor to the twin and launches the kernel for a CUDA tensor, with no
+fallback from one to the other, and raises outside ``supported_mxu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ntt_gpu import count_launch
+from .ntt_mxu import mxu_tables, ntt_mxu, supported_mxu
+
+
+def ntt_mxu_planes(x: torch.Tensor, moduli, degree: int, inverse: bool,
+                   post: tuple | None = None) -> torch.Tensor:
+    """K9: NTT of int32 (..., L, N) planes (the reference's uint32 bits) of
+    a small chain over ``moduli``, N in [2^10, 2^15].
+
+    Forward, or inverse with N^{-1} (Montgomery in, Montgomery out), or with
+    ``post`` the plain ``mont_mul(iNTT(x), post)`` of
+    ``small_fast.inv_ntt_fold``. Output canonical, contiguous, equal to
+    K1's words. ``launches`` counts the kernel's launches;
+    ``launches_cluster`` stays 0 (one block per plane)."""
+    moduli = tuple(int(m) for m in moduli)
+    if not supported_mxu(degree, moduli):
+        raise ValueError(
+            f"ntt_mxu_planes: N = {degree} over {len(moduli)} moduli is "
+            "outside the matrix-product NTT's envelope (small chain, N in "
+            "[2^10, 2^15])")
+    if post is not None:
+        if not inverse:
+            raise ValueError("ntt_mxu_planes: post needs inverse=True")
+        post = tuple(int(p) for p in post)
+    if x.device.type == "cpu":
+        _build.require_dtype("ntt_mxu_planes", torch.int32, x)
+        return ntt_mxu(x, moduli, degree, inverse, post)
+    L = len(moduli)
+    x3 = _build.planes(x, L, degree)
+    _build.require_cuda("ntt_mxu_planes", torch.int32, x3)
+    out = torch.empty((x3.shape[0], L, degree), dtype=torch.int32,
+                      device=x.device)
+    if not out.numel():
+        return out.reshape(x.shape)
+    lib = _build.library()
+    tabs = mxu_tables(moduli, degree, inverse, post, x.device)
+    p = _build.ptr
+    rc = lib.ckks_ntt_mxu(
+        p(x3), x3.stride(0), p(out), p(tabs.w_first), p(tabs.w_second),
+        p(tabs.t), p(tabs.t_shoup), p(tabs.rs), p(tabs.q), p(tabs.qinv),
+        x3.shape[0], L, tabs.rows, int(inverse),
+        _build.stream(x.device),
+    )
+    _build.check(rc, "ntt_mxu_planes")
+    count_launch(ntt_mxu_planes, 1)
+    return out.reshape(x.shape)
+
+
+ntt_mxu_planes.launches = ntt_mxu_planes.launches_cluster = 0
