@@ -35,8 +35,12 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    N = 2^16, 2 x 61-bit, ds 1, batch 1 (clusters of 4 blocks); and K9 small,
    the matrix-product NTT (forward, inverse, inverse with the
    decomposition fold) against its twin and against K1 on the same
-   inputs at (32, 8, 2^14), (2, 2, 2^15) and (4, 3, 2^10); word equality
-   required;
+   inputs at (32, 8, 2^14), (2, 2, 2^15) and (4, 3, 2^10); and K10/K11
+   coeff, the coefficient-sharded NTT (forward, inverse) on CUDA slabs,
+   against its twin on the same slabs and the whole-plane kernel: K1 at
+   (32, 8, 2^14) with P in {1, 2, 8} (P = 1: K10 alone), K4 at (4, 4, 2^16)
+   with P in {4, 8}, K5' at (4, 3, 2^15) uint64 with P = 4, one K10 and
+   log2 P K11 launches per call; word equality required;
 3. each multiply path through the user entry points, with every launch
    count set to 0 just before it and read just after: generate_primes ->
    CkksEngine -> sk / pk / relin key (seed 42) -> encode + encrypt 2 x B
@@ -62,6 +66,14 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    ``rescale_ntt_lo`` and ``mod_down_lo`` equal to their K1 forms, K9
    launched in every call (counts set to 0 just before, read just after),
    and the multiply's decomposition fold moved from K1 to K9;
+3d. coeff: the coefficient-sharded multiply (``build_mul_relin_rescale_coeff``)
+   and rotation (``build_rotate_coeff``) on a coefficient mesh whose shards
+   all lie on the card, on phase 3's / 3b's batches and keys sharded with
+   ``shard_planes``: big and big-wide on P = 4 (multiply and rotation by
+   1), small on P = 8 (multiply); each output equal to the unsharded
+   path's word for word, the multiply's decode within the path's bound,
+   K10 and K11 launched in every call (counts set to 0 just before, read
+   just after) and no cluster launched;
 4. CUDA-event timings of each kernel and its twin, the least time the card
    could take for the kernel's work (bytes over 3.35 TB/s, or integer
    operations over the int32 instruction rate, or K9's u8 MACs over the dense
@@ -69,7 +81,12 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    latency at batch 1), the batched rotation (rotations/s, batch-1
    latency), the hoisted calls, and profiler splits of the multiply
    composite and the batched rotation into the kernels and the torch glue;
-   the same for the small path under ``CKKS_NTT_MXU=1`` (small-mxu).
+   the same for the small path under ``CKKS_NTT_MXU=1`` (small-mxu); K10
+   and K11 against their twins and the whole sharded NTT against the
+   whole-plane kernel at the big, small and big-wide coeff paths' planes
+   (device time from the profiler: their wrappers' host work can outlast
+   the kernels, so a loop of calls times the host), and the big coeff
+   multiply beside the unsharded one, with its profile.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -449,8 +466,8 @@ def run_path(cfg: PathConfig, dev, counters, wide: bool) -> dict:
           f"({time.perf_counter() - t0:.2f} s on the CPU)")
     return dict(launches=launches, ctx=ctx, child=child_ctx, rlk=rlk,
                 batch=(a0, a1, b0, b1), eng=eng, sk=sk, pk=pk, enc=enc,
-                key_rng=key_rng, values=va, cts=cts_a, cts_b=cts_b,
-                outputs=dict(batched=(o0, o1), single=_pair(single)))
+                key_rng=key_rng, values=va, values_b=vb, cts=cts_a, cts_b=cts_b,
+                mul_ct=single, outputs=dict(batched=(o0, o1), single=_pair(single)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -787,6 +804,230 @@ def run_mxu(cfg: PathConfig, run: dict, rot_run: dict, counters) -> dict:
     return dict(launches=launches, per_call=per_call)
 
 
+# K10 / K11 phase 2 shapes: (label, batch, channels, degree, prime bits,
+# shard counts); each sharded NTT is held to its twin on the same slabs and
+# to the whole-plane kernel of the label (K1, K4 on clusters of 2, K5' on
+# clusters of 2); P = 1 is K10 alone
+COEFF_SHAPES = (
+    ("K1", 32, 8, 1 << 14, 31, (1, 2, 8)),
+    ("K4", 4, 4, 1 << 16, 30, (4, 8)),
+    ("K5'", 4, 3, 1 << 15, 61, (4,)),
+)
+# phase 3d: (path, shards, with the rotation)
+COEFF_PATHS = ((BIG, 4, True), (BIG_WIDE, 4, True), (SMALL, 8, False))
+
+
+def coeff_twin(slabs, moduli, degree: int, inverse: bool) -> tuple:
+    """The sharded NTT of ``parallel/coeff_ntt.coeff_ntt`` through the twins
+    of K10 and K11 (any device)."""
+    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import (
+        coeff_cross_twin, coeff_tail_twin,
+    )
+
+    cross = len(slabs).bit_length() - 1
+    if not inverse:
+        for st in range(cross):
+            slabs = coeff_cross_twin(slabs, moduli, degree, st, False)
+        return coeff_tail_twin(slabs, moduli, degree, False)
+    final = tuple(pow(degree, -1, q) for q in moduli)
+    slabs = coeff_tail_twin(slabs, moduli, degree, True, final if cross == 0 else None)
+    for st in range(cross - 1, -1, -1):
+        slabs = coeff_cross_twin(slabs, moduli, degree, st, True,
+                                 final if st == 0 else None)
+    return slabs
+
+
+def coeff_input(dev, batch: int, channels: int, degree: int, bits: int, shards: int):
+    """Random planes of one phase 2 shape, their P slabs and the chain."""
+    import numpy as np
+    import torch
+
+    from toy_heaan_ckks_tpu_torch import generate_primes
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import make_coeff_mesh, shard_planes
+
+    moduli = tuple(generate_primes(bits, channels, degree))
+    dtype = torch.int64 if bits > 31 else torch.int32
+    rng = np.random.Generator(np.random.PCG64(degree + shards))
+    x = _rand_planes(rng, (batch,), moduli, degree, dev, dtype)
+    return moduli, x, shard_planes(x, make_coeff_mesh(shards, dev))
+
+
+def check_coeff(dev) -> int:
+    """Phase 2, K10/K11 coeff: the sharded NTT (forward, inverse) on CUDA
+    slabs at each of COEFF_SHAPES, word-equal to its twin on the same slabs
+    and to the whole-plane kernel; one K10 and log2 P K11 launches per
+    call, none on a cluster."""
+    import torch
+
+    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import coeff_cross, coeff_tail
+    from toy_heaan_ckks_tpu_torch.ops.ntt_gpu import ntt_planes, ntt_planes_wide
+    from toy_heaan_ckks_tpu_torch.parallel.coeff_ntt import coeff_ntt
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import unshard_planes
+
+    err = 0
+    for kernel, B, L, n, bits, shard_counts in COEFF_SHAPES:
+        whole_fn = ntt_planes_wide if bits > 31 else ntt_planes
+        for shards in shard_counts:
+            moduli, x, slabs = coeff_input(dev, B, L, n, bits, shards)
+            label = f"K10/K11 coeff ({B}, {L}, 2^{n.bit_length() - 1}) P {shards}"
+            for inverse in (False, True):
+                zero_counts((coeff_tail, coeff_cross))
+                out = coeff_ntt(slabs, moduli, n, inverse)
+                torch.cuda.synchronize()
+                counts = [(f.launches, f.launches_cluster) for f in (coeff_tail, coeff_cross)]
+                if counts != [(1, 0), (shards.bit_length() - 1, 0)]:
+                    raise AssertionError(f"{label}: (K10, K11) launches {counts}")
+                what = "inverse" if inverse else "forward"
+                twin = coeff_twin(slabs, moduli, n, inverse)
+                for p, (g, w) in enumerate(zip(out, twin)):
+                    err = max(err, _same(f"{label} {what} slab {p}", g, w))
+                err = max(err, _same(f"{label} {what}", unshard_planes(out),
+                                     whole_fn(x, moduli, n, inverse),
+                                     f"K10/K11 == {kernel} on the whole plane"))
+    return err
+
+
+def coeff_cases(dev, B: int, L: int, n: int, bits: int, shards: int) -> dict:
+    """K10 (forward, inverse) and K11 (forward stage 0) against their twins
+    at one shape, the whole sharded NTT against its twins, and the
+    whole-plane kernel on the same planes, with the work of each."""
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.ops.ntt_gpu import ntt_planes, ntt_planes_wide, ntt_twin
+    from toy_heaan_ckks_tpu_torch.parallel.coeff_ntt import coeff_ntt
+
+    moduli, x, slabs = coeff_input(dev, B, L, n, bits, shards)
+    wide = bits > 31
+    w, op = (8, OPS[64]) if wide else (4, OPS[32])
+    log_n, cross = n.bit_length() - 1, shards.bit_length() - 1
+    bfly = op["harvey"] + op["add"] + op["sub"]
+    plane = B * L * n * w
+    fin = tuple(pow(n, -1, q) for q in moduli)
+    fin_cross = fin if cross == 0 else None
+    tail_ops = B * L * (n // 2) * (log_n - cross) * bfly
+    # each input word read and each output word written once; the twiddle
+    # entries of the stages run (value and Shoup companion)
+    tail_bytes = 2 * plane + 2 * L * n * w
+    whole = ntt_planes_wide if wide else ntt_planes
+    cases = {
+        "coeff_tail forward": Case(lambda: cg.coeff_tail(slabs, moduli, n, False),
+                                   lambda: cg.coeff_tail_twin(slabs, moduli, n, False),
+                                   tail_bytes, tail_ops),
+        "coeff_tail inverse": Case(
+            lambda: cg.coeff_tail(slabs, moduli, n, True, fin_cross),
+            lambda: cg.coeff_tail_twin(slabs, moduli, n, True, fin_cross),
+            tail_bytes, tail_ops + (B * L * n * op["harvey"] if fin_cross else 0)),
+        "coeff_ntt forward": Case(lambda: coeff_ntt(slabs, moduli, n, False),
+                                  lambda: coeff_twin(slabs, moduli, n, False),
+                                  tail_bytes, B * L * (n // 2) * log_n * bfly),
+        "whole-plane forward": Case(lambda: whole(x, moduli, n, False),
+                                    lambda: ntt_twin(x, moduli, n, False),
+                                    tail_bytes, B * L * (n // 2) * log_n * bfly),
+    }
+    if cross:
+        cases["coeff_cross forward"] = Case(
+            lambda: cg.coeff_cross(slabs, moduli, n, 0, False),
+            lambda: cg.coeff_cross_twin(slabs, moduli, n, 0, False),
+            2 * plane + 2 * L * w, B * L * n * (op["harvey"] + op["add"]))
+    return cases
+
+
+def run_coeff(cfg: PathConfig, shards: int, rotate: bool, dev, run: dict,
+              rot_run: dict, counters) -> dict:
+    """Phase 3d on one path: phase 3's batch and relin key (and phase 3b's
+    rotation batch and key) sharded over a coefficient mesh of ``shards``
+    shards of the card, through ``build_mul_relin_rescale_coeff`` (and
+    ``build_rotate_coeff`` by the key's offset). Each output must equal the
+    unsharded path's word for word, the multiply's decode stay within the
+    path's bound; every count is set to 0 just before each call and read
+    just after: K10 and K11 launched in each, no cluster launched."""
+    import numpy as np
+    import torch
+
+    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import coeff_cross, coeff_tail
+    from toy_heaan_ckks_tpu_torch.ops.poly import Poly
+    from toy_heaan_ckks_tpu_torch.parallel.coeff_composite import (
+        build_mul_relin_rescale_coeff, build_rotate_coeff,
+    )
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import (
+        make_coeff_mesh, shard_planes, unshard_planes,
+    )
+    from toy_heaan_ckks_tpu_torch.types import Ciphertext
+
+    ctx, child, rlk, n = run["ctx"], run["child"], run["rlk"], cfg.degree
+    mesh = make_coeff_mesh(shards, dev)
+    sh = lambda t: shard_planes(t, mesh)
+    all_counters = counters + (coeff_tail, coeff_cross)
+    label = f"[{cfg.name}-coeff P {shards}]"
+    mul = build_mul_relin_rescale_coeff(mesh, ctx, rlk.ext_ctx, rlk.digit_size)
+    mul_args = [sh(t) for t in run["batch"] + (rlk.a, rlk.b)]
+    calls = {"build_mul_relin_rescale_coeff": (lambda: mul(*mul_args),
+                                               run["outputs"]["batched"])}
+    if rotate:
+        rk = rot_run["rotk"]
+        perm = ctx.automorphism_table_ntt(pow(5, rk.rotation % (n // 2), 2 * n))
+        rot = build_rotate_coeff(mesh, ctx, rk.ext_ctx, perm, rk.digit_size)
+        rot_args = [sh(t) for t in rot_run["batch"] + (rk.a, rk.b)]
+        calls["build_rotate_coeff"] = (lambda: rot(*rot_args),
+                                       rot_run["outputs"]["batched"])
+    per_call, outs = {}, {}
+    for name, (fn, want) in calls.items():
+        zero_counts(all_counters)
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {f.__name__: f.launches for f in all_counters}
+        cluster = {f.__name__: f.launches_cluster for f in all_counters if f.launches_cluster}
+        per_call[name] = counts
+        print(f"{label} {name}: {wall:.3f} s (first call); launches {counts}")
+        if cluster:
+            raise AssertionError(f"{label} {name}: cluster launches {cluster}")
+        if counts["coeff_tail"] < 1 or counts["coeff_cross"] < 1:
+            raise AssertionError(f"{label} {name} ran no K10 or no K11: {counts}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(f"{label} {name}[{i}]", unshard_planes(g), w,
+                  "sharded composite == unsharded path")
+        outs[name] = got
+
+    o0, o1 = (unshard_planes(t) for t in outs["build_mul_relin_rescale_coeff"])
+    sk_child = run["sk"].reduce_to(child)
+    enc, eng, single = run["enc"], run["eng"], run["mul_ct"]
+    max_err = 0.0
+    for i in range(2):
+        ct = Ciphertext(c0=Poly(o0[i], child, True), c1=Poly(o1[i], child, True),
+                        logp=single.logp, logq=single.logq, scale=single.scale)
+        got = enc.decode(eng.decrypt(ct, sk_child))
+        if got.shape != (n // 2,) or not np.all(np.isfinite(got)):
+            raise AssertionError(f"{label} decode {i}: bad shape or non-finite values")
+        max_err = max(max_err, float(np.max(np.abs(
+            got - run["values"][i] * run["values_b"][i]))))
+    print(f"{label} decode max |err| vs a*b over 2 items: {max_err:.3e} "
+          f"(bound {cfg.max_decode_err})")
+    if max_err > cfg.max_decode_err:
+        raise AssertionError(f"{label} decode error {max_err} > {cfg.max_decode_err}")
+    return dict(per_call=per_call, mul=lambda: mul(*mul_args),
+                launches={k: sum(c[k] for c in per_call.values())
+                          for k in ("coeff_tail", "coeff_cross")})
+
+
+def time_coeff(run: dict, coeff_run: dict, shards: int) -> None:
+    """Phase 4 of the big coeff path: ms per call and mults/s of the
+    coefficient-sharded multiply at the path's batch beside the unsharded
+    multiply in the same run, and a profiler split of the sharded one."""
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_mul_relin_rescale
+
+    ctx, child, rlk = run["ctx"], run["child"], run["rlk"]
+    a0, a1, b0, b1 = run["batch"]
+    B = a0.shape[0]
+    unsharded_ms = _cuda_ms(
+        lambda: batched_mul_relin_rescale((a0, a1), (b0, b1), rlk, ctx, child), 10)
+    coeff_ms = _cuda_ms(coeff_run["mul"], 10)
+    print(f"time [{BIG.name}-coeff P {shards}] composite batch {B}: {coeff_ms:.4f} "
+          f"ms/call = {B * 1000 / coeff_ms:.1f} mults/s; unsharded {BIG.name} in "
+          f"this run {unsharded_ms:.4f} ms = {B * 1000 / unsharded_ms:.1f} mults/s")
+    profile_composite(f"{BIG.name}-coeff P {shards} composite batch {B}", coeff_run["mul"])
+
+
 def time_composite(cfg: PathConfig, run: dict) -> None:
     """mults/s of the batched multiply at the path's batch and its batch-1
     latency."""
@@ -891,9 +1132,10 @@ def _same_kernel(case_name: str) -> tuple:
     return (case_name,)
 
 
-def profile_composite(label: str, fn, iters: int = 5) -> None:
-    """Device time of ``fn`` split into the port's kernels and the rest
-    (torch elementwise glue), from torch.profiler over ``iters`` calls."""
+def device_split(fn, iters: int) -> tuple:
+    """Device ms per call of ``fn`` split into the port's kernels and the
+    rest (torch elementwise glue), from torch.profiler over ``iters`` calls
+    after one warm-up call, and the wall ms per call under the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -906,7 +1148,8 @@ def profile_composite(label: str, fn, iters: int = 5) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
     split = {"ntt_kernel": 0.0, "ntt_mxu_kernel": 0.0, "keyswitch_kernel": 0.0,
-             "moddown_kernel": 0.0, "other": 0.0}
+             "moddown_kernel": 0.0, "tail_kernel": 0.0, "cross_kernel": 0.0,
+             "other": 0.0}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
@@ -915,6 +1158,41 @@ def profile_composite(label: str, fn, iters: int = 5) -> None:
             continue
         key = next((k for k in split if k in ev.key), "other")
         split[key] += us / 1e3 / iters
+    return split, wall
+
+
+def time_device_cases(cfg: PathConfig, cases: dict, int_ops_per_s: float,
+                      twin_iters: int) -> dict:
+    """Kernel times of cases whose wrapper's host work may outlast the
+    kernel (K10, K11): the device time per call from torch.profiler over
+    20 calls, beside the CUDA-event time of 100 wrapper calls (the host's
+    pace where it is the larger), the twin's time and the bound of the
+    device time. Returns name -> (device ms, call ms, twin ms, bound ms,
+    bound_by)."""
+    times = {}
+    for name, case in cases.items():
+        call_ms = _cuda_ms(case.kernel, 100, warmup=10)
+        split, _ = device_split(case.kernel, 20)
+        device_ms = sum(split.values())
+        plain_ms = _cuda_ms(case.twin, twin_iters, warmup=1)
+        bytes_ms = case.bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = case.ops / int_ops_per_s * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        times[name] = (device_ms, call_ms, plain_ms, bound_ms, bound_by)
+        print(f"time [{cfg.name}] {name}: device {device_ms:.4f} ms per call "
+              f"(profiler; K10 {split['tail_kernel']:.4f}, K11 "
+              f"{split['cross_kernel']:.4f}, K1/K4/K5 {split['ntt_kernel']:.4f}), "
+              f"wrapper call {call_ms:.4f} ms (CUDA events), twin {plain_ms:.4f} ms; "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({case.bytes} B, {case.ops} int "
+              f"ops; device time at {bound_ms / device_ms:.1%} of it)")
+    return times
+
+
+def profile_composite(label: str, fn, iters: int = 5) -> None:
+    """Device time of ``fn`` split into the port's kernels and the rest
+    (torch elementwise glue), from torch.profiler over ``iters`` calls."""
+    split, wall = device_split(fn, iters)
     busy = sum(split.values())
     parts = ", ".join(f"{k} {v:.4f}" for k, v in split.items())
     print(f"profile [{label}]: device ms/call: {parts}; busy {busy:.4f}, wall "
@@ -979,6 +1257,7 @@ def main() -> int:
     for k, e in wide_16_errs.items():
         big_wide_errs[k] = max(big_wide_errs[k], e)
     mxu_cases_small, mxu_errs = check_mxu(dev)
+    coeff_err = check_coeff(dev)
 
     # ── phase 3: each main path through the user entry points ───────────
     small_run = run_path(SMALL, dev, small_counters, wide=False)
@@ -1000,6 +1279,13 @@ def main() -> int:
 
     # ── phase 3c: the small paths again under CKKS_NTT_MXU=1 (K9) ────────
     small_mxu = run_mxu(SMALL, small_run, small_rot, small_counters)
+
+    # ── phase 3d: the coefficient-sharded composites (K10, K11) ─────────
+    runs = {SMALL.name: (small_run, small_rot), BIG.name: (big_run, big_rot),
+            BIG_WIDE.name: (big_wide_run, big_wide_rot)}
+    coeff_runs = {cfg.name: run_coeff(cfg, shards, rotate, dev, *runs[cfg.name],
+                                      small_counters + wide_counters)
+                  for cfg, shards, rotate in COEFF_PATHS}
 
     # ── phase 4: timings (CUDA events, after warm-up) ───────────────────
     small_names = {
@@ -1098,6 +1384,35 @@ def main() -> int:
         profile_composite(f"{mxu_cfg.name} composite batch {SMALL.batch}", lambda:
                           batched_mul_relin_rescale((a0, a1), (b0, b1), rlk, ctx, child))
         time_rotation(mxu_cfg, small_run, small_rot, iters=5)
+
+    # K10 / K11 at the big coeff path's planes (the yardstick shape), then at
+    # the small and big-wide paths' planes; the big coeff composite
+    coeff_times = time_device_cases(
+        dataclasses.replace(BIG, name="K10/K11 (4, 4, 2^16) P 4"),
+        coeff_cases(dev, 4, 4, BIG.degree, BIG.bits, 4), int_ops_per_s, twin_iters=3)
+    time_device_cases(dataclasses.replace(SMALL, name="K10/K11 (32, 8, 2^14) P 8"),
+                      coeff_cases(dev, 32, 8, SMALL.degree, SMALL.bits, 8),
+                      int_ops_per_s, twin_iters=2)
+    time_device_cases(
+        dataclasses.replace(BIG_WIDE, name="K10/K11 (4, 3, 2^15) uint64 P 4"),
+        coeff_cases(dev, 4, 3, BIG_WIDE.degree, BIG_WIDE.bits, 4), int_ops_per_s,
+        twin_iters=1)
+    for fn, case_name, line in (("coeff_tail", "coeff_tail forward", 53),
+                                ("coeff_cross", "coeff_cross forward", 155)):
+        ms, call_ms, plain_ms, bound_ms, bound_by = coeff_times[case_name]
+        rows.append({
+            "name": fn, "route": "cuda",
+            "source": "toy_heaan_ckks_tpu_torch/csrc/coeff_ntt.cu",
+            "replaces": f"toy_heaan_ckks_tpu/parallel/coeff_ntt.py:{line}",
+            "launches": sum(r["launches"][fn] for r in coeff_runs.values()),
+            "launches_per_mul": coeff_runs[BIG.name]["per_call"][
+                "build_mul_relin_rescale_coeff"][fn],
+            "cluster_launches": 0, "max_abs_err": coeff_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": "(4, 4, 2^16) uint32, P 4, forward",
+            "ms_is": "profiler device time per call", "call_ms": call_ms,
+        })
+    time_coeff(big_run, coeff_runs[BIG.name], 4)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     print(f"wall time: {time.perf_counter() - start:.1f} s")
 

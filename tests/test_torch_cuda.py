@@ -361,3 +361,193 @@ def test_mxu_slice_gpu_matches_cpu(dev, monkeypatch):
         assert (launched > 0) == (device.type == "cuda")
     for a, b in zip(outs["cpu"], outs["cuda"]):
         assert torch.equal(a, b)
+
+
+# ── K10 / K11: the coefficient-sharded NTT ───────────────────────────────
+
+# (degree, shards, wide) whose slabs fit one block (<= 128 KiB)
+COEFF = [(n, shards, wide) for n in (1 << 10, 1 << 14, 1 << 16)
+         for shards in (1, 2, 4, 8) for wide in (False, True)
+         if ((8 if wide else 4) * n) // shards <= ntt_gpu.SLICE_BYTES]
+
+
+def _coeff_chain(degree, wide):
+    bits = 61 if wide else 31
+    dtype = torch.int64 if wide else torch.int32
+    return tuple(port.generate_primes(bits, 3, degree)), dtype
+
+
+@pytest.mark.parametrize("degree,shards,wide", COEFF)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_coeff_kernels_match_twins_and_whole_plane(dev, degree, shards, wide,
+                                                   inverse):
+    """K11 per cross stage and K10 each against its twin on the same CUDA
+    slabs; the sharded NTT word-equal to K1 / K4 / K5 / K5' on the whole
+    plane, with one K10 and log2 P K11 launches and no cluster."""
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.parallel.coeff_ntt import coeff_ntt
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import (
+        make_coeff_mesh, shard_planes, unshard_planes,
+    )
+
+    moduli, dtype = _coeff_chain(degree, wide)
+    x = _planes(degree + shards, moduli, degree, (2,), dev, dtype)
+    mesh = make_coeff_mesh(shards, dev)
+    slabs = shard_planes(x, mesh)
+    cross = shards.bit_length() - 1
+    final = tuple(pow(degree, -1, q) for q in moduli) if inverse else None
+    stages = range(cross - 1, -1, -1) if inverse else range(cross)
+    s = slabs
+    if inverse:
+        s = cg.coeff_tail(s, moduli, degree, True, final if cross == 0 else None)
+        twin = cg.coeff_tail_twin(slabs, moduli, degree, True,
+                                  final if cross == 0 else None)
+        assert all(torch.equal(a, b) for a, b in zip(s, twin))
+    for st in stages:
+        fin = final if inverse and st == 0 else None
+        nxt = cg.coeff_cross(s, moduli, degree, st, inverse, fin)
+        twin = cg.coeff_cross_twin(s, moduli, degree, st, inverse, fin)
+        assert all(torch.equal(a, b) for a, b in zip(nxt, twin))
+        s = nxt
+    if not inverse:
+        tail = cg.coeff_tail(s, moduli, degree, False)
+        twin = cg.coeff_tail_twin(s, moduli, degree, False)
+        assert all(torch.equal(a, b) for a, b in zip(tail, twin))
+        s = tail
+    before = [(f.launches, f.launches_cluster) for f in (cg.coeff_tail, cg.coeff_cross)]
+    out = coeff_ntt(slabs, moduli, degree, inverse)
+    after = [(f.launches, f.launches_cluster) for f in (cg.coeff_tail, cg.coeff_cross)]
+    assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == [
+        (1, 0), (cross, 0)]
+    whole = (ntt_gpu.ntt_planes_wide if wide else ntt_gpu.ntt_planes)(
+        x, moduli, degree, inverse)
+    assert torch.equal(unshard_planes(out), whole)
+    assert torch.equal(unshard_planes(s), whole)
+
+
+@pytest.mark.parametrize("degree,shards,wide", [(1 << 16, 1, False),
+                                                (1 << 15, 1, True)])
+def test_coeff_tail_refuses_a_slab_above_one_block(dev, degree, shards, wide):
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import make_coeff_mesh, shard_planes
+
+    moduli, dtype = _coeff_chain(degree, wide)
+    x = _planes(1, moduli, degree, (1,), dev, dtype)
+    with pytest.raises(ValueError, match="exceeds"):
+        cg.coeff_tail(shard_planes(x, make_coeff_mesh(shards, dev)), moduli,
+                      degree, False)
+
+
+@pytest.mark.parametrize("bits,count,digit_size", [(31, 4, 2), (61, 3, 1)])
+def test_coeff_composites_match_unsharded_on_card(dev, bits, count, digit_size):
+    """At N = 1024 on 8 shards of the card: the coefficient-sharded multiply
+    and rotation equal the unsharded composites on the card word for word,
+    and ran K10 and K11."""
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.parallel.coeff_composite import (
+        build_mul_relin_rescale_coeff, build_rotate_coeff,
+    )
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import (
+        make_coeff_mesh, shard_planes, unshard_planes,
+    )
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import (
+        _mul_relin_rescale_arrays, _rotate_arrays,
+    )
+
+    degree = 1 << 10
+    ctx = port.CkksContext.build(port.generate_primes(bits, count, degree), degree, dev)
+    eng = port.CkksEngine(ctx, port.CkksParams(3.2, degree // 2, 30))
+    rng = make_rng(42)
+    sk = eng.generate_secret_key(rng)
+    rlk = eng.generate_gadget_relin_key(sk, rng, digit_size=digit_size)
+    rotk = eng.generate_gadget_rotation_key(sk, 1, rng, digit_size=digit_size)
+    args = [_planes(20 + i, ctx.moduli, degree, (2,), dev, rlk.a.dtype) for i in range(4)]
+    mesh = make_coeff_mesh(8, dev)
+    sh = lambda t: shard_planes(t, mesh)
+    before = cg.coeff_tail.launches, cg.coeff_cross.launches
+    got = build_mul_relin_rescale_coeff(mesh, ctx, rlk.ext_ctx, digit_size)(
+        *map(sh, args), sh(rlk.a), sh(rlk.b))
+    want = _mul_relin_rescale_arrays(*args, rlk.a, rlk.b, ctx, rlk.ext_ctx,
+                                     ctx.drop_last(1), digit_size=digit_size)
+    perm = ctx.automorphism_table_ntt(pow(5, 1, 2 * degree))
+    rot = build_rotate_coeff(mesh, ctx, rotk.ext_ctx, perm, digit_size)(
+        sh(args[0]), sh(args[1]), sh(rotk.a), sh(rotk.b))
+    rot_want = _rotate_arrays(args[0], args[1], rotk.a, rotk.b, perm, ctx,
+                              rotk.ext_ctx, digit_size)
+    for g, w in zip(got + rot, want + rot_want):
+        assert torch.equal(unshard_planes(g), w)
+    assert cg.coeff_tail.launches - before[0] == 12
+    assert cg.coeff_cross.launches - before[1] == 36
+
+
+def _cards(count: int):
+    if torch.cuda.device_count() < count:
+        pytest.skip(f"needs {count} CUDA devices")
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+@pytest.mark.parametrize("wide", [False, True])
+def test_coeff_ntt_across_cards(dev, shards, wide):
+    """Shards on four cards (two per card at P = 8): K11 reads partner
+    slabs through peer pointers, one launch per card, and the words equal
+    K1 / K5 on the whole plane on one card."""
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.parallel.coeff_ntt import coeff_ntt
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import (
+        make_coeff_mesh, shard_planes, unshard_planes,
+    )
+
+    cards = _cards(4)
+    degree = 1 << 14
+    moduli, dtype = _coeff_chain(degree, wide)
+    x = _planes(shards, moduli, degree, (2,), dev, dtype)
+    mesh = make_coeff_mesh(shards, [cards[p * 4 // shards] for p in range(shards)])
+    slabs = shard_planes(x, mesh)
+    whole = ntt_gpu.ntt_planes_wide if wide else ntt_gpu.ntt_planes
+    for inverse in (False, True):
+        before = cg.coeff_tail.launches, cg.coeff_cross.launches
+        out = coeff_ntt(slabs, moduli, degree, inverse)
+        assert [t.device for t in out] == list(mesh.devices)
+        assert (cg.coeff_tail.launches - before[0],
+                cg.coeff_cross.launches - before[1]) == (4, 4 * (shards.bit_length() - 1))
+        assert torch.equal(unshard_planes(out).to(dev), whole(x, moduli, degree, inverse))
+
+
+@pytest.mark.parametrize("bits,count,digit_size", [(31, 4, 2), (61, 3, 1)])
+def test_coeff_composites_across_cards(dev, bits, count, digit_size):
+    """The sharded multiply and rotation with one shard on each of four
+    cards equal the unsharded composites on one card."""
+    from toy_heaan_ckks_tpu_torch.parallel.coeff_composite import (
+        build_mul_relin_rescale_coeff, build_rotate_coeff,
+    )
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import (
+        make_coeff_mesh, shard_planes, unshard_planes,
+    )
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import (
+        _mul_relin_rescale_arrays, _rotate_arrays,
+    )
+
+    cards = _cards(4)
+    degree = 1 << 10
+    ctx = port.CkksContext.build(port.generate_primes(bits, count, degree), degree, dev)
+    eng = port.CkksEngine(ctx, port.CkksParams(3.2, degree // 2, 30))
+    rng = make_rng(42)
+    sk = eng.generate_secret_key(rng)
+    rlk = eng.generate_gadget_relin_key(sk, rng, digit_size=digit_size)
+    rotk = eng.generate_gadget_rotation_key(sk, 1, rng, digit_size=digit_size)
+    args = [_planes(30 + i, ctx.moduli, degree, (2,), dev, rlk.a.dtype) for i in range(4)]
+    mesh = make_coeff_mesh(4, cards)
+    sh = lambda t: shard_planes(t, mesh)
+    got = build_mul_relin_rescale_coeff(mesh, ctx, rlk.ext_ctx, digit_size)(
+        *map(sh, args), sh(rlk.a), sh(rlk.b))
+    want = _mul_relin_rescale_arrays(*args, rlk.a, rlk.b, ctx, rlk.ext_ctx,
+                                     ctx.drop_last(1), digit_size=digit_size)
+    perm = ctx.automorphism_table_ntt(pow(5, 1, 2 * degree))
+    rot = build_rotate_coeff(mesh, ctx, rotk.ext_ctx, perm, digit_size)(
+        sh(args[0]), sh(args[1]), sh(rotk.a), sh(rotk.b))
+    rot_want = _rotate_arrays(args[0], args[1], rotk.a, rotk.b, perm, ctx,
+                              rotk.ext_ctx, digit_size)
+    for g, w in zip(got + rot, want + rot_want):
+        assert [t.device for t in g] == cards
+        assert torch.equal(unshard_planes(g).to(dev), w)

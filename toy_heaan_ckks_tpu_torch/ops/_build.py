@@ -1,5 +1,5 @@
 """Build and load the CUDA kernels (K1/K4/K5+K7/K5' NTT, K2/K6 key switch,
-K3/K8 mod-down, K9 matrix-product NTT).
+K3/K8 mod-down, K9 matrix-product NTT, K10/K11 coefficient-sharded NTT).
 
 The sources in ``toy_heaan_ckks_tpu_torch/csrc/`` are compiled at first use
 with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per ``.cu`` file, all started
@@ -13,7 +13,9 @@ cluster launch that cannot be resident returns its own code, 100001);
 chains, int32 tensors) and a uint64 entry with the suffix ``64`` (wide
 chains, int64 tensors) of the same signature; ``parts`` is the number of
 blocks per plane (``ntt_gpu.plane_split``). K9 (``ckks_ntt_mxu``) takes
-uint32 words only.
+uint32 words only. K10 / K11 (``ckks_coeff_tail`` / ``ckks_coeff_cross``)
+take host arrays of slab pointers (``ptr_array``, ``int_array``);
+``ckks_enable_peer_access`` lets one card read another's memory.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("ntt.cuh", "ntt.cu", "keyswitch.cu", "moddown.cu", "ntt_mxu.cu")
+SOURCES = ("ntt.cuh", "ntt.cu", "keyswitch.cu", "moddown.cu", "ntt_mxu.cu",
+           "coeff_ntt.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -50,12 +53,20 @@ _SIGNATURES = {
     # pinvs, tw, twp, out, outer, dropped, kept, log_n, parts, stream
     "ckks_moddown": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # in, out, ids, count, shards, tw, twp, q, fin, finp, planes, channels,
+    # log_n, log_s, inverse, stream
+    "ckks_coeff_tail": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _P],
+    # the same with the stage before inverse
+    "ckks_coeff_cross": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _P],
 }
 _SIGNATURES.update({f"{name}64": sig for name, sig in list(_SIGNATURES.items())})
 # x, x_stride, out, w_first, w_second, t, t_shoup, rs, q, qinv, outer,
 # channels, rows, inverse, stream
 _SIGNATURES["ckks_ntt_mxu"] = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _P]
+_SIGNATURES["ckks_enable_peer_access"] = [_I, _I]
 
 
 def _nvcc() -> str:
@@ -135,6 +146,15 @@ def check(code: int, what: str) -> None:
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def ptr_array(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def int_array(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:

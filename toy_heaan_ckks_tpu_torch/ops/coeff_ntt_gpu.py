@@ -1,0 +1,254 @@
+"""K10 and K11: the coefficient-sharded NTT's kernels, with their twins.
+
+Counterpart of ``toy_heaan_ckks_tpu/parallel/coeff_ntt.py``'s
+``_tail_kernel`` / ``_local_tail_pallas`` (K10) and
+``_cross_stage_remote_kernel`` / ``_cross_stage_remote`` (K11). A plane
+(..., L, N) is held as P contiguous slabs (..., L, S), S = N / P, slab p on
+shard p of a coefficient mesh (``parallel/mesh.py``); a sharded value is the
+tuple of the P slab tensors. With log2 P cross stages:
+
+- ``coeff_tail`` (K10) runs the stages [log2 P, log2 N) of every slab, whose
+  butterflies never leave a slab: forward in increasing, inverse in
+  decreasing order;
+- ``coeff_cross`` (K11) runs one stage st < log2 P, whose distance
+  d = N >> (st + 1) >= S pairs slab p with slab p ^ (d / S).
+
+Both take the whole plane's compact twiddles at the slab's global offset,
+so their words equal the unsharded transform's, and an optional
+per-channel ``final`` factor (the inverse's N^{-1}, or folded constants)
+applied after their butterflies. The kernels are ``csrc/coeff_ntt.cu``
+(``ckks_coeff_tail`` / ``ckks_coeff_cross`` on uint32 words for int32
+slabs, the ``64`` entries on uint64 words for int64 slabs); the twins are
+the staged torch butterflies of ``ops/ntt.py`` restricted to one slab and
+the slab exchange ``slabs[p ^ shift]``. CPU slabs go to the twin and CUDA
+slabs to the kernel, with no fallback either way. One launch covers the
+shards on one device; each wrapper counts its launches in ``launches``
+(``launches_cluster`` stays 0: no cluster is launched).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import _build
+from . import modular as mm
+from .ntt import NttTables
+from .ntt_gpu import SLICE_BYTES, count_launch, final_consts, kernel_tables
+
+MAX_SHARDS = 64  # the kernels' Slabs parameter holds this many pointers
+
+
+def slab_layout(shards: int, degree: int) -> tuple[int, int]:
+    """(log2 N, log2 S) of ``shards`` slabs of a ring of ``degree``; raises
+    unless both are powers of two with 1 <= P <= min(N / 2, MAX_SHARDS)."""
+    log_n = degree.bit_length() - 1
+    log_p = shards.bit_length() - 1
+    if degree != 1 << log_n or shards != 1 << log_p:
+        raise ValueError(f"{shards} shards of N = {degree}: both must be "
+                         "powers of two")
+    if shards > MAX_SHARDS or log_p >= log_n:
+        raise ValueError(f"{shards} shards of N = {degree}: need 1 <= P <= "
+                         f"min(N / 2, {MAX_SHARDS})")
+    return log_n, log_n - log_p
+
+
+def _check(name: str, slabs, moduli: tuple, degree: int) -> tuple:
+    """Validate P slabs of one sharded value; returns (log_n, log_s, wide,
+    planes). Each slab: int32 (small chain: every q < 2^31) or int64 (wide)
+    (..., L, S), contiguous, all of one shape and dtype, all on the CPU or
+    all on CUDA devices."""
+    if not slabs:
+        raise ValueError(f"{name}: no slabs")
+    log_n, log_s = slab_layout(len(slabs), degree)
+    first = slabs[0]
+    if first.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: dtype {first.dtype}, expected int32 or int64")
+    wide = first.dtype == torch.int64
+    if not wide and mm.radix_bits_of(moduli) != 32:
+        raise ValueError(f"{name}: int32 slabs need every q < 2^31")
+    shape = first.shape
+    if len(shape) < 2 or shape[-2:] != (len(moduli), 1 << log_s):
+        raise ValueError(f"{name}: slab shape {tuple(shape)}, expected "
+                         f"(..., {len(moduli)}, {1 << log_s})")
+    cuda = first.device.type == "cuda"
+    for t in slabs:
+        if t.dtype != first.dtype or t.shape != shape:
+            raise ValueError(f"{name}: slabs differ in dtype or shape")
+        if (t.device.type == "cuda") != cuda or t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: slabs on {first.device} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: slab not contiguous")
+    planes = first.numel() >> log_s
+    return log_n, log_s, wide, planes
+
+
+def _final_col(final, moduli: tuple, device) -> torch.Tensor | None:
+    if final is None:
+        return None
+    return mm.column(tuple(int(f) % q for f, q in zip(final, moduli)), device)
+
+
+def coeff_tail_twin(slabs, moduli, degree: int, inverse: bool, final=None):
+    """Plain torch version of K10 on slabs on any device: per slab p, the
+    staged butterflies of ``ops/ntt.py`` on groups [p*S/(2d), (p+1)*S/(2d))
+    of each stage."""
+    moduli = tuple(int(m) for m in moduli)
+    log_n, log_s = slab_layout(len(slabs), degree)
+    cross = log_n - log_s
+    s_len = 1 << log_s
+    out = []
+    for p, x in enumerate(slabs):
+        ar = mm.arith(x.dtype)
+        tabs = NttTables.build(moduli, degree, x.device)
+        q = tabs.q[:, :, None]
+        table = tabs.inv if inverse else tabs.fwd
+        lead, L = x.shape[:-2], x.shape[-2]
+        a = x.long()
+        stages = range(log_n - 1, cross - 1, -1) if inverse else range(cross, log_n)
+        for st in stages:
+            d = degree >> (st + 1)
+            groups = s_len // (2 * d)
+            k0 = (1 << st) + p * groups
+            w = table[:, k0 : k0 + groups, None]  # (L, groups, 1)
+            a4 = a.reshape(*lead, L, groups, 2, d)
+            u, v = a4[..., 0, :], a4[..., 1, :]
+            if inverse:
+                pair = [ar.add(u, v, q), ar.mul(ar.sub(u, v, q), w, q)]
+            else:
+                wv = ar.mul(v, w, q)
+                pair = [ar.add(u, wv, q), ar.sub(u, wv, q)]
+            a = torch.stack(pair, dim=-2).reshape(*lead, L, s_len)
+        fin = _final_col(final, moduli, x.device)
+        if fin is not None:
+            a = ar.mul(a, fin, tabs.q)
+        out.append(a.to(x.dtype))
+    return tuple(out)
+
+
+def coeff_cross_twin(slabs, moduli, degree: int, stage: int, inverse: bool,
+                     final=None):
+    """Plain torch version of K11 on slabs on any device: slab p and its
+    partner slabs[p ^ shift] through one butterfly stage."""
+    moduli = tuple(int(m) for m in moduli)
+    log_n, log_s = slab_layout(len(slabs), degree)
+    log_d = log_n - 1 - stage
+    if not 0 <= stage < log_n - log_s:
+        raise ValueError(f"coeff_cross: stage {stage} is not a cross stage")
+    shift = 1 << (log_d - log_s)
+    out = []
+    for p, x in enumerate(slabs):
+        ar = mm.arith(x.dtype)
+        tabs = NttTables.build(moduli, degree, x.device)
+        table = tabs.inv if inverse else tabs.fwd
+        g = (p << log_s) >> (log_d + 1)
+        w = table[:, (1 << stage) + g, None]  # (L, 1)
+        q = tabs.q
+        a, b = x.long(), slabs[p ^ shift].to(x.device).long()
+        if inverse:
+            r = ar.add(a, b, q) if not p & shift else ar.mul(ar.sub(b, a, q), w, q)
+        else:
+            r = (ar.add(a, ar.mul(b, w, q), q) if not p & shift
+                 else ar.sub(b, ar.mul(a, w, q), q))
+        fin = _final_col(final, moduli, x.device)
+        if fin is not None:
+            r = ar.mul(r, fin, q)
+        out.append(r.to(x.dtype))
+    return tuple(out)
+
+
+def _groups(slabs) -> dict:
+    """Shard indices by device, in shard order."""
+    groups: dict = {}
+    for p, t in enumerate(slabs):
+        groups.setdefault(t.device, []).append(p)
+    return groups
+
+
+@functools.lru_cache(maxsize=None)
+def _enable_peer(device: int, peer: int) -> None:
+    _build.check(_build.library().ckks_enable_peer_access(device, peer),
+                 "enable peer access")
+
+
+def _launch(wrapper, slabs, moduli, degree: int, inverse: bool, final,
+            stage: int | None) -> tuple:
+    """Shared body of the two wrappers: validate, then the twin (CPU) or
+    one kernel launch per device (CUDA), each counted on ``wrapper``."""
+    name = wrapper.__name__
+    slabs, moduli = tuple(slabs), tuple(int(m) for m in moduli)
+    log_n, log_s, wide, planes = _check(name, slabs, moduli, degree)
+    if final is not None and len(final) != len(moduli):
+        raise ValueError(f"{name}: {len(final)} final factors for "
+                         f"{len(moduli)} channels")
+    if slabs[0].device.type == "cpu":
+        if stage is None:
+            return coeff_tail_twin(slabs, moduli, degree, inverse, final)
+        return coeff_cross_twin(slabs, moduli, degree, stage, inverse, final)
+    if stage is None and (8 if wide else 4) << log_s > SLICE_BYTES:
+        raise ValueError(f"{name}: a slab of 2^{log_s} words exceeds "
+                         f"{SLICE_BYTES} bytes of shared memory")
+    if stage is not None and not 0 <= stage < log_n - log_s:
+        raise ValueError(f"{name}: stage {stage} is not a cross stage")
+    rbits = 64 if wide else 32
+    out = tuple(torch.empty_like(t) for t in slabs)
+    if not planes:
+        return out
+    groups = _groups(slabs)
+    if stage is not None and len(groups) > 1:
+        # A partner slab on another card is read through its peer pointer.
+        # The stages are ordered by synchronising every card around the
+        # launches; an event per stage on each card's stream would order
+        # them without stopping the host, and is not built untried.
+        for a in groups:
+            for b in groups:
+                if a != b:
+                    _enable_peer(a.index, b.index)
+        for dev in groups:
+            torch.cuda.synchronize(dev)
+    entry = getattr(_build.library(), f"ckks_{name}{'64' if wide else ''}")
+    ins, outs = _build.ptr_array(slabs), _build.ptr_array(out)
+    channels = len(moduli)
+    for dev, ids in groups.items():
+        kt = kernel_tables(moduli, degree, dev, rbits)
+        tw, twp = (kt.inv, kt.inv_shoup) if inverse else (kt.fwd, kt.fwd_shoup)
+        fin = finp = None
+        if final is not None:
+            fin, finp = final_consts(moduli, tuple(int(f) for f in final), dev, rbits)
+        p = _build.ptr
+        args = [ins, outs, _build.int_array(ids), len(ids), len(slabs), p(tw),
+                p(twp), p(kt.q), p(fin), p(finp), planes, channels, log_n, log_s]
+        if stage is not None:
+            args.append(stage)
+        with torch.cuda.device(dev):
+            rc = entry(*args, int(inverse), _build.stream(dev))
+        _build.check(rc, name)
+        count_launch(wrapper, 1)
+    if stage is not None and len(groups) > 1:
+        for dev in groups:
+            torch.cuda.synchronize(dev)
+    return out
+
+
+def coeff_tail(slabs, moduli, degree: int, inverse: bool, final=None) -> tuple:
+    """K10: the local stages [log2 P, log2 N) of P slabs (..., L, S) of a
+    ring of ``degree`` over ``moduli`` (int32 slabs: a small chain; int64: a
+    wide one), forward or inverse, then the optional per-channel plain
+    ``final`` factors. Returns new slabs, each on its input's device. A slab
+    must fit one block's shared memory (``ntt_gpu.SLICE_BYTES``: uint32
+    S <= 2^15, uint64 S <= 2^14). At P = 1 this is the whole NTT."""
+    return _launch(coeff_tail, slabs, moduli, degree, inverse, final, None)
+
+
+def coeff_cross(slabs, moduli, degree: int, stage: int, inverse: bool,
+                final=None) -> tuple:
+    """K11: the cross stage ``stage`` (< log2 P) of P slabs, forward
+    (Cooley-Tukey) or inverse (Gentleman-Sande), then the optional
+    ``final`` factors. Returns new slabs (the kernel never writes in
+    place: each shard reads its partner's input)."""
+    return _launch(coeff_cross, slabs, moduli, degree, inverse, final, stage)
+
+
+coeff_tail.launches = coeff_tail.launches_cluster = 0
+coeff_cross.launches = coeff_cross.launches_cluster = 0
