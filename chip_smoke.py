@@ -28,7 +28,8 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    versions and the kernel build time (one nvcc per source, in parallel);
 2. each kernel against its plain torch twin on the same CUDA inputs at each
    path's shapes — forward, inverse with folded constants and yhat
-   emission of the NTT, the key switch, the mod-down with t (multiply
+   emission of the NTT, the key switch (on the small path with and
+   without the skip-own input d), the mod-down with t (multiply
    shapes) and without t (key-switch shapes: the whole base kept, the
    specials dropped) — plus the wide kernels once at N = 2^14, 3 x 62-bit,
    ds 1, batch 2 (63-bit special, 128 KiB uint64 plane) and once at
@@ -86,7 +87,11 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    whole-plane kernel at the big, small and big-wide coeff paths' planes
    (device time from the profiler: their wrappers' host work can outlast
    the kernels, so a loop of calls times the host), and the big coeff
-   multiply beside the unsharded one, with its profile.
+   multiply beside the unsharded one, with its profile. The small K2 row
+   also carries the register-pass kernel's registers, spill bytes,
+   threads and shared memory a block, resident blocks an SM and SASS
+   counts (beside the template's uint32 one-block form), and its time
+   without d.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -311,16 +316,19 @@ def kernel_cases(cfg: PathConfig, dev, wide: bool) -> dict:
         ops = B * channels * (ntt_ops + (n * op["harvey"] if final else 0))
         return 2 * B * channels * plane + 2 * channels * plane, ops
 
-    ks_ops = 0  # per item; d is given, so a base channel skips its own digit
-    for j in range(E):
-        for t_ in range(D):
-            k_count = min(ds, L - t_ * ds)
-            if j < L and t_ == j // ds:
-                ks_ops += n * 2 * op["redc"]
-            else:
-                ks_ops += (n * k_count * (op["harvey"] + op["add"]) + ntt_ops
-                           + n * 2 * (op["redc"] + op["add"]))
-    ks_bytes = (2 * B * L + 2 * D * E + 2 * E + 2 * B * E) * plane
+    def ks_work(with_d: bool):
+        ops = 0  # per item; with d a base channel skips its own digit
+        for j in range(E):
+            for t_ in range(D):
+                k_count = min(ds, L - t_ * ds)
+                if with_d and j < L and t_ == j // ds:
+                    ops += n * 2 * op["redc"]
+                else:
+                    ops += (n * k_count * (op["harvey"] + op["add"]) + ntt_ops
+                            + n * 2 * (op["redc"] + op["add"]))
+        planes_in = 2 * B * L if with_d else B * L
+        return (planes_in + 2 * D * E + 2 * E + 2 * B * E) * plane, B * ops
+
     md_ops = B * Lc * (n * G * (op["harvey"] + op["add"]) + ntt_ops
                        + n * (2 * op["harvey"] + op["add"] + op["sub"]))
     md_bytes = (B * G + 2 * B * Lc + 2 * Lc + B * Lc) * plane
@@ -348,7 +356,13 @@ def kernel_cases(cfg: PathConfig, dev, wide: bool) -> dict:
             lambda: accumulate(y, key_a, key_b, **ks_kw),
             lambda: ksg.gadget_accumulate_twin(y, key_a, key_b, primes, ext, n,
                                                ds, d),
-            ks_bytes, B * ks_ops),
+            *ks_work(True)),
+        # K2 on one block per plane also without d (every digit raised)
+        **({} if wide or clustered(cfg, wide) else {"gadget_accumulate[no_d]": Case(
+            lambda: accumulate(y, key_a, key_b, **{**ks_kw, "d_ntt": None}),
+            lambda: ksg.gadget_accumulate_twin(y, key_a, key_b, primes, ext, n,
+                                               ds, None),
+            *ks_work(False))}),
         "mod_down_combine": Case(
             lambda: mod_down(yhat, ks, t, **md_kw),
             lambda: mdg.mod_down_combine_twin(yhat, ks, t, child, dropped, n,
@@ -1129,36 +1143,107 @@ def _same_kernel(case_name: str) -> tuple:
     """The cases that run the kernel a JSON row stands for."""
     if case_name == "inverse+fold":
         return ("forward", "inverse+fold", "inv_ntt_to_yhat")
+    if case_name == "gadget_accumulate":
+        return ("gadget_accumulate", "gadget_accumulate[no_d]")
     return (case_name,)
 
 
-def device_split(fn, iters: int) -> tuple:
+SASS_OPS = ("LDS", "STS", "LDG", "STG", "BAR", "IMAD")
+
+
+def sass_counts(lib_path, kernels: dict) -> dict:
+    """{label: {"total": n, op: n for SASS_OPS}} of the kernels whose
+    mangled names contain ``kernels[label]``, from ``cuobjdump -sass``."""
+    import os
+
+    from toy_heaan_ckks_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    counts, label = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            label = next((k for k, v in kernels.items() if v in mangled), None)
+            if label:
+                counts[label] = dict.fromkeys(("total",) + SASS_OPS, 0)
+        elif label and "/*" in line and ";" in line:
+            text = line.split("*/", 1)[1].split(";")[0].split()
+            if text and text[0].startswith("@"):
+                text = text[1:]
+            if not text:
+                continue
+            counts[label]["total"] += 1
+            op = text[0].split(".")[0]
+            if op in SASS_OPS:
+                counts[label][op] += 1
+    missing = set(kernels) - set(counts)
+    if missing:
+        raise AssertionError(f"cuobjdump: no SASS for {sorted(missing)}")
+    return counts
+
+
+def keyswitch_info(cfg: PathConfig) -> dict:
+    """The one-block uint32 K2 kernel at the path's N as built and as it
+    fits the card (``ckks_keyswitch_info``: cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), with its SASS counts
+    beside those of the uint32 one-block instantiation of the template it
+    replaces (still built, for N < 2^10)."""
+    import ctypes
+
+    from toy_heaan_ckks_tpu_torch.ops import _build
+
+    log_n = cfg.degree.bit_length() - 1
+    lib = _build.library()
+    lib.ckks_keyswitch_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.ckks_keyswitch_info.restype = ctypes.c_int
+    buf = (ctypes.c_int * 5)()
+    _build.check(lib.ckks_keyswitch_info(log_n, buf), "ckks_keyswitch_info")
+    regs, local, threads, smem, blocks = buf
+    sass = sass_counts(_build.library_path(), {
+        "keyswitch_kernel_reg": f"keyswitch_kernel_regILi{log_n}E",
+        "keyswitch_kernel[u32, one block]": "keyswitch_kernelIjLb0E"})
+    info = {"kernel": f"keyswitch_kernel_reg<{log_n}>", "regs_per_thread": regs,
+            "local_bytes_per_thread": local, "threads_per_block": threads,
+            "smem_bytes_per_block": smem, "blocks_per_sm": blocks, "sass": sass}
+    print(f"[{cfg.name}] K2 kernel: {json.dumps(info)}")
+    return info
+
+
+def device_split(fn, iters: int, windows: int = 3) -> tuple:
     """Device ms per call of ``fn`` split into the port's kernels and the
     rest (torch elementwise glue), from torch.profiler over ``iters`` calls
-    after one warm-up call, and the wall ms per call under the profiler."""
+    after one warm-up call, and the wall ms per call under the profiler. A
+    profiler window now and then records no device event at all; such a
+    window is taken again, up to ``windows`` in all, and then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / iters
-    split = {"ntt_kernel": 0.0, "ntt_mxu_kernel": 0.0, "keyswitch_kernel": 0.0,
-             "moddown_kernel": 0.0, "tail_kernel": 0.0, "cross_kernel": 0.0,
-             "other": 0.0}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA or not us:
-            continue
-        key = next((k for k in split if k in ev.key), "other")
-        split[key] += us / 1e3 / iters
-    return split, wall
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+        split = {"ntt_kernel": 0.0, "ntt_mxu_kernel": 0.0, "keyswitch_kernel": 0.0,
+                 "moddown_kernel": 0.0, "tail_kernel": 0.0, "cross_kernel": 0.0,
+                 "other": 0.0}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA or not us:
+                continue
+            key = next((k for k in split if k in ev.key), "other")
+            split[key] += us / 1e3 / iters
+        if sum(split.values()) > 0:
+            return split, wall
+        print(f"profile: no device event recorded in a window of {iters} calls")
+    raise AssertionError(f"torch.profiler recorded no device time in {windows} windows")
 
 
 def time_device_cases(cfg: PathConfig, cases: dict, int_ops_per_s: float,
@@ -1339,8 +1424,14 @@ def main() -> int:
             "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:604",
             "factored_branch": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:575"}),
     }
+    no_d_case = {"gadget_accumulate[no_d]": small_cases.pop("gadget_accumulate[no_d]")}
     rows = time_path(SMALL, small_cases, small_errs, small_run,
                      small_rot["launches"], small_names, int_ops_per_s, twin_iters=5)
+    ks_row = next(r for r in rows if r["name"] == "gadget_accumulate")
+    no_d = time_cases(SMALL, no_d_case, int_ops_per_s, twin_iters=2)[
+        "gadget_accumulate[no_d]"]
+    ks_row.update(keyswitch_info(SMALL), no_d_ms=no_d[0], no_d_plain_ms=no_d[1],
+                  no_d_bound_ms=no_d[2])
     rows += time_path(WIDE, wide_cases, wide_errs, wide_run, wide_rot["launches"],
                       wide_names, int_ops_per_s, twin_iters=2)
     rows += time_path(BIG, big_cases, big_errs, big_run, big_rot["launches"],

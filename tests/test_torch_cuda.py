@@ -66,23 +66,46 @@ def test_ntt_kernel_matches_twin(dev, degree, inverse):
     assert torch.equal(got, ntt_gpu.ntt_twin(x, moduli, degree, inverse, final))
 
 
-@pytest.mark.parametrize("digit_size,count", [(1, 2), (2, 3), (3, 4), (4, 8), (8, 4)])
-@pytest.mark.parametrize("with_d", [True, False])
-def test_keyswitch_kernel_matches_twin(dev, digit_size, count, with_d):
-    degree = 1 << 12
+def _keyswitch_vs_twin(dev, degree, digit_size, count, with_d, batch):
+    """K2 on one block per plane against its twin: one launch, no cluster,
+    uint32-equal outputs."""
     base, ext = _chain(count, min(digit_size, count), degree)
     digits = -(-count // digit_size)
-    y = _planes(1, base, degree, (2,), dev)
-    d = _planes(2, base, degree, (2,), dev) if with_d else None
+    y = _planes(1, base, degree, (batch,), dev)
+    d = _planes(2, base, degree, (batch,), dev) if with_d else None
     ka = _planes(3, ext, degree, (digits,), dev)
     kb = _planes(4, ext, degree, (digits,), dev)
-    got = keyswitch_gpu.gadget_accumulate(
+    got, counts = _counted(keyswitch_gpu.gadget_accumulate, lambda: keyswitch_gpu.gadget_accumulate(
         y, ka, kb, base_moduli=base, ext_moduli=ext, degree=degree,
-        digit_size=digit_size, d_ntt=d,
-    )
+        digit_size=digit_size, d_ntt=d))
+    assert counts == (1, 0)
     want = keyswitch_gpu.gadget_accumulate_twin(
         y, ka, kb, base, ext, degree, digit_size, d)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# 2^9: the keyswitch_kernel template's uint32 one-block form; 2^10 .. 2^15:
+# keyswitch_kernel_reg (2 register passes at 2^10, 3 above); (ds, count)
+# covers a short last digit group and D = 1 (ds >= L: no base channel has a
+# non-own digit)
+@pytest.mark.parametrize("degree", [1 << 9, 1 << 10, 1 << 12, 1 << 13, 1 << 14, 1 << 15])
+@pytest.mark.parametrize("digit_size,count", [(1, 2), (2, 3), (3, 4), (4, 8), (8, 4)])
+@pytest.mark.parametrize("with_d", [True, False])
+def test_keyswitch_kernel_matches_twin(dev, degree, digit_size, count, with_d):
+    _keyswitch_vs_twin(dev, degree, digit_size, count, with_d, 2)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("with_d", [True, False])
+def test_keyswitch_kernel_batches(dev, batch, with_d):
+    """A batch of one and an odd batch (the grid's special-first order)."""
+    _keyswitch_vs_twin(dev, 1 << 14, 4, 8, with_d, batch)
+
+
+@pytest.mark.parametrize("with_d", [True, False])
+def test_keyswitch_kernel_main_path_shape(dev, with_d):
+    """The small multiply's key switch: 8 x 31-bit, ds 4, N = 2^14, B 32."""
+    _keyswitch_vs_twin(dev, 1 << 14, 4, 8, with_d, 32)
 
 
 @pytest.mark.parametrize("with_d", [True, False])

@@ -28,6 +28,53 @@
 // (serial __syncthreads chain) plus reading L input planes and 2 key planes
 // per digit from device memory; on uint64 words the integer pipe (a Harvey64
 // or REDC64 is several 32-bit multiplies).
+//
+// uint32 planes that one block holds (N = 2^10 .. 2^15) run another body,
+// keyswitch_kernel_reg<log2 N>; the uint64 form and the cluster form
+// (N = 2^16) run keyswitch_kernel above. Its design:
+//
+// - NTT passes in registers. A block has N / 32 threads and each thread
+//   holds 32 words of the plane. A pass runs r <= 5 consecutive stages on
+//   them without leaving registers: for pass (s, r) a thread's group is
+//   the 2^r positions blk * N/2^s + m * N/2^(s+r) + off, m < 2^r, and the
+//   stage s+l butterfly of (m, m + 2^(r-1-l)) takes twiddle
+//   tw[2^(s+l) + blk * 2^l + (m >> (r-l))] of the compact table, that of
+//   the whole plane, loaded once per pass. Passes: 5+5 at 2^10, 5+3+3 at
+//   2^11, 5+4+3 at 2^12, 5+4+4 at 2^13, 5+5+4 at 2^14, 5+5+5 at 2^15 (a
+//   thread holds 32 >> r groups of a pass). Between passes the plane goes
+//   through shared memory once (one pad word per 32: no bank conflict at
+//   2^10, 2^14, 2^15; 2- to 4-way in the middle pass at 2^11 .. 2^13).
+// - The raise in the first pass's load. Pass 0's group is m * N/32 + t for
+//   thread t, so alpha = sum_k Harvey(y_k, c[k,j]) is formed in registers
+//   from coalesced loads of the y_k planes.
+// - The key products in the epilogue. The last pass's groups are runs of
+//   2^r adjacent words, so they go back through shared memory to pass 0's
+//   layout, and the key products, the own-digit term (d given) and the
+//   digit sum run on coalesced words; each thread reads and writes only
+//   its own positions of out0/out1. A channel with one NTT digit (every
+//   base channel of the main path with d) writes each output word once; a
+//   later digit adds to the words the thread wrote for the earlier one.
+// - Block barriers per digit: one per shared-memory exchange, 2 at 2^10
+//   and 3 at 2^11 .. 2^15 (16 in keyswitch_kernel at 2^14, 14 of them its
+//   NTT stages'). A thread writes each pass's results to the positions it
+//   read them from, and the next digit's first write goes to the
+//   positions its epilogue read, so no barrier guards a reuse of the
+//   plane.
+// - Balance: with d a special channel runs D NTTs and a base channel
+//   D - 1, so the special channels' blocks come first in the grid: the
+//   longest blocks start first and the base channels' shorter ones fill
+//   the SMs they leave, in place of a tail of special blocks that start
+//   last. At 2^14 a block of 512 threads holds 128 registers a thread and
+//   66 KiB of shared memory, one block an SM: the main path's 384 blocks
+//   (32 items x 12 channels, 512 NTTs) give each of the 132 SMs about 4
+//   NTTs.
+// - Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_ab.py,
+//   (32, 8, 2^14), ds 4, with d): 0.148 ms against 0.296 for
+//   keyswitch_kernel; 0.158 with the blocks in item order (special blocks
+//   not first); 0.166 with two blocks of 64 registers an SM; 0.196 with
+//   256 threads of 64 words (two blocks an SM). Without d: 0.183 (0.316).
+#include <utility>
+
 #include "ntt.cuh"
 
 namespace {
@@ -114,6 +161,298 @@ int launch_keyswitch(const T* y, long long y_stride, const T* d,
       qinv, tw, twp, out0, out1, base, ext, digits, digit_size, log_n);
 }
 
+constexpr int kLogRegWords = 5;
+constexpr int kRegWords = 1 << kLogRegWords;  // plane words a thread holds
+
+// Shared-memory word of plane position p: one pad word after every 32.
+__host__ __device__ constexpr int pad(int p) { return p + (p >> 5); }
+
+// The register-pass plan of one plane of 2^kLogN uint32 words.
+template <int kLogN>
+struct RegPlan {
+  static constexpr int kThreads = 1 << (kLogN - kLogRegWords);
+  static constexpr int kRest = kLogN - kLogRegWords;  // stages after pass 0
+  static constexpr int kR1 = kRest <= kLogRegWords ? kRest : (kRest + 1) / 2;
+  static constexpr int kR2 = kRest - kR1;  // 0: two passes
+  // 512 threads an SM: up to 128 registers a thread below 2^15 (one block
+  // at 2^14; two blocks of 64 registers were 11% slower), 64 at 2^15
+  static constexpr int kMinBlocks = kThreads >= 512 ? 1 : 512 / kThreads;
+  static constexpr size_t kSmemBytes = sizeof(uint32_t) * pad(1 << kLogN);
+};
+
+// Pass (kS, kR) of the forward NTT on the 32 words a thread holds: word
+// (h, m) of a[h * 2^kR + m] is plane position pos(t, h, m).
+template <int kLogN, int kS, int kR>
+struct RegPass {
+  static constexpr int kGroups = kRegWords >> kR;
+  static constexpr int kLogOff = kLogN - kS - kR;
+
+  __device__ __forceinline__ static int gid(int t, int h) {
+    return t + (h << (kLogN - kLogRegWords));
+  }
+  // padded shared-memory word of (t, h, 0); word (t, h, m) lies pad(m <<
+  // kLogOff) further (kS <= kLogN - 5, so the pad is linear in m)
+  __device__ __forceinline__ static int base(int t, int h) {
+    const int g = gid(t, h);
+    return pad(((g >> kLogOff) << (kLogN - kS)) + (g & ((1 << kLogOff) - 1)));
+  }
+
+  __device__ __forceinline__ static void store(uint32_t* s,
+                                               const uint32_t (&a)[kRegWords],
+                                               int t) {
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h) {
+      uint32_t* p = s + base(t, h);
+#pragma unroll
+      for (int m = 0; m < (1 << kR); ++m) p[pad(m << kLogOff)] = a[(h << kR) + m];
+    }
+  }
+
+  __device__ __forceinline__ static void load(const uint32_t* s,
+                                              uint32_t (&a)[kRegWords], int t) {
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h) {
+      const uint32_t* p = s + base(t, h);
+#pragma unroll
+      for (int m = 0; m < (1 << kR); ++m) a[(h << kR) + m] = p[pad(m << kLogOff)];
+    }
+  }
+
+  // Stage kS + kL on group kH: every loop bound is a constant, so a[]
+  // stays in registers.
+  template <int kH, int kL>
+  __device__ __forceinline__ static void stage(uint32_t (&a)[kRegWords],
+                                               int blk,
+                                               const uint32_t* __restrict__ tw,
+                                               const uint32_t* __restrict__ twp,
+                                               uint32_t q) {
+    constexpr int kHalf = 1 << (kR - 1 - kL);
+    const int k0 = (1 << (kS + kL)) + (blk << kL);
+#pragma unroll
+    for (int g = 0; g < (1 << kL); ++g) {
+      const uint32_t w = ckks::ldg(tw + k0 + g);
+      const uint32_t wp = ckks::ldg(twp + k0 + g);
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        const int u = (kH << kR) + 2 * kHalf * g + i;
+        const uint32_t xu = a[u];
+        const uint32_t xv = ckks::harvey(a[u + kHalf], w, wp, q);
+        a[u] = ckks::add_mod(xu, xv, q);
+        a[u + kHalf] = ckks::sub_mod(xu, xv, q);
+      }
+    }
+  }
+
+  template <int kH, int... kL>
+  __device__ __forceinline__ static void group(
+      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kL...>,
+      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
+      uint32_t q) {
+    const int blk = gid(t, kH) >> kLogOff;
+    (stage<kH, kL>(a, blk, tw, twp, q), ...);
+  }
+
+  template <int... kH>
+  __device__ __forceinline__ static void groups(
+      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kH...>,
+      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
+      uint32_t q) {
+    (group<kH>(a, t, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
+  }
+
+  __device__ __forceinline__ static void run(uint32_t (&a)[kRegWords], int t,
+                                             const uint32_t* __restrict__ tw,
+                                             const uint32_t* __restrict__ twp,
+                                             uint32_t q) {
+    groups(a, t, std::make_integer_sequence<int, kGroups>{}, tw, twp, q);
+  }
+};
+
+// K2 on uint32 planes that one block holds (see the header): one block of
+// N / 32 threads per (item, extended channel j), the special channels'
+// blocks first when d is given.
+template <int kLogN>
+__global__ void __launch_bounds__(RegPlan<kLogN>::kThreads,
+                                  RegPlan<kLogN>::kMinBlocks)
+keyswitch_kernel_reg(const uint32_t* __restrict__ y, long long y_stride,
+                     const uint32_t* __restrict__ d, long long d_stride,
+                     const uint32_t* __restrict__ key_a,
+                     const uint32_t* __restrict__ key_b,
+                     const uint32_t* __restrict__ c,
+                     const uint32_t* __restrict__ cs,
+                     const uint32_t* __restrict__ q,
+                     const uint32_t* __restrict__ qinv,
+                     const uint32_t* __restrict__ tw,
+                     const uint32_t* __restrict__ twp,
+                     uint32_t* __restrict__ out0, uint32_t* __restrict__ out1,
+                     int outer, int base, int ext, int digits, int digit_size) {
+  using Plan = RegPlan<kLogN>;
+  using P0 = RegPass<kLogN, 0, kLogRegWords>;
+  using P1 = RegPass<kLogN, kLogRegWords, Plan::kR1>;
+  constexpr long long n = 1LL << kLogN;
+  constexpr int kT = Plan::kThreads;
+  uint32_t* s = ckks::smem_plane<uint32_t>();
+  const int t = threadIdx.x;
+
+  const int spec = ext - base;
+  const int heavy = d != nullptr ? outer * spec : 0;
+  int j;
+  long long item;
+  if (static_cast<int>(blockIdx.x) < heavy) {
+    item = blockIdx.x / spec;
+    j = base + static_cast<int>(blockIdx.x % spec);
+  } else {
+    const int r = blockIdx.x - heavy;
+    const int width = d != nullptr ? base : ext;
+    item = r / width;
+    j = r % width;
+  }
+  const uint32_t qj = q[j], qi = qinv[j];
+  const uint32_t* w = tw + j * n;
+  const uint32_t* wp = twp + j * n;
+  // every global word below is at position m * kT + t of its plane
+  const uint32_t* yi = y + item * y_stride + t;
+  const long long o_off = (item * ext + j) * n + t;
+  uint32_t* o0 = out0 + o_off;
+  uint32_t* o1 = out1 + o_off;
+  const long long key_t = ext * n;  // key planes (digits, ext, N)
+  const uint32_t* ka = key_a + j * n + t;
+  const uint32_t* kb = key_b + j * n + t;
+  const int own = d != nullptr && j < base ? j / digit_size : -1;
+  const uint32_t* dj = own >= 0 ? d + item * d_stride + j * n + t : nullptr;
+
+  uint32_t a[kRegWords];
+  bool first = true;
+  for (int dt = 0; dt < digits; ++dt) {
+    if (dt == own) continue;
+    // the raise, into pass 0's words
+    const int k0 = dt * digit_size;
+    const int k1 = min(k0 + digit_size, base);
+    {
+      const uint32_t ck = c[k0 * ext + j], cks = cs[k0 * ext + j];
+      const uint32_t* yk = yi + k0 * n;
+#pragma unroll
+      for (int m = 0; m < kRegWords; ++m)
+        a[m] = ckks::harvey(ckks::ldg(yk + m * kT), ck, cks, qj);
+    }
+    for (int k = k0 + 1; k < k1; ++k) {
+      const uint32_t ck = c[k * ext + j], cks = cs[k * ext + j];
+      const uint32_t* yk = yi + k * n;
+#pragma unroll
+      for (int m = 0; m < kRegWords; ++m)
+        a[m] = ckks::add_mod(
+            a[m], ckks::harvey(ckks::ldg(yk + m * kT), ck, cks, qj), qj);
+    }
+    P0::run(a, t, w, wp, qj);
+    P0::store(s, a, t);
+    __syncthreads();
+    P1::load(s, a, t);
+    P1::run(a, t, w, wp, qj);
+    P1::store(s, a, t);
+    if constexpr (Plan::kR2 > 0) {
+      using P2 = RegPass<kLogN, kLogRegWords + Plan::kR1, Plan::kR2>;
+      __syncthreads();
+      P2::load(s, a, t);
+      P2::run(a, t, w, wp, qj);
+      P2::store(s, a, t);
+    }
+    __syncthreads();
+    P0::load(s, a, t);
+    // the key products, the own digit's (with the first NTT digit) and the
+    // sum over the digits
+    const uint32_t* kat = ka + dt * key_t;
+    const uint32_t* kbt = kb + dt * key_t;
+    const bool with_own = first && own >= 0;
+#pragma unroll
+    for (int m = 0; m < kRegWords; ++m) {
+      const int p = m * kT;
+      uint32_t v0 = ckks::mont_redc(a[m], ckks::ldg(kbt + p), qj, qi);
+      uint32_t v1 = ckks::mont_redc(a[m], ckks::ldg(kat + p), qj, qi);
+      if (with_own) {
+        const uint32_t x = ckks::ldg(dj + p);
+        v0 = ckks::add_mod(v0, ckks::mont_redc(x, ckks::ldg(kb + own * key_t + p), qj, qi), qj);
+        v1 = ckks::add_mod(v1, ckks::mont_redc(x, ckks::ldg(ka + own * key_t + p), qj, qi), qj);
+      }
+      if (!first) {
+        v0 = ckks::add_mod(v0, o0[p], qj);
+        v1 = ckks::add_mod(v1, o1[p], qj);
+      }
+      o0[p] = v0;
+      o1[p] = v1;
+    }
+    first = false;
+  }
+  if (first && own >= 0) {  // D = 1 with d: the own digit alone
+#pragma unroll 4
+    for (int m = 0; m < kRegWords; ++m) {
+      const int p = m * kT;
+      const uint32_t x = ckks::ldg(dj + p);
+      o0[p] = ckks::mont_redc(x, ckks::ldg(kb + own * key_t + p), qj, qi);
+      o1[p] = ckks::mont_redc(x, ckks::ldg(ka + own * key_t + p), qj, qi);
+    }
+  }
+}
+
+template <int kLogN>
+const void* reg_kernel() {
+  return reinterpret_cast<const void*>(keyswitch_kernel_reg<kLogN>);
+}
+
+template <int kLogN>
+int launch_reg(const uint32_t* y, long long y_stride, const uint32_t* d,
+               long long d_stride, const uint32_t* key_a,
+               const uint32_t* key_b, const uint32_t* c, const uint32_t* cs,
+               const uint32_t* q, const uint32_t* qinv, const uint32_t* tw,
+               const uint32_t* twp, uint32_t* out0, uint32_t* out1, int outer,
+               int base, int ext, int digits, int digit_size,
+               cudaStream_t stream) {
+  using Plan = RegPlan<kLogN>;
+  const cudaError_t err = ckks::reserve_smem(reg_kernel<kLogN>(), Plan::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  keyswitch_kernel_reg<kLogN><<<outer * ext, Plan::kThreads, Plan::kSmemBytes,
+                                stream>>>(
+      y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp, out0,
+      out1, outer, base, ext, digits, digit_size);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shapes keyswitch_kernel_reg takes: log2 N in [10, 15].
+constexpr bool reg_shape(int log_n) { return log_n >= 10 && log_n <= 15; }
+
+// f(std::integral_constant<int, log_n>{}) for a log_n that reg_shape takes.
+template <typename F>
+int reg_dispatch(int log_n, F f) {
+  switch (log_n) {
+    case 10: return f(std::integral_constant<int, 10>{});
+    case 11: return f(std::integral_constant<int, 11>{});
+    case 12: return f(std::integral_constant<int, 12>{});
+    case 13: return f(std::integral_constant<int, 13>{});
+    case 14: return f(std::integral_constant<int, 14>{});
+    default: return f(std::integral_constant<int, 15>{});
+  }
+}
+
+template <int kLogN>
+int reg_info(int* info) {
+  using Plan = RegPlan<kLogN>;
+  const void* kernel = reg_kernel<kLogN>();
+  cudaError_t err = ckks::reserve_smem(kernel, Plan::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, Plan::kThreads, Plan::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = Plan::kThreads;
+  info[3] = static_cast<int>(Plan::kSmemBytes);
+  info[4] = blocks;
+  return 0;
+}
+
 }  // namespace
 
 // y: (outer, base, N) plain digit values, item stride y_stride; d: NTT-domain
@@ -131,9 +470,27 @@ extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
                               uint32_t* out0, uint32_t* out1, int outer,
                               int base, int ext, int digits, int digit_size,
                               int log_n, int parts, cudaStream_t stream) {
+  if (parts == 1 && reg_shape(log_n)) {
+    return reg_dispatch(log_n, [&](auto log_n_c) {
+      return launch_reg<decltype(log_n_c)::value>(
+          y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp,
+          out0, out1, outer, base, ext, digits, digit_size, stream);
+    });
+  }
   return launch_keyswitch(y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
                           qinv, tw, twp, out0, out1, outer, base, ext, digits,
                           digit_size, log_n, parts, stream);
+}
+
+// keyswitch_kernel_reg<log_n> as built and as it fits the current device:
+// info[0..4] = registers a thread, local (spill) bytes a thread, threads a
+// block, dynamic shared bytes a block, resident blocks an SM. Returns
+// cudaErrorInvalidValue outside log_n in [10, 15].
+extern "C" int ckks_keyswitch_info(int log_n, int* info) {
+  if (!reg_shape(log_n)) return static_cast<int>(cudaErrorInvalidValue);
+  return reg_dispatch(log_n, [&](auto log_n_c) {
+    return reg_info<decltype(log_n_c)::value>(info);
+  });
 }
 
 // The same on uint64 words (wide chains; qinv = -q^-1 mod 2^64).
