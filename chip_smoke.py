@@ -75,11 +75,13 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    path's word for word, the multiply's decode within the path's bound,
    K10 and K11 launched in every call (counts set to 0 just before, read
    just after) and no cluster launched;
-4. CUDA-event timings of each kernel and its twin, the least time the card
-   could take for the kernel's work (bytes over 3.35 TB/s, or integer
-   operations over the int32 instruction rate, or K9's u8 MACs over the dense
-   int8 tensor rate), the multiply composite (mults/s at the path's batch,
-   latency at batch 1), the batched rotation (rotations/s, batch-1
+4. the multiply composite (mults/s at the path's batch, latency at
+   batch 1), timed first, before the process first runs torch.profiler;
+   CUDA-event timings of each kernel (its device time from torch.profiler
+   beside) and its twin, the least time the card could take for the
+   kernel's work (bytes over 3.35 TB/s, or integer operations over the
+   int32 instruction rate, or K9's u8 MACs over the dense int8 tensor
+   rate), the batched rotation (rotations/s, batch-1
    latency), the hoisted calls, and profiler splits of the multiply
    composite and the batched rotation into the kernels and the torch glue;
    the same for the small path under ``CKKS_NTT_MXU=1`` (small-mxu); K10
@@ -87,11 +89,11 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    whole-plane kernel at the big, small and big-wide coeff paths' planes
    (device time from the profiler: their wrappers' host work can outlast
    the kernels, so a loop of calls times the host), and the big coeff
-   multiply beside the unsharded one, with its profile. The small K2 row
-   also carries the register-pass kernel's registers, spill bytes,
-   threads and shared memory a block, resident blocks an SM and SASS
-   counts (beside the template's uint32 one-block form), and its time
-   without d.
+   multiply beside the unsharded one, with its profile. The small K1,
+   K2, K3 and K3' rows also carry their register-pass kernel's registers,
+   spill bytes, threads and shared memory a block, resident blocks an SM
+   and SASS counts (beside the template's uint32 one-block form; K1's
+   forward under ``forward``), and the K2 row its time without d.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -106,6 +108,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 SEED = 42
 # decode bounds of the big paths' multiply: twice the JAX reference's max
@@ -1059,44 +1062,61 @@ def time_composite(cfg: PathConfig, run: dict) -> None:
     print(f"time [{cfg.name}] composite batch 1: {one_ms:.4f} ms latency")
 
 
+class Timing(NamedTuple):
+    """One case's times: ``ms`` per wrapper call (CUDA events over 100
+    calls after 10 warm-up calls: the host's pace where the kernel is
+    shorter than the wrapper's host work), ``device_ms`` per call
+    (torch.profiler over 20 calls), the twin's ms, and the bound of the
+    work with what sets it."""
+
+    ms: float
+    device_ms: float
+    plain_ms: float
+    bound_ms: float
+    bound_by: str
+
+
 def time_cases(cfg: PathConfig, cases: dict, int_ops_per_s: float,
                twin_iters: int) -> dict:
-    """Kernel and twin times of each case, with its bound."""
+    """name -> Timing of each case."""
     times = {}
     for name, case in cases.items():
         ms = _cuda_ms(case.kernel, 100, warmup=10)
+        split, _ = device_split(case.kernel, 20)
+        device_ms = sum(split.values())
         plain_ms = _cuda_ms(case.twin, twin_iters, warmup=1)
         bytes_ms = case.bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = max(case.ops / int_ops_per_s, 2 * case.macs / INT8_OPS_PER_S) * 1e3
-        times[name] = (ms, plain_ms, max(bytes_ms, ops_ms),
-                       "bytes" if bytes_ms >= ops_ms else "operations")
+        t = times[name] = Timing(ms, device_ms, plain_ms, max(bytes_ms, ops_ms),
+                                 "bytes" if bytes_ms >= ops_ms else "operations")
         macs = f", {case.macs} u8 MACs" if case.macs else ""
-        print(f"time [{cfg.name}] {name}: kernel {ms:.4f} ms, twin "
-              f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x); bound "
-              f"{times[name][2]:.4f} ms by {times[name][3]} "
-              f"({case.bytes} B, {case.ops} int ops{macs}; "
-              f"{times[name][2] / ms:.1%} of it)")
+        parts = ", ".join(f"{k} {v:.4f}" for k, v in split.items() if v)
+        print(f"time [{cfg.name}] {name}: kernel {ms:.4f} ms (CUDA events), device "
+              f"{device_ms:.4f} ms per call (profiler: {parts}), twin {plain_ms:.4f} "
+              f"ms ({plain_ms / ms:.1f}x); bound {t.bound_ms:.4f} ms by {t.bound_by} "
+              f"({case.bytes} B, {case.ops} int ops{macs}; {t.bound_ms / ms:.1%} of "
+              f"the kernel time, {t.bound_ms / device_ms:.1%} of the device time)")
     return times
 
 
 def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict,
               rot_launches: dict, names: dict, int_ops_per_s: float,
               twin_iters: int) -> list:
-    """Phase 4 on one path: kernel / twin times, bounds, the composite. A
+    """Phase 4 on one path: kernel / twin times and bounds. A
     row's ``launches`` is its count in the multiply run (phase 3), or for
     the t-less mod-down in the rotation run (phase 3b), whose counts every
     row also carries as ``rotate_launches``; ``cluster_launches`` counts
     the launches on clusters in the run ``launches`` comes from. Rows of a
     clustered path are named ``kernel@path``."""
     times = time_cases(cfg, cases, int_ops_per_s, twin_iters)
-    fwd_ms = times["forward"][0]
+    fwd_ms = times["forward"].ms
     print(f"time [{cfg.name}] per channel-NTT (forward, {cfg.batch}x{cfg.count} "
           f"planes): {fwd_ms * 1000 / (cfg.batch * cfg.count):.3f} us")
 
     rows = []
     cluster = any(k.endswith("[cluster]") for k in run["launches"])
     for case_name, (fn, src, rep) in names.items():
-        ms, plain_ms, bound_ms, bound_by = times[case_name]
+        t = times[case_name]
         launches = run["launches"] if fn in run["launches"] else rot_launches
         rows.append({
             "name": f"{fn}@{cfg.name}" if cluster else fn, "route": "cuda",
@@ -1105,11 +1125,9 @@ def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict,
             "cluster_launches": launches.get(f"{fn.split('[')[0]}[cluster]", 0),
             "max_abs_err": max(e for k, e in errs.items()
                                if k in _same_kernel(case_name)),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "ms": t.ms, "plain_ms": t.plain_ms, "bound_ms": t.bound_ms,
+            "bound_by": t.bound_by, "library_ms": None, "device_ms": t.device_ms,
         })
-
-    time_composite(cfg, run)
     return rows
 
 
@@ -1184,31 +1202,61 @@ def sass_counts(lib_path, kernels: dict) -> dict:
     return counts
 
 
-def keyswitch_info(cfg: PathConfig) -> dict:
-    """The one-block uint32 K2 kernel at the path's N as built and as it
-    fits the card (``ckks_keyswitch_info``: cudaFuncGetAttributes,
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor), with its SASS counts
-    beside those of the uint32 one-block instantiation of the template it
-    replaces (still built, for N < 2^10)."""
+# The small path's rows that run a register-pass kernel on one block per
+# plane: the kernel's name, the template whose uint32 one-block form it
+# replaces (still built, for N < 2^10), and its forms: the key they go
+# under in the row ("" the row itself), ckks_reg_info's kernel id, and the
+# mangled and the printed template arguments after log2 N (K1's direction).
+REG_KERNELS = {
+    "ntt_planes": ("ntt_kernel_reg", "ntt_kernel",
+                   {"": (3, "Lb1E", ",true"), "forward": (2, "Lb0E", ",false")}),
+    "gadget_accumulate": ("keyswitch_kernel_reg", "keyswitch_kernel", {"": (0, "", "")}),
+    "mod_down_combine": ("moddown_kernel_reg", "moddown_kernel", {"": (1, "", "")}),
+    "mod_down_combine[no_t]": ("moddown_kernel_reg", "moddown_kernel",
+                               {"": (1, "", "")}),
+}
+
+
+def reg_infos(cfg: PathConfig, rows: list) -> None:
+    """Adds to each row of REG_KERNELS its register-pass kernel forms at
+    the path's N as built and as they fit the card (``ckks_reg_info``:
+    cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    with their SASS counts beside those of the template's uint32 one-block
+    instantiation."""
     import ctypes
 
     from toy_heaan_ckks_tpu_torch.ops import _build
 
     log_n = cfg.degree.bit_length() - 1
     lib = _build.library()
-    lib.ckks_keyswitch_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.ckks_keyswitch_info.restype = ctypes.c_int
-    buf = (ctypes.c_int * 5)()
-    _build.check(lib.ckks_keyswitch_info(log_n, buf), "ckks_keyswitch_info")
-    regs, local, threads, smem, blocks = buf
-    sass = sass_counts(_build.library_path(), {
-        "keyswitch_kernel_reg": f"keyswitch_kernel_regILi{log_n}E",
-        "keyswitch_kernel[u32, one block]": "keyswitch_kernelIjLb0E"})
-    info = {"kernel": f"keyswitch_kernel_reg<{log_n}>", "regs_per_thread": regs,
-            "local_bytes_per_thread": local, "threads_per_block": threads,
-            "smem_bytes_per_block": smem, "blocks_per_sm": blocks, "sass": sass}
-    print(f"[{cfg.name}] K2 kernel: {json.dumps(info)}")
-    return info
+    lib.ckks_reg_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.ckks_reg_info.restype = ctypes.c_int
+    needles = {}
+    for name, template, forms in REG_KERNELS.values():
+        needles[f"{template}[u32, one block]"] = f"{template}IjLb0E"
+        for _, mangled, shown in forms.values():
+            needles[f"{name}<{log_n}{shown}>"] = f"{name}ILi{log_n}E{mangled}"
+    sass = sass_counts(_build.library_path(), needles)
+    for row in rows:
+        if row["name"] not in REG_KERNELS:
+            continue
+        name, template, forms = REG_KERNELS[row["name"]]
+        for key, (kernel, _, shown) in forms.items():
+            buf = (ctypes.c_int * 5)()
+            _build.check(lib.ckks_reg_info(kernel, log_n, buf), "ckks_reg_info")
+            regs, local, threads, smem, blocks = buf
+            label = f"{name}<{log_n}{shown}>"
+            info = {"kernel": label, "regs_per_thread": regs,
+                    "local_bytes_per_thread": local, "threads_per_block": threads,
+                    "smem_bytes_per_block": smem, "blocks_per_sm": blocks,
+                    "sass": {label: sass[label],
+                             f"{template}[u32, one block]":
+                                 sass[f"{template}[u32, one block]"]}}
+            print(f"[{cfg.name}] {row['name']} {key or 'kernel'}: {json.dumps(info)}")
+            if key:
+                row[key] = info
+            else:
+                row.update(info)
 
 
 def device_split(fn, iters: int, windows: int = 3) -> tuple:
@@ -1244,34 +1292,6 @@ def device_split(fn, iters: int, windows: int = 3) -> tuple:
             return split, wall
         print(f"profile: no device event recorded in a window of {iters} calls")
     raise AssertionError(f"torch.profiler recorded no device time in {windows} windows")
-
-
-def time_device_cases(cfg: PathConfig, cases: dict, int_ops_per_s: float,
-                      twin_iters: int) -> dict:
-    """Kernel times of cases whose wrapper's host work may outlast the
-    kernel (K10, K11): the device time per call from torch.profiler over
-    20 calls, beside the CUDA-event time of 100 wrapper calls (the host's
-    pace where it is the larger), the twin's time and the bound of the
-    device time. Returns name -> (device ms, call ms, twin ms, bound ms,
-    bound_by)."""
-    times = {}
-    for name, case in cases.items():
-        call_ms = _cuda_ms(case.kernel, 100, warmup=10)
-        split, _ = device_split(case.kernel, 20)
-        device_ms = sum(split.values())
-        plain_ms = _cuda_ms(case.twin, twin_iters, warmup=1)
-        bytes_ms = case.bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = case.ops / int_ops_per_s * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        times[name] = (device_ms, call_ms, plain_ms, bound_ms, bound_by)
-        print(f"time [{cfg.name}] {name}: device {device_ms:.4f} ms per call "
-              f"(profiler; K10 {split['tail_kernel']:.4f}, K11 "
-              f"{split['cross_kernel']:.4f}, K1/K4/K5 {split['ntt_kernel']:.4f}), "
-              f"wrapper call {call_ms:.4f} ms (CUDA events), twin {plain_ms:.4f} ms; "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({case.bytes} B, {case.ops} int "
-              f"ops; device time at {bound_ms / device_ms:.1%} of it)")
-    return times
 
 
 def profile_composite(label: str, fn, iters: int = 5) -> None:
@@ -1425,13 +1445,19 @@ def main() -> int:
             "factored_branch": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:575"}),
     }
     no_d_case = {"gadget_accumulate[no_d]": small_cases.pop("gadget_accumulate[no_d]")}
+    # the multiplies before the kernel cases: once a process has run
+    # torch.profiler, the host takes longer over each launch (PERF.md §6)
+    for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
+                     (BIG_WIDE, big_wide_run)):
+        time_composite(cfg, run)
     rows = time_path(SMALL, small_cases, small_errs, small_run,
                      small_rot["launches"], small_names, int_ops_per_s, twin_iters=5)
     ks_row = next(r for r in rows if r["name"] == "gadget_accumulate")
     no_d = time_cases(SMALL, no_d_case, int_ops_per_s, twin_iters=2)[
         "gadget_accumulate[no_d]"]
-    ks_row.update(keyswitch_info(SMALL), no_d_ms=no_d[0], no_d_plain_ms=no_d[1],
-                  no_d_bound_ms=no_d[2])
+    ks_row.update(no_d_ms=no_d.ms, no_d_plain_ms=no_d.plain_ms,
+                  no_d_bound_ms=no_d.bound_ms)
+    reg_infos(SMALL, rows)
     rows += time_path(WIDE, wide_cases, wide_errs, wide_run, wide_rot["launches"],
                       wide_names, int_ops_per_s, twin_iters=2)
     rows += time_path(BIG, big_cases, big_errs, big_run, big_rot["launches"],
@@ -1455,7 +1481,7 @@ def main() -> int:
     # K9 at the small path's shapes, and the small path under CKKS_NTT_MXU=1
     mxu_times = time_cases(dataclasses.replace(SMALL, name="K9 small"),
                            mxu_cases_small, int_ops_per_s, twin_iters=5)
-    ms, plain_ms, bound_ms, bound_by = mxu_times["inverse+fold"]
+    t = mxu_times["inverse+fold"]
     rows.append({
         "name": "ntt_mxu_planes", "route": "cuda",
         "source": "toy_heaan_ckks_tpu_torch/csrc/ntt_mxu.cu",
@@ -1463,9 +1489,9 @@ def main() -> int:
         "launches": small_mxu["launches"]["ntt_mxu_planes"],
         "launches_per_mul": small_mxu["per_call"]["batched_mul_relin_rescale"][0],
         "cluster_launches": 0, "max_abs_err": max(mxu_errs.values()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "forward_ms": mxu_times["forward"][0],
-        "inverse_ms": mxu_times["inverse"][0],
+        "ms": t.ms, "plain_ms": t.plain_ms, "bound_ms": t.bound_ms,
+        "bound_by": t.bound_by, "library_ms": None, "device_ms": t.device_ms,
+        "forward_ms": mxu_times["forward"].ms, "inverse_ms": mxu_times["inverse"].ms,
     })
     mxu_cfg = dataclasses.replace(SMALL, name="small-mxu")
     with mxu_env():
@@ -1478,19 +1504,19 @@ def main() -> int:
 
     # K10 / K11 at the big coeff path's planes (the yardstick shape), then at
     # the small and big-wide paths' planes; the big coeff composite
-    coeff_times = time_device_cases(
+    coeff_times = time_cases(
         dataclasses.replace(BIG, name="K10/K11 (4, 4, 2^16) P 4"),
         coeff_cases(dev, 4, 4, BIG.degree, BIG.bits, 4), int_ops_per_s, twin_iters=3)
-    time_device_cases(dataclasses.replace(SMALL, name="K10/K11 (32, 8, 2^14) P 8"),
+    time_cases(dataclasses.replace(SMALL, name="K10/K11 (32, 8, 2^14) P 8"),
                       coeff_cases(dev, 32, 8, SMALL.degree, SMALL.bits, 8),
                       int_ops_per_s, twin_iters=2)
-    time_device_cases(
+    time_cases(
         dataclasses.replace(BIG_WIDE, name="K10/K11 (4, 3, 2^15) uint64 P 4"),
         coeff_cases(dev, 4, 3, BIG_WIDE.degree, BIG_WIDE.bits, 4), int_ops_per_s,
         twin_iters=1)
     for fn, case_name, line in (("coeff_tail", "coeff_tail forward", 53),
                                 ("coeff_cross", "coeff_cross forward", 155)):
-        ms, call_ms, plain_ms, bound_ms, bound_by = coeff_times[case_name]
+        t = coeff_times[case_name]
         rows.append({
             "name": fn, "route": "cuda",
             "source": "toy_heaan_ckks_tpu_torch/csrc/coeff_ntt.cu",
@@ -1499,9 +1525,10 @@ def main() -> int:
             "launches_per_mul": coeff_runs[BIG.name]["per_call"][
                 "build_mul_relin_rescale_coeff"][fn],
             "cluster_launches": 0, "max_abs_err": coeff_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "shape": "(4, 4, 2^16) uint32, P 4, forward",
-            "ms_is": "profiler device time per call", "call_ms": call_ms,
+            "ms": t.device_ms, "plain_ms": t.plain_ms, "bound_ms": t.bound_ms,
+            "bound_by": t.bound_by, "library_ms": None,
+            "shape": "(4, 4, 2^16) uint32, P 4, forward",
+            "ms_is": "profiler device time per call", "call_ms": t.ms,
         })
     time_coeff(big_run, coeff_runs[BIG.name], 4)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")

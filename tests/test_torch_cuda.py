@@ -53,17 +53,55 @@ def _counted(fn, call):
     return out, (fn.launches - before[0], fn.launches_cluster - before[1])
 
 
-@pytest.mark.parametrize("degree", [1 << 10, 1 << 12, 1 << 15, 1 << 16])
-@pytest.mark.parametrize("inverse", [False, True])
-def test_ntt_kernel_matches_twin(dev, degree, inverse):
-    """K1, and K4 at N = 2^16 (a plane over a cluster of 2 blocks)."""
-    moduli, _ = _chain(3, 1, degree)
-    x = _planes(degree, moduli, degree, (3,), dev)
-    final = tuple(range(5, 8)) if inverse else None
+def _ntt_vs_twin(dev, x, moduli, degree, mode):
+    """K1 (K4 at N = 2^16) against its twin on ``x``: one launch, a
+    cluster of 2 blocks per plane at 2^16 and none below, uint32-equal
+    outputs. ``mode``: forward, inverse (final N^-1) or fold (the inverse
+    with the decomposition fold's final constants)."""
+    inverse = mode != "forward"
+    final = None
+    if mode == "fold":
+        final = small_fast._fold_consts(moduli, degree,
+                                        tuple((q - 1) // 3 for q in moduli))
     got, counts = _counted(ntt_gpu.ntt_planes, lambda: ntt_gpu.ntt_planes(
         x, moduli, degree, inverse, final))
     assert counts == (1, int(degree == 1 << 16))
     assert torch.equal(got, ntt_gpu.ntt_twin(x, moduli, degree, inverse, final))
+
+
+# 2^10 .. 2^15: ntt_kernel_reg (2 register passes at 2^10, 3 above);
+# 2^16: the ntt_kernel template on a cluster of 2 blocks per plane (K4)
+NTT_DEGREES = [1 << k for k in range(10, 17)]
+
+
+@pytest.mark.parametrize("degree", NTT_DEGREES)
+@pytest.mark.parametrize("mode", ["forward", "inverse", "fold"])
+def test_ntt_kernel_matches_twin(dev, degree, mode):
+    """K1, and K4 at N = 2^16."""
+    moduli, _ = _chain(3, 1, degree)
+    x = _planes(degree, moduli, degree, (3,), dev)
+    _ntt_vs_twin(dev, x, moduli, degree, mode)
+
+
+@pytest.mark.parametrize("degree", NTT_DEGREES)
+@pytest.mark.parametrize("mode", ["forward", "inverse", "fold"])
+def test_ntt_kernel_reads_channel_slices(dev, degree, mode):
+    """K1 / K4 on channels 2..4 of a 5-channel stack (item stride 5 N),
+    as ``rescale_ntt_lo`` passes them."""
+    moduli, _ = _chain(5, 1, degree)
+    x = _planes(degree + 1, moduli, degree, (2,), dev)[..., 2:, :]
+    _ntt_vs_twin(dev, x, moduli[2:], degree, mode)
+
+
+@pytest.mark.parametrize("mode", ["forward", "inverse"])
+def test_ntt_kernel_unaligned_input(dev, mode):
+    """Planes one word off a 16-byte boundary."""
+    degree = 1 << 12
+    moduli, _ = _chain(3, 1, degree)
+    x = _planes(7, moduli, degree, (2,), dev)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    flat[1:] = x.reshape(-1)
+    _ntt_vs_twin(dev, flat[1:].view(x.shape), moduli, degree, mode)
 
 
 def _keyswitch_vs_twin(dev, degree, digit_size, count, with_d, batch):
@@ -126,16 +164,27 @@ def test_keyswitch_kernel_2_16_matches_twin(dev, with_d):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("degree", [1 << 12, 1 << 16])
-@pytest.mark.parametrize("with_t", [True, False])
-def test_moddown_kernel_matches_twin(dev, with_t, degree):
-    """K3 / K3', and on a cluster of 2 blocks per plane at N = 2^16."""
-    base, ext = _chain(5, 2, degree)
-    child, dropped = base[:4], ext[4:]
+def _moddown_vs_twin(dev, degree, count, digit_size, with_t, batch, keyswitch=False,
+                     offset=0):
+    """K3 / K3' against its twin: one launch, a cluster of 2 blocks per
+    plane at N = 2^16 and none below, uint32-equal outputs. The multiply's
+    shapes keep all but the last base prime and drop it with the
+    specials; a key switch's (``keyswitch``) keeps the base and drops the
+    specials. ks (and t) are channel slices of larger stacks; ``offset``
+    words shift ks off its 16-byte alignment."""
+    base, ext = _chain(count, digit_size, degree)
+    L = len(base)
+    child, dropped = (base, ext[L:]) if keyswitch else (base[:-1], ext[L - 1:])
+    Lc = len(child)
     t_scale = 123456789 if with_t else 0
-    yhat = _planes(5, dropped, degree, (3,), dev)
-    ks = _planes(6, ext, degree, (3,), dev)[..., :4, :]
-    t = _planes(7, base, degree, (3,), dev)[..., :4, :] if with_t else None
+    yhat = _planes(5, dropped, degree, (batch,), dev)
+    ks_full = _planes(6, ext, degree, (batch,), dev)
+    if offset:
+        flat = torch.empty(ks_full.numel() + offset, dtype=ks_full.dtype, device=dev)
+        flat[offset:] = ks_full.reshape(-1)
+        ks_full = flat[offset:].view(ks_full.shape)
+    ks = ks_full[..., :Lc, :]
+    t = _planes(7, base, degree, (batch,), dev)[..., :Lc, :] if with_t else None
     kw = dict(child_moduli=child, dropped_moduli=dropped, degree=degree,
               t_scale=t_scale)
     got, counts = _counted(moddown_gpu.mod_down_combine,
@@ -144,6 +193,29 @@ def test_moddown_kernel_matches_twin(dev, with_t, degree):
     want = moddown_gpu.mod_down_combine_twin(yhat, ks, t, child, dropped,
                                              degree, t_scale)
     assert torch.equal(got, want)
+
+
+# 2^10 .. 2^15: moddown_kernel_reg (2 register passes at 2^10, 3 above);
+# 2^16: the moddown_kernel template on a cluster of 2 blocks per plane
+@pytest.mark.parametrize("degree", [1 << k for k in range(10, 17)])
+@pytest.mark.parametrize("with_t", [True, False])
+def test_moddown_kernel_matches_twin(dev, with_t, degree):
+    """K3 / K3' (4 kept, 3 dropped, B 3)."""
+    _moddown_vs_twin(dev, degree, 5, 2, with_t, 3)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 32])
+@pytest.mark.parametrize("keyswitch", [False, True])
+def test_moddown_kernel_main_path_shape(dev, batch, keyswitch):
+    """The small path's mod-downs at N = 2^14, 8 x 31-bit, ds 4: K3 with t
+    (7 kept, 5 dropped) and K3' (8 kept, the 4 specials dropped)."""
+    _moddown_vs_twin(dev, 1 << 14, 8, 4, not keyswitch, batch, keyswitch)
+
+
+@pytest.mark.parametrize("with_t", [True, False])
+def test_moddown_kernel_unaligned_input(dev, with_t):
+    """ks read in place one word off a 16-byte boundary."""
+    _moddown_vs_twin(dev, 1 << 12, 5, 2, with_t, 2, offset=1)
 
 
 # K9: N = 2^10 (R = 8, padded to the mma depth 32), 2^12, the small path's

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Kernel times of one checkout of the port on the card, for an A/B in turns.
 
-    python tools/kernel_ab.py --root PATH [--label NAME]
+    python tools/kernel_ab.py --root PATH [--label NAME] [--sass] [--composite]
 
 Imports ``chip_smoke.py`` and ``toy_heaan_ckks_tpu_torch`` from the
 checkout at PATH (its kernels are built there at first use), makes the
@@ -9,12 +9,19 @@ kernel cases of each of its paths small, wide, big and big-wide that it
 has (``chip_smoke.kernel_cases``: the same seeded inputs and shapes in
 every checkout that has the path) and
 prints one JSON line: the card's name and power limit and, per case, the
-mean ms of 100 launches after 10 warm-up launches (CUDA events). Run it
+mean ms of 100 launches after 10 warm-up launches (``ms``, CUDA events:
+the pace of the wrapper calls, which the host sets where the kernel is
+shorter than the wrapper's host work) and the device ms per call
+(``device_ms``, torch.profiler over 50 calls: the kernels alone). Run it
 once per checkout in one command on one card, in turns (parent, change,
 change, parent), to compare two commits; no twin is timed. ``--sass``
-adds, per kernel of the built library, its SASS instruction count and the
-count of each memory instruction (``cuobjdump -sass``; LDS/STS are
-shared-memory accesses, LD/ST generic ones).
+adds, per kernel of the built library (each instantiation under its own
+name, ``kernel_names``), its SASS instruction count and the count of each
+memory instruction (``cuobjdump -sass``; LDS/STS are shared-memory
+accesses, LD/ST generic ones). ``--composite`` first times the small
+multiply at batch 32 on phase 3's inputs and keys (``chip_smoke.run_path``),
+CUDA-event ms per call over windows of 10 calls, before the process first
+runs torch.profiler and again after one profiler window.
 """
 
 from __future__ import annotations
@@ -22,15 +29,44 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 
 
 MEMORY_OPS = ("LDS", "STS", "LD", "ST", "LDG", "STG", "BAR")
+PROFILE_CALLS = 50  # calls per profiler window of a case's device time
+COMPOSITE_WINDOWS = 10  # windows of 10 calls, before and after the profiler
+_NAMES = ((r"\(anonymous namespace\)::|<unnamed>::", ""), (r"\(bool\)1", "true"),
+          (r"\(bool\)0", "false"), (r"\((?:unsigned )?\w+\)(?=-?\d)", ""),
+          (r"unsigned long(?: long)?", "u64"), (r"unsigned int", "u32"), (r", ", ","))
+
+
+def kernel_names(mangled: list) -> list:
+    """A short name of each instantiation, unique in the library: the
+    name ``cu++filt`` (the toolkit's demangler) gives it, without its
+    anonymous namespace, return type and parameters, with ``u32`` / ``u64`` for
+    the word types and no casts (``ntt_kernel<u32,true>``, ``keyswitch_kernel_reg<14>``,
+    ``ntt_kernel_reg<14,true>``, ``tail_kernel<u64>``)."""
+    import subprocess
+
+    from toy_heaan_ckks_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    out = subprocess.run([tool], input="\n".join(mangled) + "\n", capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    if len(out) != len(mangled):
+        raise AssertionError(f"cu++filt: {len(out)} names for {len(mangled)}")
+    names = []
+    for name in out:
+        for pattern, short in _NAMES:
+            name = re.sub(pattern, short, name)
+        names.append(name.split("(")[0].split()[-1])
+    return names
 
 
 def _sass_counts() -> dict:
     """{kernel: {"total": n, op: n for MEMORY_OPS}} of the checkout's
-    library; kernels named ``<name><u32|u64>[cluster]``."""
+    library, by ``kernel_names``."""
     import subprocess
 
     from toy_heaan_ckks_tpu_torch.ops import _build
@@ -39,16 +75,18 @@ def _sass_counts() -> dict:
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", str(_build.library_path())],
                          capture_output=True, text=True, check=True).stdout
-    counts, name = {}, None
+    kernels = []  # (mangled name, its SASS lines)
     for line in out.splitlines():
         if "Function :" in line:
-            mangled = line.split("Function :")[1].strip()
-            kind = next((k for k in ("ntt_kernel", "keyswitch_kernel", "moddown_kernel")
-                         if k in mangled), mangled)
-            word = "u64" if "Im" in mangled.split(kind)[-1][:3] else "u32"
-            name = kind + word + ("[cluster]" if "Lb1" in mangled else "")
-            counts[name] = dict.fromkeys(("total",) + MEMORY_OPS, 0)
-        elif name and "/*" in line and ";" in line:
+            kernels.append((line.split("Function :")[1].strip(), []))
+        elif kernels and "/*" in line and ";" in line:
+            kernels[-1][1].append(line)
+    counts = {}
+    for name, (_, lines) in zip(kernel_names([k for k, _ in kernels]), kernels):
+        if name in counts:
+            raise AssertionError(f"two kernels named {name}")
+        counts[name] = dict.fromkeys(("total",) + MEMORY_OPS, 0)
+        for line in lines:
             text = line.split("*/", 1)[1].split(";")[0].split()
             if text and text[0].startswith("@"):
                 text = text[1:]
@@ -61,12 +99,35 @@ def _sass_counts() -> dict:
     return counts
 
 
+def composite_times(smoke, dev) -> dict:
+    """{"before_profiler": [ms], "after_profiler": [ms]}: the small
+    multiply's CUDA-event ms per call, COMPOSITE_WINDOWS windows of 10
+    calls each, in the order taken."""
+    import contextlib
+
+    from toy_heaan_ckks_tpu_torch.ops import keyswitch_gpu, moddown_gpu, ntt_gpu
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_mul_relin_rescale
+
+    counters = (ntt_gpu.ntt_planes, keyswitch_gpu.gadget_accumulate,
+                moddown_gpu.mod_down_combine)
+    with contextlib.redirect_stdout(sys.stderr):
+        run = smoke.run_path(smoke.SMALL, dev, counters, wide=False)
+    a0, a1, b0, b1 = run["batch"]
+    mul = lambda: batched_mul_relin_rescale((a0, a1), (b0, b1), run["rlk"], run["ctx"],
+                                            run["child"])
+    before = [smoke._cuda_ms(mul, 10) for _ in range(COMPOSITE_WINDOWS)]
+    smoke.device_split(mul, 5)
+    after = [smoke._cuda_ms(mul, 10) for _ in range(COMPOSITE_WINDOWS)]
+    return {"before_profiler": before, "after_profiler": after}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--label", default=None)
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--composite", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -80,15 +141,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     sass = _sass_counts() if args.sass else None
-    times = {}
+    composite = composite_times(smoke, dev) if args.composite else None
+    times, device = {}, {}
     paths = (("SMALL", False), ("WIDE", True), ("BIG", False), ("BIG_WIDE", True))
     for cfg, wide in ((getattr(smoke, p), wide) for p, wide in paths
                       if hasattr(smoke, p)):
         for name, case in smoke.kernel_cases(cfg, dev, wide=wide).items():
             times[f"{cfg.name} {name}"] = smoke._cuda_ms(case.kernel, args.iters,
                                                         warmup=10)
+            split, _ = smoke.device_split(case.kernel, PROFILE_CALLS)
+            device[f"{cfg.name} {name}"] = sum(split.values())
     print(json.dumps({"label": args.label or root, "card": smoke._smi("name,power.limit"),
-                      "ms": times, **({"sass": sass} if sass else {})}))
+                      "ms": times, "device_ms": device,
+                      **({"sass": sass} if sass else {}),
+                      **({"composite": composite} if composite else {})}))
     return 0
 
 

@@ -33,17 +33,9 @@
 // keyswitch_kernel_reg<log2 N>; the uint64 form and the cluster form
 // (N = 2^16) run keyswitch_kernel above. Its design:
 //
-// - NTT passes in registers. A block has N / 32 threads and each thread
-//   holds 32 words of the plane. A pass runs r <= 5 consecutive stages on
-//   them without leaving registers: for pass (s, r) a thread's group is
-//   the 2^r positions blk * N/2^s + m * N/2^(s+r) + off, m < 2^r, and the
-//   stage s+l butterfly of (m, m + 2^(r-1-l)) takes twiddle
-//   tw[2^(s+l) + blk * 2^l + (m >> (r-l))] of the compact table, that of
-//   the whole plane, loaded once per pass. Passes: 5+5 at 2^10, 5+3+3 at
-//   2^11, 5+4+3 at 2^12, 5+4+4 at 2^13, 5+5+4 at 2^14, 5+5+5 at 2^15 (a
-//   thread holds 32 >> r groups of a pass). Between passes the plane goes
-//   through shared memory once (one pad word per 32: no bank conflict at
-//   2^10, 2^14, 2^15; 2- to 4-way in the middle pass at 2^11 .. 2^13).
+// - NTT passes in registers (csrc/ntt_reg.cuh, shared with K1 and K3):
+//   N / 32 threads of 32 words, 5+5+4 stages at 2^14 with one
+//   shared-memory exchange between passes.
 // - The raise in the first pass's load. Pass 0's group is m * N/32 + t for
 //   thread t, so alpha = sum_k Harvey(y_k, c[k,j]) is formed in registers
 //   from coalesced loads of the y_k planes.
@@ -73,9 +65,8 @@
 //   keyswitch_kernel; 0.158 with the blocks in item order (special blocks
 //   not first); 0.166 with two blocks of 64 registers an SM; 0.196 with
 //   256 threads of 64 words (two blocks an SM). Without d: 0.183 (0.316).
-#include <utility>
-
 #include "ntt.cuh"
+#include "ntt_reg.cuh"
 
 namespace {
 
@@ -161,112 +152,10 @@ int launch_keyswitch(const T* y, long long y_stride, const T* d,
       qinv, tw, twp, out0, out1, base, ext, digits, digit_size, log_n);
 }
 
-constexpr int kLogRegWords = 5;
-constexpr int kRegWords = 1 << kLogRegWords;  // plane words a thread holds
-
-// Shared-memory word of plane position p: one pad word after every 32.
-__host__ __device__ constexpr int pad(int p) { return p + (p >> 5); }
-
-// The register-pass plan of one plane of 2^kLogN uint32 words.
-template <int kLogN>
-struct RegPlan {
-  static constexpr int kThreads = 1 << (kLogN - kLogRegWords);
-  static constexpr int kRest = kLogN - kLogRegWords;  // stages after pass 0
-  static constexpr int kR1 = kRest <= kLogRegWords ? kRest : (kRest + 1) / 2;
-  static constexpr int kR2 = kRest - kR1;  // 0: two passes
-  // 512 threads an SM: up to 128 registers a thread below 2^15 (one block
-  // at 2^14; two blocks of 64 registers were 11% slower), 64 at 2^15
-  static constexpr int kMinBlocks = kThreads >= 512 ? 1 : 512 / kThreads;
-  static constexpr size_t kSmemBytes = sizeof(uint32_t) * pad(1 << kLogN);
-};
-
-// Pass (kS, kR) of the forward NTT on the 32 words a thread holds: word
-// (h, m) of a[h * 2^kR + m] is plane position pos(t, h, m).
-template <int kLogN, int kS, int kR>
-struct RegPass {
-  static constexpr int kGroups = kRegWords >> kR;
-  static constexpr int kLogOff = kLogN - kS - kR;
-
-  __device__ __forceinline__ static int gid(int t, int h) {
-    return t + (h << (kLogN - kLogRegWords));
-  }
-  // padded shared-memory word of (t, h, 0); word (t, h, m) lies pad(m <<
-  // kLogOff) further (kS <= kLogN - 5, so the pad is linear in m)
-  __device__ __forceinline__ static int base(int t, int h) {
-    const int g = gid(t, h);
-    return pad(((g >> kLogOff) << (kLogN - kS)) + (g & ((1 << kLogOff) - 1)));
-  }
-
-  __device__ __forceinline__ static void store(uint32_t* s,
-                                               const uint32_t (&a)[kRegWords],
-                                               int t) {
-#pragma unroll
-    for (int h = 0; h < kGroups; ++h) {
-      uint32_t* p = s + base(t, h);
-#pragma unroll
-      for (int m = 0; m < (1 << kR); ++m) p[pad(m << kLogOff)] = a[(h << kR) + m];
-    }
-  }
-
-  __device__ __forceinline__ static void load(const uint32_t* s,
-                                              uint32_t (&a)[kRegWords], int t) {
-#pragma unroll
-    for (int h = 0; h < kGroups; ++h) {
-      const uint32_t* p = s + base(t, h);
-#pragma unroll
-      for (int m = 0; m < (1 << kR); ++m) a[(h << kR) + m] = p[pad(m << kLogOff)];
-    }
-  }
-
-  // Stage kS + kL on group kH: every loop bound is a constant, so a[]
-  // stays in registers.
-  template <int kH, int kL>
-  __device__ __forceinline__ static void stage(uint32_t (&a)[kRegWords],
-                                               int blk,
-                                               const uint32_t* __restrict__ tw,
-                                               const uint32_t* __restrict__ twp,
-                                               uint32_t q) {
-    constexpr int kHalf = 1 << (kR - 1 - kL);
-    const int k0 = (1 << (kS + kL)) + (blk << kL);
-#pragma unroll
-    for (int g = 0; g < (1 << kL); ++g) {
-      const uint32_t w = ckks::ldg(tw + k0 + g);
-      const uint32_t wp = ckks::ldg(twp + k0 + g);
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const int u = (kH << kR) + 2 * kHalf * g + i;
-        const uint32_t xu = a[u];
-        const uint32_t xv = ckks::harvey(a[u + kHalf], w, wp, q);
-        a[u] = ckks::add_mod(xu, xv, q);
-        a[u + kHalf] = ckks::sub_mod(xu, xv, q);
-      }
-    }
-  }
-
-  template <int kH, int... kL>
-  __device__ __forceinline__ static void group(
-      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kL...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
-    const int blk = gid(t, kH) >> kLogOff;
-    (stage<kH, kL>(a, blk, tw, twp, q), ...);
-  }
-
-  template <int... kH>
-  __device__ __forceinline__ static void groups(
-      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kH...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
-    (group<kH>(a, t, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
-  }
-
-  __device__ __forceinline__ static void run(uint32_t (&a)[kRegWords], int t,
-                                             const uint32_t* __restrict__ tw,
-                                             const uint32_t* __restrict__ twp,
-                                             uint32_t q) {
-    groups(a, t, std::make_integer_sequence<int, kGroups>{}, tw, twp, q);
-  }
-};
+using ckks::kLogRegWords;
+using ckks::kRegWords;
+using ckks::RegPass;
+using ckks::RegPlan;
 
 // K2 on uint32 planes that one block holds (see the header): one block of
 // N / 32 threads per (item, extended channel j), the special channels'
@@ -286,11 +175,9 @@ keyswitch_kernel_reg(const uint32_t* __restrict__ y, long long y_stride,
                      const uint32_t* __restrict__ twp,
                      uint32_t* __restrict__ out0, uint32_t* __restrict__ out1,
                      int outer, int base, int ext, int digits, int digit_size) {
-  using Plan = RegPlan<kLogN>;
   using P0 = RegPass<kLogN, 0, kLogRegWords>;
-  using P1 = RegPass<kLogN, kLogRegWords, Plan::kR1>;
   constexpr long long n = 1LL << kLogN;
-  constexpr int kT = Plan::kThreads;
+  constexpr int kT = RegPlan<kLogN>::kThreads;
   uint32_t* s = ckks::smem_plane<uint32_t>();
   const int t = threadIdx.x;
 
@@ -343,19 +230,8 @@ keyswitch_kernel_reg(const uint32_t* __restrict__ y, long long y_stride,
         a[m] = ckks::add_mod(
             a[m], ckks::harvey(ckks::ldg(yk + m * kT), ck, cks, qj), qj);
     }
-    P0::run(a, t, w, wp, qj);
-    P0::store(s, a, t);
-    __syncthreads();
-    P1::load(s, a, t);
-    P1::run(a, t, w, wp, qj);
-    P1::store(s, a, t);
-    if constexpr (Plan::kR2 > 0) {
-      using P2 = RegPass<kLogN, kLogRegWords + Plan::kR1, Plan::kR2>;
-      __syncthreads();
-      P2::load(s, a, t);
-      P2::run(a, t, w, wp, qj);
-      P2::store(s, a, t);
-    }
+    ckks::reg_forward<kLogN>(s, a, t, w, wp, qj);
+    ckks::RegLast<kLogN>::store(s, a, t);
     __syncthreads();
     P0::load(s, a, t);
     // the key products, the own digit's (with the first NTT digit) and the
@@ -416,43 +292,6 @@ int launch_reg(const uint32_t* y, long long y_stride, const uint32_t* d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The shapes keyswitch_kernel_reg takes: log2 N in [10, 15].
-constexpr bool reg_shape(int log_n) { return log_n >= 10 && log_n <= 15; }
-
-// f(std::integral_constant<int, log_n>{}) for a log_n that reg_shape takes.
-template <typename F>
-int reg_dispatch(int log_n, F f) {
-  switch (log_n) {
-    case 10: return f(std::integral_constant<int, 10>{});
-    case 11: return f(std::integral_constant<int, 11>{});
-    case 12: return f(std::integral_constant<int, 12>{});
-    case 13: return f(std::integral_constant<int, 13>{});
-    case 14: return f(std::integral_constant<int, 14>{});
-    default: return f(std::integral_constant<int, 15>{});
-  }
-}
-
-template <int kLogN>
-int reg_info(int* info) {
-  using Plan = RegPlan<kLogN>;
-  const void* kernel = reg_kernel<kLogN>();
-  cudaError_t err = ckks::reserve_smem(kernel, Plan::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel, Plan::kThreads, Plan::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = Plan::kThreads;
-  info[3] = static_cast<int>(Plan::kSmemBytes);
-  info[4] = blocks;
-  return 0;
-}
-
 }  // namespace
 
 // y: (outer, base, N) plain digit values, item stride y_stride; d: NTT-domain
@@ -470,8 +309,8 @@ extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
                               uint32_t* out0, uint32_t* out1, int outer,
                               int base, int ext, int digits, int digit_size,
                               int log_n, int parts, cudaStream_t stream) {
-  if (parts == 1 && reg_shape(log_n)) {
-    return reg_dispatch(log_n, [&](auto log_n_c) {
+  if (parts == 1 && ckks::reg_shape(log_n)) {
+    return ckks::reg_dispatch(log_n, [&](auto log_n_c) {
       return launch_reg<decltype(log_n_c)::value>(
           y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp,
           out0, out1, outer, base, ext, digits, digit_size, stream);
@@ -482,15 +321,27 @@ extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
                           digit_size, log_n, parts, stream);
 }
 
-// keyswitch_kernel_reg<log_n> as built and as it fits the current device:
-// info[0..4] = registers a thread, local (spill) bytes a thread, threads a
-// block, dynamic shared bytes a block, resident blocks an SM. Returns
-// cudaErrorInvalidValue outside log_n in [10, 15].
-extern "C" int ckks_keyswitch_info(int log_n, int* info) {
-  if (!reg_shape(log_n)) return static_cast<int>(cudaErrorInvalidValue);
-  return reg_dispatch(log_n, [&](auto log_n_c) {
-    return reg_info<decltype(log_n_c)::value>(info);
+const void* ckks::keyswitch_reg_kernel(int log_n) {
+  if (!reg_shape(log_n)) return nullptr;
+  return reg_dispatch(log_n, [](auto log_n_c) {
+    return reg_kernel<decltype(log_n_c)::value>();
   });
+}
+
+// The register-pass kernel `kernel` (ckks::RegKernel: 0 K2, 1 K3, 2 K1
+// forward, 3 K1 inverse) at log_n as built and as it fits the current
+// device: info[0..4] = registers a thread, local (spill) bytes a thread,
+// threads a block, dynamic shared bytes a block, resident blocks an SM.
+// Returns cudaErrorInvalidValue outside log_n in [10, 15] or for another id.
+extern "C" int ckks_reg_info(int kernel, int log_n, int* info) {
+  if (!ckks::reg_shape(log_n)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = kernel == ckks::kRegKeySwitch   ? ckks::keyswitch_reg_kernel(log_n)
+                   : kernel == ckks::kRegModDown   ? ckks::moddown_reg_kernel(log_n)
+                   : kernel == ckks::kRegNttForward ? ckks::ntt_reg_kernel(log_n, false)
+                   : kernel == ckks::kRegNttInverse ? ckks::ntt_reg_kernel(log_n, true)
+                                                    : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return ckks::reg_info(fn, log_n, info);
 }
 
 // The same on uint64 words (wide chains; qinv = -q^-1 mod 2^64).

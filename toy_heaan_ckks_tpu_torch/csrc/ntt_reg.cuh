@@ -1,0 +1,327 @@
+// The register-pass NTT of one uint32 plane that one block holds (N = 2^10
+// .. 2^15), shared by the one-block uint32 forms of K1 (csrc/ntt.cu,
+// ntt_kernel_reg), K2 (csrc/keyswitch.cu, keyswitch_kernel_reg) and K3
+// (csrc/moddown.cu, moddown_kernel_reg). The stage, group and twiddle
+// conventions are those of ntt.cuh; the uint64 forms and the clusters keep
+// its one-stage-per-barrier templates.
+//
+// A block has N / 32 threads and each thread holds 32 words of the plane.
+// A pass runs r <= 5 consecutive stages on them without leaving registers:
+// for pass (s, r) a thread's group is the 2^r positions blk * N/2^s +
+// m * N/2^(s+r) + off, m < 2^r, and the stage s+l butterfly of (m, m +
+// 2^(r-1-l)) takes twiddle tw[2^(s+l) + blk * 2^l + (m >> (r-l))] of the
+// compact table, that of the whole plane, loaded once per pass. Passes:
+// 5+5 at 2^10, 5+3+3 at 2^11, 5+4+3 at 2^12, 5+4+4 at 2^13, 5+5+4 at 2^14,
+// 5+5+5 at 2^15 (a thread holds 32 >> r groups of a pass). Between passes
+// the plane goes through shared memory once (one pad word per 32: no bank
+// conflict at 2^10, 2^14, 2^15; 2- to 4-way in the middle pass at 2^11 ..
+// 2^13). Pass 0's group is m * N/32 + t for thread t, so its words come
+// from coalesced loads; the last pass's groups are runs of 2^r adjacent
+// words (RegLast), which the inverse reads as 16-byte vectors. The
+// inverse (RegPassInv) runs the same passes in reverse order, each with
+// its Gentleman-Sande stages from s+r-1 down to s.
+#pragma once
+
+#include <utility>
+
+#include "ntt.cuh"
+
+namespace ckks {
+
+constexpr int kLogRegWords = 5;
+constexpr int kRegWords = 1 << kLogRegWords;  // plane words a thread holds
+
+// Shared-memory word of plane position p: one pad word after every 32.
+__host__ __device__ constexpr int pad(int p) { return p + (p >> 5); }
+
+// The register-pass plan of one plane of 2^kLogN uint32 words.
+template <int kLogN>
+struct RegPlan {
+  static constexpr int kThreads = 1 << (kLogN - kLogRegWords);
+  static constexpr int kRest = kLogN - kLogRegWords;  // stages after pass 0
+  static constexpr int kR1 = kRest <= kLogRegWords ? kRest : (kRest + 1) / 2;
+  static constexpr int kR2 = kRest - kR1;  // 0: two passes
+  // K2: 512 threads an SM, up to 128 registers a thread below 2^15 (one
+  // block at 2^14; two blocks of 64 registers were 11% slower), 64 at 2^15
+  static constexpr int kMinBlocks = kThreads >= 512 ? 1 : 512 / kThreads;
+  // K1, K3: 1024 threads an SM, up to 64 registers a thread (two blocks at
+  // 2^14 were 6-11% faster than one)
+  static constexpr int kMinBlocksTwo = kThreads >= 1024 ? 1 : 1024 / kThreads;
+  static constexpr size_t kSmemBytes = sizeof(uint32_t) * pad(1 << kLogN);
+};
+
+// Pass (kS, kR) of the forward NTT on the 32 words a thread holds: word
+// (h, m) of a[h * 2^kR + m] is plane position pos(t, h, m).
+template <int kLogN, int kS, int kR>
+struct RegPass {
+  static constexpr int kGroups = kRegWords >> kR;
+  static constexpr int kLogOff = kLogN - kS - kR;
+
+  __device__ __forceinline__ static int gid(int t, int h) {
+    return t + (h << (kLogN - kLogRegWords));
+  }
+  // padded shared-memory word of (t, h, 0); word (t, h, m) lies pad(m <<
+  // kLogOff) further (kS <= kLogN - 5, so the pad is linear in m)
+  __device__ __forceinline__ static int base(int t, int h) {
+    const int g = gid(t, h);
+    return pad(((g >> kLogOff) << (kLogN - kS)) + (g & ((1 << kLogOff) - 1)));
+  }
+
+  __device__ __forceinline__ static void store(uint32_t* s,
+                                               const uint32_t (&a)[kRegWords],
+                                               int t) {
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h) {
+      uint32_t* p = s + base(t, h);
+#pragma unroll
+      for (int m = 0; m < (1 << kR); ++m) p[pad(m << kLogOff)] = a[(h << kR) + m];
+    }
+  }
+
+  __device__ __forceinline__ static void load(const uint32_t* s,
+                                              uint32_t (&a)[kRegWords], int t) {
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h) {
+      const uint32_t* p = s + base(t, h);
+#pragma unroll
+      for (int m = 0; m < (1 << kR); ++m) a[(h << kR) + m] = p[pad(m << kLogOff)];
+    }
+  }
+
+  // Stage kS + kL on group kH: every loop bound is a constant, so a[]
+  // stays in registers.
+  template <int kH, int kL>
+  __device__ __forceinline__ static void stage(uint32_t (&a)[kRegWords],
+                                               int blk,
+                                               const uint32_t* __restrict__ tw,
+                                               const uint32_t* __restrict__ twp,
+                                               uint32_t q) {
+    constexpr int kHalf = 1 << (kR - 1 - kL);
+    const int k0 = (1 << (kS + kL)) + (blk << kL);
+#pragma unroll
+    for (int g = 0; g < (1 << kL); ++g) {
+      const uint32_t w = ldg(tw + k0 + g);
+      const uint32_t wp = ldg(twp + k0 + g);
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        const int u = (kH << kR) + 2 * kHalf * g + i;
+        const uint32_t xu = a[u];
+        const uint32_t xv = harvey(a[u + kHalf], w, wp, q);
+        a[u] = add_mod(xu, xv, q);
+        a[u + kHalf] = sub_mod(xu, xv, q);
+      }
+    }
+  }
+
+  template <int kH, int... kL>
+  __device__ __forceinline__ static void group(
+      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kL...>,
+      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
+      uint32_t q) {
+    const int blk = gid(t, kH) >> kLogOff;
+    (stage<kH, kL>(a, blk, tw, twp, q), ...);
+  }
+
+  template <int... kH>
+  __device__ __forceinline__ static void groups(
+      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kH...>,
+      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
+      uint32_t q) {
+    (group<kH>(a, t, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
+  }
+
+  __device__ __forceinline__ static void run(uint32_t (&a)[kRegWords], int t,
+                                             const uint32_t* __restrict__ tw,
+                                             const uint32_t* __restrict__ twp,
+                                             uint32_t q) {
+    groups(a, t, std::make_integer_sequence<int, kGroups>{}, tw, twp, q);
+  }
+};
+
+// Pass (kS, kR) of the inverse NTT: the same words as RegPass, its stages
+// kS + kR - 1 down to kS as Gentleman-Sande butterflies (x_u + x_v,
+// (x_u - x_v) * w) with the inverse compact table.
+template <int kLogN, int kS, int kR>
+struct RegPassInv : RegPass<kLogN, kS, kR> {
+  using Base = RegPass<kLogN, kS, kR>;
+
+  template <int kH, int kL>
+  __device__ __forceinline__ static void stage(uint32_t (&a)[kRegWords],
+                                               int blk,
+                                               const uint32_t* __restrict__ tw,
+                                               const uint32_t* __restrict__ twp,
+                                               uint32_t q) {
+    constexpr int kHalf = 1 << (kR - 1 - kL);
+    const int k0 = (1 << (kS + kL)) + (blk << kL);
+#pragma unroll
+    for (int g = 0; g < (1 << kL); ++g) {
+      const uint32_t w = ldg(tw + k0 + g);
+      const uint32_t wp = ldg(twp + k0 + g);
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        const int u = (kH << kR) + 2 * kHalf * g + i;
+        const uint32_t xu = a[u];
+        const uint32_t xv = a[u + kHalf];
+        a[u] = add_mod(xu, xv, q);
+        a[u + kHalf] = harvey(sub_mod(xu, xv, q), w, wp, q);
+      }
+    }
+  }
+
+  // the stages of group kH, kL = kR - 1 first
+  template <int kH, int... kI>
+  __device__ __forceinline__ static void group(
+      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kI...>,
+      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
+      uint32_t q) {
+    const int blk = Base::gid(t, kH) >> Base::kLogOff;
+    (stage<kH, kR - 1 - kI>(a, blk, tw, twp, q), ...);
+  }
+
+  template <int... kH>
+  __device__ __forceinline__ static void groups(
+      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kH...>,
+      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
+      uint32_t q) {
+    (group<kH>(a, t, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
+  }
+
+  __device__ __forceinline__ static void run(uint32_t (&a)[kRegWords], int t,
+                                             const uint32_t* __restrict__ tw,
+                                             const uint32_t* __restrict__ twp,
+                                             uint32_t q) {
+    groups(a, t, std::make_integer_sequence<int, Base::kGroups>{}, tw, twp, q);
+  }
+};
+
+// The last forward pass of the plan (the first inverse one): its groups
+// are the runs of 2^kR adjacent words at gid(t, h) << kR.
+template <int kLogN>
+using RegLast = RegPass<kLogN,
+                        (RegPlan<kLogN>::kR2 > 0 ? kLogRegWords + RegPlan<kLogN>::kR1
+                                                 : kLogRegWords),
+                        (RegPlan<kLogN>::kR2 > 0 ? RegPlan<kLogN>::kR2
+                                                 : RegPlan<kLogN>::kR1)>;
+
+// Global words in the last forward pass's layout, the inverse's first:
+// group h of thread t is the run of 2^kR adjacent plane words at gid(t, h)
+// << kR, read into a[h * 2^kR ..] as 16-byte vectors (src 16-byte
+// aligned).
+template <typename Last>
+__device__ __forceinline__ void load_runs(const uint32_t* __restrict__ src,
+                                          uint32_t (&a)[kRegWords], int t) {
+  static_assert(Last::kLogOff == 0, "runs of adjacent words: the last pass");
+  constexpr int kRun = kRegWords / Last::kGroups;
+#pragma unroll
+  for (int h = 0; h < Last::kGroups; ++h) {
+    const uint4* p = reinterpret_cast<const uint4*>(src + Last::gid(t, h) * kRun);
+#pragma unroll
+    for (int i = 0; i < kRun / 4; ++i) {
+      const uint4 v = __ldg(p + i);
+      uint32_t* r = a + h * kRun + 4 * i;
+      r[0] = v.x;
+      r[1] = v.y;
+      r[2] = v.z;
+      r[3] = v.w;
+    }
+  }
+}
+
+// The forward passes of the plan on a[] in pass 0's layout; returns with
+// a[] in the last pass's layout (RegLast). s is the block's padded plane
+// (RegPlan::kSmemBytes), not read by any thread at the call.
+template <int kLogN>
+__device__ __forceinline__ void reg_forward(uint32_t* s, uint32_t (&a)[kRegWords],
+                                            int t, const uint32_t* __restrict__ tw,
+                                            const uint32_t* __restrict__ twp,
+                                            uint32_t q) {
+  using Plan = RegPlan<kLogN>;
+  using P0 = RegPass<kLogN, 0, kLogRegWords>;
+  using P1 = RegPass<kLogN, kLogRegWords, Plan::kR1>;
+  P0::run(a, t, tw, twp, q);
+  P0::store(s, a, t);
+  __syncthreads();
+  P1::load(s, a, t);
+  P1::run(a, t, tw, twp, q);
+  if constexpr (Plan::kR2 > 0) {
+    using P2 = RegPass<kLogN, kLogRegWords + Plan::kR1, Plan::kR2>;
+    P1::store(s, a, t);
+    __syncthreads();
+    P2::load(s, a, t);
+    P2::run(a, t, tw, twp, q);
+  }
+}
+
+// The inverse passes of the plan on a[] in the last forward pass's layout
+// (RegLast), stages log2 N - 1 down to 0; returns with a[] in pass 0's
+// layout, every word at m * N/32 + t. Same contract on s as reg_forward.
+template <int kLogN>
+__device__ __forceinline__ void reg_inverse(uint32_t* s, uint32_t (&a)[kRegWords],
+                                            int t, const uint32_t* __restrict__ tw,
+                                            const uint32_t* __restrict__ twp,
+                                            uint32_t q) {
+  using Plan = RegPlan<kLogN>;
+  using P0 = RegPassInv<kLogN, 0, kLogRegWords>;
+  using P1 = RegPassInv<kLogN, kLogRegWords, Plan::kR1>;
+  if constexpr (Plan::kR2 > 0) {
+    using P2 = RegPassInv<kLogN, kLogRegWords + Plan::kR1, Plan::kR2>;
+    P2::run(a, t, tw, twp, q);
+    P2::store(s, a, t);
+    __syncthreads();
+    P1::load(s, a, t);
+  }
+  P1::run(a, t, tw, twp, q);
+  P1::store(s, a, t);
+  __syncthreads();
+  P0::load(s, a, t);
+  P0::run(a, t, tw, twp, q);
+}
+
+// The shapes the register-pass kernels take: log2 N in [10, 15].
+constexpr bool reg_shape(int log_n) { return log_n >= 10 && log_n <= 15; }
+
+// f(std::integral_constant<int, log_n>{}) for a log_n that reg_shape takes.
+template <typename F>
+auto reg_dispatch(int log_n, F f) -> decltype(f(std::integral_constant<int, 15>{})) {
+  switch (log_n) {
+    case 10: return f(std::integral_constant<int, 10>{});
+    case 11: return f(std::integral_constant<int, 11>{});
+    case 12: return f(std::integral_constant<int, 12>{});
+    case 13: return f(std::integral_constant<int, 13>{});
+    case 14: return f(std::integral_constant<int, 14>{});
+    default: return f(std::integral_constant<int, 15>{});
+  }
+}
+
+// The register-pass kernels, by the id ckks_reg_info takes; each source
+// defines its own (nullptr outside reg_shape).
+enum RegKernel { kRegKeySwitch = 0, kRegModDown = 1, kRegNttForward = 2,
+                 kRegNttInverse = 3 };
+const void* keyswitch_reg_kernel(int log_n);          // csrc/keyswitch.cu
+const void* moddown_reg_kernel(int log_n);            // csrc/moddown.cu
+const void* ntt_reg_kernel(int log_n, bool inverse);  // csrc/ntt.cu
+
+// A register-pass kernel at log_n (RegPlan's threads and shared memory) as
+// built and as it fits the current device: info[0..4] = registers a thread,
+// local (spill) bytes a thread, threads a block, dynamic shared bytes a
+// block, resident blocks an SM. Returns the first CUDA error (0 if none).
+inline int reg_info(const void* kernel, int log_n, int* info) {
+  const int threads = 1 << (log_n - kLogRegWords);
+  const size_t smem = sizeof(uint32_t) * pad(1 << log_n);
+  cudaError_t err = reserve_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = threads;
+  info[3] = static_cast<int>(smem);
+  info[4] = blocks;
+  return 0;
+}
+
+}  // namespace ckks

@@ -33,8 +33,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("ntt.cuh", "ntt.cu", "keyswitch.cu", "moddown.cu", "ntt_mxu.cu",
-           "coeff_ntt.cu")
+SOURCES = ("ntt.cuh", "ntt_reg.cuh", "ntt.cu", "keyswitch.cu", "moddown.cu",
+           "ntt_mxu.cu", "coeff_ntt.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p

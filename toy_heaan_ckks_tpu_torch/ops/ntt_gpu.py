@@ -88,6 +88,15 @@ def final_consts(moduli: tuple, final: tuple, device: torch.device,
     return word_table(vals, radix_bits).to(device), word_table(fp, radix_bits).to(device)
 
 
+def vector_aligned(x3: torch.Tensor) -> torch.Tensor:
+    """``x3`` (items, channels, N), or a contiguous copy where its first
+    word or its item stride would break the 16-byte vector loads of the
+    one-block uint32 inverse (``csrc/ntt_reg.cuh`` ``load_runs``)."""
+    if x3.data_ptr() % 16 or x3.stride(0) % 4:
+        return x3.clone(memory_format=torch.contiguous_format)
+    return x3
+
+
 def ntt_twin(x, moduli: tuple, degree: int, inverse: bool, final=None):
     """Plain int64 torch version of the kernels on any device (small or
     wide arithmetic by x's dtype)."""
@@ -118,6 +127,8 @@ def _ntt(x: torch.Tensor, moduli, degree: int, inverse: bool,
     L = len(moduli)
     x3 = _build.planes(x, L, degree)
     _build.require_cuda("ntt_planes", dtype, x3)
+    if inverse and not wide:
+        x3 = vector_aligned(x3)
     lib = _build.library()
     kt = kernel_tables(moduli, degree, x.device, rbits)
     fin = finp = None
