@@ -14,8 +14,9 @@ place of the K1 folds):
 - wide: N = 2^13, 4 x 61-bit primes, digit_size 1, batch 8 (kernels K5/K7
   NTT, K6 key switch, K8 / K8' mod-down, on uint64 words);
 - big: N = 2^16, 4 x 30-bit primes, digit_size 2, batch 4 (bench.py's third
-  configuration: K4 NTT, K2, K3 / K3', each plane over a thread-block
-  cluster of 2 blocks);
+  configuration: K4 NTT and K3 / K3', each plane over a thread-block
+  cluster of 16 blocks of register passes, csrc/ntt_cluster.cuh; K2 on
+  clusters of 2 blocks);
 - big-wide: N = 2^15, 3 x 61-bit primes, digit_size 1, batch 4
   (tools/ab_check.py's wide-2^15-61b-ds1: K5'/K7, K6, K8 / K8' on clusters
   of 2 blocks); its rotation phase runs ``batched_rotate`` and
@@ -93,7 +94,10 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    K2, K3 and K3' rows also carry their register-pass kernel's registers,
    spill bytes, threads and shared memory a block, resident blocks an SM
    and SASS counts (beside the template's uint32 one-block form; K1's
-   forward under ``forward``), and the K2 row its time without d.
+   forward under ``forward``), and the K2 row its time without d; the big
+   K4, K3 and K3' rows name their cluster form and carry its registers,
+   spill bytes, threads and shared memory a block, blocks a cluster (C),
+   resident clusters and SASS counts (K4's forward under ``forward``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -823,7 +827,7 @@ def run_mxu(cfg: PathConfig, run: dict, rot_run: dict, counters) -> dict:
 
 # K10 / K11 phase 2 shapes: (label, batch, channels, degree, prime bits,
 # shard counts); each sharded NTT is held to its twin on the same slabs and
-# to the whole-plane kernel of the label (K1, K4 on clusters of 2, K5' on
+# to the whole-plane kernel of the label (K1, K4 on clusters of 16, K5' on
 # clusters of 2); P = 1 is K10 alone
 COEFF_SHAPES = (
     ("K1", 32, 8, 1 << 14, 31, (1, 2, 8)),
@@ -1259,6 +1263,58 @@ def reg_infos(cfg: PathConfig, rows: list) -> None:
                 row.update(info)
 
 
+# The big path's rows that run a cluster register-pass kernel (uint32,
+# N = 2^16, csrc/ntt_cluster.cuh): the key each form goes under ("" the
+# row itself), ckks_cluster_info's kernel id, its printed name and the
+# needle of its mangled name.
+CLUSTER_KERNELS = {
+    "ntt_planes": {"": (2, "ntt_kernel_cluster<true>", "ntt_kernel_clusterILb1E"),
+                   "forward": (1, "ntt_kernel_cluster<false>", "ntt_kernel_clusterILb0E")},
+    "mod_down_combine": {"": (0, "moddown_kernel_cluster", "moddown_kernel_cluster")},
+    "mod_down_combine[no_t]": {"": (0, "moddown_kernel_cluster",
+                                    "moddown_kernel_cluster")},
+}
+
+
+def cluster_info(kernel: int) -> list:
+    """A cluster form as built and as it fits the card (``ckks_cluster_info``
+    of its id: cudaFuncGetAttributes, cudaOccupancyMaxActiveClusters):
+    registers and spill bytes a thread, threads and shared bytes a block,
+    blocks a cluster, resident clusters."""
+    import ctypes
+
+    from toy_heaan_ckks_tpu_torch.ops import _build
+
+    buf = (ctypes.c_int * 6)()
+    _build.check(_build.library().ckks_cluster_info(kernel, buf), "ckks_cluster_info")
+    return list(buf)
+
+
+def cluster_infos(cfg: PathConfig, rows: list) -> None:
+    """Adds to each big row of CLUSTER_KERNELS the cluster form that ran
+    (``cluster_info``), with its SASS counts."""
+    from toy_heaan_ckks_tpu_torch.ops import _build
+
+    sass = sass_counts(_build.library_path(), {
+        shown: needle for forms in CLUSTER_KERNELS.values()
+        for _, shown, needle in forms.values()})
+    for row in rows:
+        forms = CLUSTER_KERNELS.get(row["name"].split("@")[0])
+        if forms is None:
+            continue
+        for key, (kernel, shown, _) in forms.items():
+            regs, local, threads, smem, blocks, clusters = cluster_info(kernel)
+            info = {"form": shown, "regs_per_thread": regs,
+                    "local_bytes_per_thread": local, "threads_per_block": threads,
+                    "smem_bytes_per_block": smem, "cluster_blocks": blocks,
+                    "active_clusters": clusters, "sass": sass[shown]}
+            print(f"[{cfg.name}] {row['name']} {key or 'kernel'}: {json.dumps(info)}")
+            if key:
+                row[key] = info
+            else:
+                row.update(info)
+
+
 def device_split(fn, iters: int, windows: int = 3) -> tuple:
     """Device ms per call of ``fn`` split into the port's kernels and the
     rest (torch elementwise glue), from torch.profiler over ``iters`` calls
@@ -1352,7 +1408,8 @@ def main() -> int:
     for k, e in errs_62.items():
         wide_errs[k] = max(wide_errs[k], e)
     big_cases = kernel_cases(BIG, dev, wide=False)
-    big_errs = check_cases("K4/K2/K3/K3' big 2^16 (clusters of 2)", big_cases)
+    big_errs = check_cases("K4/K2/K3/K3' big 2^16 (K4, K3: clusters of 16; K2: of 2)",
+                           big_cases)
     big_wide_cases = kernel_cases(BIG_WIDE, dev, wide=True)
     big_wide_errs = check_cases("K5'/K6/K7/K8/K8' big-wide 2^15 (clusters of 2)",
                                 big_wide_cases)
@@ -1460,8 +1517,10 @@ def main() -> int:
     reg_infos(SMALL, rows)
     rows += time_path(WIDE, wide_cases, wide_errs, wide_run, wide_rot["launches"],
                       wide_names, int_ops_per_s, twin_iters=2)
-    rows += time_path(BIG, big_cases, big_errs, big_run, big_rot["launches"],
-                      big_names, int_ops_per_s, twin_iters=3)
+    big_rows = time_path(BIG, big_cases, big_errs, big_run, big_rot["launches"],
+                         big_names, int_ops_per_s, twin_iters=3)
+    cluster_infos(BIG, big_rows)
+    rows += big_rows
     rows += time_path(BIG_WIDE, big_wide_cases, big_wide_errs, big_wide_run,
                       big_wide_rot["launches"], big_wide_names, int_ops_per_s,
                       twin_iters=1)

@@ -54,15 +54,19 @@ def _counted(fn, call):
 
 
 def _ntt_vs_twin(dev, x, moduli, degree, mode):
-    """K1 (K4 at N = 2^16) against its twin on ``x``: one launch, a
-    cluster of 2 blocks per plane at 2^16 and none below, uint32-equal
-    outputs. ``mode``: forward, inverse (final N^-1) or fold (the inverse
-    with the decomposition fold's final constants)."""
+    """K1 (K4 at N = 2^16) against its twin on ``x``: one launch, on a
+    cluster at 2^16 and none below, uint32-equal outputs. ``mode``:
+    forward, inverse (final N^-1), fold (the inverse with the
+    decomposition fold's final constants) or yhat (the mod-down's yhat
+    emission: ``moduli`` dropped from a chain of 2 more)."""
     inverse = mode != "forward"
     final = None
     if mode == "fold":
         final = small_fast._fold_consts(moduli, degree,
                                         tuple((q - 1) // 3 for q in moduli))
+    elif mode == "yhat":
+        kept = tuple(port.generate_primes(29, 2, degree))
+        final = moddown_gpu._down_consts(kept, moduli, degree)[6]
     got, counts = _counted(ntt_gpu.ntt_planes, lambda: ntt_gpu.ntt_planes(
         x, moduli, degree, inverse, final))
     assert counts == (1, int(degree == 1 << 16))
@@ -70,7 +74,7 @@ def _ntt_vs_twin(dev, x, moduli, degree, mode):
 
 
 # 2^10 .. 2^15: ntt_kernel_reg (2 register passes at 2^10, 3 above);
-# 2^16: the ntt_kernel template on a cluster of 2 blocks per plane (K4)
+# 2^16: ntt_kernel_cluster, register passes on a cluster of 16 blocks (K4)
 NTT_DEGREES = [1 << k for k in range(10, 17)]
 
 
@@ -99,6 +103,30 @@ def test_ntt_kernel_unaligned_input(dev, mode):
     degree = 1 << 12
     moduli, _ = _chain(3, 1, degree)
     x = _planes(7, moduli, degree, (2,), dev)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    flat[1:] = x.reshape(-1)
+    _ntt_vs_twin(dev, flat[1:].view(x.shape), moduli, degree, mode)
+
+
+# N = 2^16: batches of 1, 3 and 4 items of 1, 3 and 4 channels, the
+# big path's 30-bit primes
+@pytest.mark.parametrize("batch,channels", [(1, 1), (3, 3), (4, 4), (1, 4), (4, 3)])
+@pytest.mark.parametrize("mode", ["forward", "inverse", "fold", "yhat"])
+def test_ntt_cluster_form_matches_twin(dev, batch, channels, mode):
+    """K4's cluster register-pass form in each mode."""
+    degree = 1 << 16
+    moduli = tuple(port.generate_primes(30, channels, degree))
+    x = _planes(batch * 10 + channels, moduli, degree, (batch,), dev)
+    _ntt_vs_twin(dev, x, moduli, degree, mode)
+
+
+@pytest.mark.parametrize("mode", ["forward", "inverse", "yhat"])
+def test_ntt_cluster_form_unaligned_input(dev, mode):
+    """K4 on planes one word off a 16-byte boundary (the inverse's runs
+    are 16-byte loads: the wrapper copies them)."""
+    degree = 1 << 16
+    moduli = tuple(port.generate_primes(30, 3, degree))
+    x = _planes(11, moduli, degree, (2,), dev)
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
     flat[1:] = x.reshape(-1)
     _ntt_vs_twin(dev, flat[1:].view(x.shape), moduli, degree, mode)
@@ -166,8 +194,8 @@ def test_keyswitch_kernel_2_16_matches_twin(dev, with_d):
 
 def _moddown_vs_twin(dev, degree, count, digit_size, with_t, batch, keyswitch=False,
                      offset=0):
-    """K3 / K3' against its twin: one launch, a cluster of 2 blocks per
-    plane at N = 2^16 and none below, uint32-equal outputs. The multiply's
+    """K3 / K3' against its twin: one launch, on a cluster at N = 2^16
+    and none below, uint32-equal outputs. The multiply's
     shapes keep all but the last base prime and drop it with the
     specials; a key switch's (``keyswitch``) keeps the base and drops the
     specials. ks (and t) are channel slices of larger stacks; ``offset``
@@ -196,7 +224,7 @@ def _moddown_vs_twin(dev, degree, count, digit_size, with_t, batch, keyswitch=Fa
 
 
 # 2^10 .. 2^15: moddown_kernel_reg (2 register passes at 2^10, 3 above);
-# 2^16: the moddown_kernel template on a cluster of 2 blocks per plane
+# 2^16: moddown_kernel_cluster, register passes on a cluster of 16 blocks
 @pytest.mark.parametrize("degree", [1 << k for k in range(10, 17)])
 @pytest.mark.parametrize("with_t", [True, False])
 def test_moddown_kernel_matches_twin(dev, with_t, degree):
@@ -216,6 +244,22 @@ def test_moddown_kernel_main_path_shape(dev, batch, keyswitch):
 def test_moddown_kernel_unaligned_input(dev, with_t):
     """ks read in place one word off a 16-byte boundary."""
     _moddown_vs_twin(dev, 1 << 12, 5, 2, with_t, 2, offset=1)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4])
+@pytest.mark.parametrize("keyswitch", [False, True])
+def test_moddown_cluster_form_main_path_shape(dev, batch, keyswitch):
+    """K3's cluster register-pass form at the big path's chain (4 primes,
+    ds 2): K3 with t (3 kept, 3 dropped) and K3' (4 kept, the 2 specials
+    dropped), ks and t channel slices of larger stacks."""
+    _moddown_vs_twin(dev, 1 << 16, 4, 2, not keyswitch, batch, keyswitch)
+
+
+@pytest.mark.parametrize("with_t", [True, False])
+def test_moddown_cluster_form_unaligned_input(dev, with_t):
+    """K3 at N = 2^16 with ks read in place one word off a 16-byte
+    boundary."""
+    _moddown_vs_twin(dev, 1 << 16, 4, 2, with_t, 2, offset=1)
 
 
 # K9: N = 2^10 (R = 8, padded to the mma depth 32), 2^12, the small path's

@@ -7,7 +7,9 @@ Imports ``chip_smoke.py`` and ``toy_heaan_ckks_tpu_torch`` from the
 checkout at PATH (its kernels are built there at first use), makes the
 kernel cases of each of its paths small, wide, big and big-wide that it
 has (``chip_smoke.kernel_cases``: the same seeded inputs and shapes in
-every checkout that has the path) and
+every checkout that has the path), and K10 / K11 at the big coeff path's
+planes where it has them (``chip_smoke.coeff_cases``, (4, 4, 2^16) on
+P = 4, under ``K10/K11 big``), and
 prints one JSON line: the card's name and power limit and, per case, the
 mean ms of 100 launches after 10 warm-up launches (``ms``, CUDA events:
 the pace of the wrapper calls, which the host sets where the kernel is
@@ -16,17 +18,22 @@ shorter than the wrapper's host work) and the device ms per call
 once per checkout in one command on one card, in turns (parent, change,
 change, parent), to compare two commits; no twin is timed. ``--sass``
 adds, per kernel of the built library (each instantiation under its own
-name, ``kernel_names``), its SASS instruction count and the count of each
+name, ``kernel_names``), its SASS instruction count, the count of each
 memory instruction (``cuobjdump -sass``; LDS/STS are shared-memory
-accesses, LD/ST generic ones). ``--composite`` first times the small
+accesses, LD/ST generic ones) and a hash of its instruction text
+(``sha256``: equal hashes, equal SASS). ``--composite`` first times the small
 multiply at batch 32 on phase 3's inputs and keys (``chip_smoke.run_path``),
 CUDA-event ms per call over windows of 10 calls, before the process first
-runs torch.profiler and again after one profiler window.
+runs torch.profiler and again after one profiler window. Where the
+checkout has the cluster forms of ``csrc/ntt_cluster.cuh``, ``cluster``
+gives each form's registers, spill bytes, threads and shared bytes a
+block, blocks a cluster and resident clusters.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -86,6 +93,9 @@ def _sass_counts() -> dict:
         if name in counts:
             raise AssertionError(f"two kernels named {name}")
         counts[name] = dict.fromkeys(("total",) + MEMORY_OPS, 0)
+        # the instruction text, without the addresses and encodings
+        text = "\n".join(line.split("*/", 1)[1].split(";")[0].strip() for line in lines)
+        counts[name]["sha256"] = hashlib.sha256(text.encode()).hexdigest()[:16]
         for line in lines:
             text = line.split("*/", 1)[1].split(";")[0].split()
             if text and text[0].startswith("@"):
@@ -121,6 +131,16 @@ def composite_times(smoke, dev) -> dict:
     return {"before_profiler": before, "after_profiler": after}
 
 
+def cluster_forms(smoke) -> dict | None:
+    """{form: [registers, spill bytes, threads, shared bytes, blocks a
+    cluster, resident clusters]} (``chip_smoke.cluster_info``), or None
+    where the checkout has no cluster forms."""
+    if not hasattr(smoke, "cluster_info"):
+        return None
+    return {shown: smoke.cluster_info(kernel) for forms in smoke.CLUSTER_KERNELS.values()
+            for kernel, shown, _ in forms.values()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True)
@@ -144,15 +164,22 @@ def main() -> int:
     composite = composite_times(smoke, dev) if args.composite else None
     times, device = {}, {}
     paths = (("SMALL", False), ("WIDE", True), ("BIG", False), ("BIG_WIDE", True))
-    for cfg, wide in ((getattr(smoke, p), wide) for p, wide in paths
-                      if hasattr(smoke, p)):
-        for name, case in smoke.kernel_cases(cfg, dev, wide=wide).items():
-            times[f"{cfg.name} {name}"] = smoke._cuda_ms(case.kernel, args.iters,
-                                                        warmup=10)
-            split, _ = smoke.device_split(case.kernel, PROFILE_CALLS)
-            device[f"{cfg.name} {name}"] = sum(split.values())
+    cases = [(f"{cfg.name} {name}", case)
+             for cfg, wide in ((getattr(smoke, p), wide) for p, wide in paths
+                               if hasattr(smoke, p))
+             for name, case in smoke.kernel_cases(cfg, dev, wide=wide).items()]
+    if hasattr(smoke, "coeff_cases"):
+        big = smoke.BIG
+        cases += [(f"K10/K11 big {name}", case) for name, case in
+                  smoke.coeff_cases(dev, 4, 4, big.degree, big.bits, 4).items()]
+    for name, case in cases:
+        times[name] = smoke._cuda_ms(case.kernel, args.iters, warmup=10)
+        split, _ = smoke.device_split(case.kernel, PROFILE_CALLS)
+        device[name] = sum(split.values())
+    cluster = cluster_forms(smoke)
     print(json.dumps({"label": args.label or root, "card": smoke._smi("name,power.limit"),
                       "ms": times, "device_ms": device,
+                      **({"cluster": cluster} if cluster else {}),
                       **({"sass": sass} if sass else {}),
                       **({"composite": composite} if composite else {})}))
     return 0

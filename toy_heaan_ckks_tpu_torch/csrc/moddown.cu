@@ -6,9 +6,10 @@
 // and ops/keyswitch_pallas_wide.py _md_kernel_wide_t (core _md_core_wide;
 // with t == nullptr _md_kernel_wide_no_t), called through
 // mod_down_combine_pallas_wide, on uint64 words (wide chains, Harvey64 with
-// radix 2^64: ckks_moddown64). One block, or one cluster of 2 or 4 blocks
-// for a plane above 128 KiB (ntt.cuh PlanePart; the factored branch of the
-// reference, moddown_pallas.py:140, keyswitch_pallas_wide.py:575), owns one
+// radix 2^64: ckks_moddown64). One block, or one cluster of blocks for a
+// plane above 128 KiB (ntt.cuh PlanePart: 2 or 4; ntt_cluster.cuh: 16; the
+// factored branch of the reference, moddown_pallas.py:140,
+// keyswitch_pallas_wide.py:575), owns one
 // (kept channel j, item) pair; each block runs the sums and the combine on
 // its own slice of the plane:
 //
@@ -23,8 +24,9 @@
 // G + 2 planes and writing one; on uint64 words the integer pipe.
 //
 // uint32 planes that one block holds (N = 2^10 .. 2^15) run another body,
-// moddown_kernel_reg<log2 N>; the uint64 form and the cluster form
-// (N = 2^16) run moddown_kernel above. Its design is K2's
+// moddown_kernel_reg<log2 N>, and uint32 planes of 2^16 a third,
+// moddown_kernel_cluster (below); the uint64 forms run moddown_kernel
+// above. The one-block design is K2's
 // (csrc/keyswitch.cu) with one digit and the combine as its epilogue:
 //
 // - NTT passes in registers (csrc/ntt_reg.cuh): N / 32 threads of 32
@@ -48,7 +50,18 @@
 //   0.125 for moddown_kernel; 0.047 / 0.048 at one block an SM; 0.044 /
 //   0.046 with the combine on the runs at two blocks, 0.053 at one.
 //   Without t (32, 8 kept, 4 dropped): 0.038 (0.106).
+//
+// K3 / K3' on uint32 planes of 2^16 (moddown_kernel_cluster) run K4's
+// cluster plan (csrc/ntt_cluster.cuh: 16 blocks of 128 threads a plane)
+// with the Phat sum formed in the cross pass's loads of the G yhat planes
+// (groups of 16 words at stride N/16, coalesced over the threads) and the
+// combine on the slice's coalesced words after the last exchange. Measured
+// on an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_ab.py, device time):
+// (4, 3 kept, 3 dropped) with t 0.010-0.015 ms against 0.145 for
+// moddown_kernel on clusters of 2; without t (4, 4 kept, 2 dropped) 0.016
+// (0.133); on clusters of 8 blocks 0.016 / 0.020, of 4 0.025 / 0.022.
 #include "ntt.cuh"
+#include "ntt_cluster.cuh"
 #include "ntt_reg.cuh"
 
 namespace {
@@ -109,6 +122,26 @@ int launch_moddown(const T* yhat, long long y_stride, const T* ks,
       moddown_kernel<T, false>, moddown_kernel<T, true>, outer * kept, log_n,
       parts, stream, yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm,
       pms, pinv, pinvs, tw, twp, out, dropped, kept, log_n);
+}
+
+// uint32 planes below 2^10: moddown_kernel's one-block form (the uint32
+// planes of 2^16 run moddown_kernel_cluster, so the template runs on
+// clusters only on uint64 words).
+int launch_one_block(const uint32_t* yhat, long long y_stride, const uint32_t* ks,
+                     long long ks_stride, const uint32_t* t, long long t_stride,
+                     const uint32_t* c, const uint32_t* cs, const uint32_t* q,
+                     const uint32_t* pm, const uint32_t* pms, const uint32_t* pinv,
+                     const uint32_t* pinvs, const uint32_t* tw, const uint32_t* twp,
+                     uint32_t* out, int outer, int dropped, int kept, int log_n,
+                     cudaStream_t stream) {
+  const size_t smem = ckks::plane_bytes<uint32_t>(log_n);
+  const cudaError_t err = ckks::reserve_smem(
+      reinterpret_cast<const void*>(moddown_kernel<uint32_t, false>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moddown_kernel<uint32_t, false><<<outer * kept, ckks::kThreads, smem, stream>>>(
+      yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv, pinvs, tw,
+      twp, out, dropped, kept, log_n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 using ckks::kLogRegWords;
@@ -216,13 +249,83 @@ int launch_reg(const uint32_t* yhat, long long y_stride, const uint32_t* ks,
   return static_cast<int>(cudaGetLastError());
 }
 
+using ckks::BigPlan;
+
+// K3 / K3' on uint32 planes of 2^16 words (see the header): one cluster of
+// BigPlan::kC blocks of N/C/32 threads per (item, kept channel j).
+__global__ void __launch_bounds__(BigPlan::kThreads, BigPlan::kMinBlocks)
+moddown_kernel_cluster(const uint32_t* __restrict__ yhat, long long y_stride,
+                       const uint32_t* __restrict__ ks, long long ks_stride,
+                       const uint32_t* __restrict__ t, long long t_stride,
+                       const uint32_t* __restrict__ c, const uint32_t* __restrict__ cs,
+                       const uint32_t* __restrict__ q, const uint32_t* __restrict__ pm,
+                       const uint32_t* __restrict__ pms,
+                       const uint32_t* __restrict__ pinv,
+                       const uint32_t* __restrict__ pinvs,
+                       const uint32_t* __restrict__ tw,
+                       const uint32_t* __restrict__ twp, uint32_t* __restrict__ out,
+                       int dropped, int kept) {
+  using Cross = ckks::CrossPass<BigPlan, false>;
+  constexpr long long n = 1LL << ckks::kClusterLogN;
+  constexpr int kC = BigPlan::kC, kM = BigPlan::kM;
+  ckks::cluster_arrive_relaxed();  // this block has started
+  uint32_t* s = ckks::smem_plane<uint32_t>();
+  const int tid = threadIdx.x;
+  const int r = static_cast<int>(blockIdx.x) & (kC - 1);  // rank in the cluster
+  const int plane = static_cast<int>(blockIdx.x) >> BigPlan::kLogC;
+  const int j = plane % kept;
+  const long long item = plane / kept;
+  const uint32_t qj = q[j];
+
+  // the Phat sum, into the cross pass's words
+  uint32_t a[kRegWords];
+  const uint32_t* yi = yhat + item * y_stride;
+  {
+    const uint32_t ck = c[j], cks = cs[j];
+#pragma unroll
+    for (int h = 0; h < BigPlan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k)
+        a[h * kC + k] = ckks::harvey(ckks::ldg(yi + Cross::first(r, h, tid) + k * kM),
+                                     ck, cks, qj);
+  }
+  for (int m = 1; m < dropped; ++m) {
+    const uint32_t ck = c[m * kept + j], cks = cs[m * kept + j];
+    const uint32_t* ym = yi + m * n;
+#pragma unroll
+    for (int h = 0; h < BigPlan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        const int u = h * kC + k;
+        a[u] = ckks::add_mod(
+            a[u], ckks::harvey(ckks::ldg(ym + Cross::first(r, h, tid) + k * kM), ck, cks, qj),
+            qj);
+      }
+  }
+  Cross::run(a, tw + j * n, twp + j * n, qj);
+  ckks::cluster_forward<BigPlan>(s, a, r, tid, tw + j * n, twp + j * n, qj);
+
+  // the combine on pass 0's coalesced words of the slice
+  const long long off = j * n + r * kM;
+  const uint32_t* ksj = ks + item * ks_stride + off;
+  uint32_t* o = out + (item * kept + j) * n + r * kM;
+  const uint32_t p = pm[j], ps = pms[j], pi = pinv[j], pis = pinvs[j];
+  if (t != nullptr) {
+    combine<BigPlan::kLogM, true>(a, tid, ksj, t + item * t_stride + off, o, p, ps, pi,
+                                  pis, qj);
+  } else {
+    combine<BigPlan::kLogM, false>(a, tid, ksj, nullptr, o, p, ps, pi, pis, qj);
+  }
+}
+
 }  // namespace
 
 // yhat: (outer, dropped, N) plain values, item stride y_stride; ks/t:
 // (outer, kept, N) NTT-domain planes with item strides ks_stride/t_stride
 // (t may be nullptr); c/cs: (dropped, kept); q/pm/pms/pinv/pinvs: (kept,);
 // tw/twp: (kept, N) forward twiddles; out: contiguous (outer, kept, N);
-// parts: blocks per plane (1, or a cluster of 2 or 4). Returns the launch's
+// parts: 1 (one block a plane) or, at N = 2^16 only, above 1 (a cluster:
+// moddown_kernel_cluster on ckks::BigPlan::kC blocks). Returns the launch's
 // error code (0 on success).
 extern "C" int ckks_moddown(const uint32_t* yhat, long long y_stride,
                             const uint32_t* ks, long long ks_stride,
@@ -241,9 +344,15 @@ extern "C" int ckks_moddown(const uint32_t* yhat, long long y_stride,
           pinvs, tw, twp, out, outer, dropped, kept, stream);
     });
   }
-  return launch_moddown(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q,
-                        pm, pms, pinv, pinvs, tw, twp, out, outer, dropped,
-                        kept, log_n, parts, stream);
+  if (parts > 1 && log_n == ckks::kClusterLogN) {
+    return ckks::launch_cluster<BigPlan, &moddown_kernel_cluster>(
+        outer * kept, BigPlan::kForwardBytes, stream, yhat, y_stride, ks, ks_stride,
+        t, t_stride, c, cs, q, pm, pms, pinv, pinvs, tw, twp, out, dropped, kept);
+  }
+  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_one_block(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm,
+                          pms, pinv, pinvs, tw, twp, out, outer, dropped, kept, log_n,
+                          stream);
 }
 
 const void* ckks::moddown_reg_kernel(int log_n) {
@@ -253,7 +362,12 @@ const void* ckks::moddown_reg_kernel(int log_n) {
   });
 }
 
-// The same on uint64 words (wide chains, radix-2^64 Shoup companions).
+const void* ckks::moddown_cluster_kernel() {
+  return reinterpret_cast<const void*>(moddown_kernel_cluster);
+}
+
+// The same on uint64 words (wide chains, radix-2^64 Shoup companions;
+// parts 1, 2 or 4: moddown_kernel).
 extern "C" int ckks_moddown64(const uint64_t* yhat, long long y_stride,
                               const uint64_t* ks, long long ks_stride,
                               const uint64_t* t, long long t_stride,

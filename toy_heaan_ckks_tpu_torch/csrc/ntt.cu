@@ -7,8 +7,9 @@
 // ckks_ntt64), ops/ntt_pallas_wide.py _ntt_kernel_wide (K5) and
 // _ntt_kernel_fac_wide (K5', N >= 2^15) and ops/keyswitch_pallas_wide.py
 // _inv_yhat_kernel_wide (K7, the inverse with a folded final constant).
-// One block, or one cluster of 2 or 4 blocks for a plane above 128 KiB
-// (ntt.cuh PlanePart), owns one (item, channel) plane of N residues: it
+// One block, or one cluster of blocks for a plane above 128 KiB (ntt.cuh
+// PlanePart: 2 or 4; ntt_cluster.cuh: 16), owns one (item, channel) plane
+// of N residues: it
 // loads the plane once, runs all log2(N) butterfly stages in shared
 // memory, applies the per-channel final constant (inverse only: N^-1, or
 // the folded constants of the mod-down yhat emission / the decomposition
@@ -20,8 +21,9 @@
 // several 32-bit multiply instructions.
 //
 // uint32 planes that one block holds (N = 2^10 .. 2^15) run another body,
-// ntt_kernel_reg<log2 N, inverse>; the uint64 form and the cluster form
-// (N = 2^16) run ntt_kernel above. Its design is K2's NTT
+// ntt_kernel_reg<log2 N, inverse>, and uint32 planes of 2^16 a third,
+// ntt_kernel_cluster<inverse> (below); the uint64 forms run ntt_kernel
+// above. The one-block design is K2's NTT
 // (csrc/ntt_reg.cuh): N / 32 threads of 32 words, 5+5+4 stages at 2^14 in
 // registers with one shared-memory exchange between passes, each
 // twiddle loaded once per pass and thread:
@@ -45,7 +47,22 @@
 //   device time, (32, 8, 2^14)): forward 0.028 ms against 0.065 for
 //   ntt_kernel, inverse with the fold 0.030 (0.076), yhat at (32, 5)
 //   0.028 (0.064); at one block an SM 0.030 / 0.032 / 0.030.
+//
+// K4 on uint32 planes of 2^16 (ntt_kernel_cluster, csrc/ntt_cluster.cuh)
+// spreads a plane over a cluster of 16 blocks of 128 threads: the first
+// four forward stages (the inverse's last four) as one register pass over
+// groups of 16 words at stride N/16, one distributed-shared-memory
+// exchange between that pass and the slices, and the slice's 12 stages
+// as 5+4+3 register passes. ntt_kernel on clusters of 2 gave 16 to 32
+// blocks of 512 threads for the main path's 12 to 16 planes, 15
+// one-stage barriers each; this gives 192 to 256 blocks, 2 cluster and
+// 3 block barriers (the inverse 2). Measured on an NVIDIA H100 80GB HBM3
+// at 700 W (tools/kernel_ab.py, device time, (4, 4, 2^16)): forward
+// 0.014-0.016 ms against 0.102 for ntt_kernel, inverse with the fold
+// 0.014 (0.114), yhat at (4, 3) 0.011 (0.114); on clusters of 8 blocks
+// 0.017 / 0.019-0.020 / 0.013, of 4 0.018-0.019 / 0.018 / 0.018.
 #include "ntt.cuh"
+#include "ntt_cluster.cuh"
 #include "ntt_reg.cuh"
 
 namespace {
@@ -94,6 +111,22 @@ int launch_ntt(const T* x, long long x_stride, T* out, const T* tw,
                                 outer * channels, log_n, parts, stream, x,
                                 x_stride, out, tw, twp, q, fin, finp,
                                 channels, log_n, inverse);
+}
+
+// uint32 planes below 2^10: ntt_kernel's one-block form (the uint32 planes
+// of 2^16 run ntt_kernel_cluster, so the template runs on clusters only on
+// uint64 words).
+int launch_one_block(const uint32_t* x, long long x_stride, uint32_t* out,
+                     const uint32_t* tw, const uint32_t* twp, const uint32_t* q,
+                     const uint32_t* fin, const uint32_t* finp, int outer,
+                     int channels, int log_n, int inverse, cudaStream_t stream) {
+  const size_t smem = ckks::plane_bytes<uint32_t>(log_n);
+  const cudaError_t err =
+      ckks::reserve_smem(reinterpret_cast<const void*>(ntt_kernel<uint32_t, false>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ntt_kernel<uint32_t, false><<<outer * channels, ckks::kThreads, smem, stream>>>(
+      x, x_stride, out, tw, twp, q, fin, finp, channels, log_n, inverse);
+  return static_cast<int>(cudaGetLastError());
 }
 
 using ckks::kLogRegWords;
@@ -179,21 +212,92 @@ int launch_reg(const uint32_t* x, long long x_stride, uint32_t* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+using ckks::BigPlan;
+
+// K4 on uint32 planes of 2^16 words (see the header): one cluster of
+// BigPlan::kC blocks of N/C/32 threads per (item, channel) plane.
+template <bool kInverse>
+__global__ void __launch_bounds__(BigPlan::kThreads, BigPlan::kMinBlocks)
+ntt_kernel_cluster(const uint32_t* __restrict__ x, long long x_stride,
+                   uint32_t* __restrict__ out, const uint32_t* __restrict__ tw,
+                   const uint32_t* __restrict__ twp, const uint32_t* __restrict__ q,
+                   const uint32_t* __restrict__ fin,
+                   const uint32_t* __restrict__ finp, int channels) {
+  using Cross = ckks::CrossPass<BigPlan, kInverse>;
+  constexpr long long n = 1LL << ckks::kClusterLogN;
+  constexpr int kC = BigPlan::kC, kM = BigPlan::kM;
+  ckks::cluster_arrive_relaxed();  // this block has started
+  uint32_t* s = ckks::smem_plane<uint32_t>();
+  const int tid = threadIdx.x;
+  const int r = static_cast<int>(blockIdx.x) & (kC - 1);  // rank in the cluster
+  const int plane = static_cast<int>(blockIdx.x) >> BigPlan::kLogC;
+  const int ch = plane % channels;
+  const long long item = plane / channels;
+  const uint32_t qc = q[ch];
+  const uint32_t* src = x + item * x_stride + ch * n;
+  uint32_t* dst = out + (item * channels + ch) * n;
+  const uint32_t* w = tw + ch * n;
+  const uint32_t* wp = twp + ch * n;
+
+  uint32_t a[kRegWords];
+  if constexpr (!kInverse) {
+#pragma unroll
+    for (int h = 0; h < BigPlan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k)
+        a[h * kC + k] = ckks::ldg(src + Cross::first(r, h, tid) + k * kM);
+    Cross::run(a, w, wp, qc);
+    ckks::cluster_forward<BigPlan>(s, a, r, tid, w, wp, qc);
+    store_words<BigPlan::kLogM>(dst + r * kM, a, tid, fin == nullptr ? nullptr : fin + ch,
+                                fin == nullptr ? nullptr : finp + ch, qc);
+  } else {
+    ckks::load_runs<ckks::RegLast<BigPlan::kLogM>>(src + r * kM, a, tid);
+    ckks::cluster_inverse<BigPlan>(s, a, r, tid, w, wp, qc);
+    if (fin != nullptr) {
+      const uint32_t fv = fin[ch], fpv = finp[ch];
+#pragma unroll
+      for (int m = 0; m < kRegWords; ++m) a[m] = ckks::harvey(a[m], fv, fpv, qc);
+    }
+#pragma unroll
+    for (int h = 0; h < BigPlan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k) dst[Cross::first(r, h, tid) + k * kM] = a[h * kC + k];
+  }
+}
+
+template <bool kInverse>
+int launch_cluster(const uint32_t* x, long long x_stride, uint32_t* out,
+                   const uint32_t* tw, const uint32_t* twp, const uint32_t* q,
+                   const uint32_t* fin, const uint32_t* finp, int outer,
+                   int channels, cudaStream_t stream) {
+  return ckks::launch_cluster<BigPlan, &ntt_kernel_cluster<kInverse>>(
+      outer * channels, kInverse ? BigPlan::kInverseBytes : BigPlan::kForwardBytes,
+      stream, x, x_stride, out, tw, twp, q, fin, finp, channels);
+}
+
 }  // namespace
 
 // x: (outer, channels, N) with item stride x_stride (elements); out:
 // contiguous (outer, channels, N); tw/twp: (channels, N) compact twiddles of
 // the direction; q/fin/finp: (channels,); fin == nullptr skips the final
-// multiply; parts: blocks per plane (1, or a cluster of 2 or 4). The
+// multiply; parts: 1 (one block a plane) or, at N = 2^16 only, above 1 (a
+// cluster: ntt_kernel_cluster). The
 // inverse with parts == 1 and N in [2^10, 2^15] reads x as 16-byte
-// vectors: x 16-byte aligned, x_stride a multiple of 4. Returns the
-// launch's error code (0 on success).
+// vectors: x 16-byte aligned, x_stride a multiple of 4; so does the
+// cluster form, which spreads a plane over ckks::BigPlan::kC blocks
+// whatever parts says. Returns the launch's error code (0 on success).
 extern "C" int ckks_ntt(const uint32_t* x, long long x_stride, uint32_t* out,
                         const uint32_t* tw, const uint32_t* twp,
                         const uint32_t* q, const uint32_t* fin,
                         const uint32_t* finp, int outer, int channels,
                         int log_n, int parts, int inverse,
                         cudaStream_t stream) {
+  if (parts > 1 && log_n == ckks::kClusterLogN) {
+    return inverse ? launch_cluster<true>(x, x_stride, out, tw, twp, q, fin, finp,
+                                          outer, channels, stream)
+                   : launch_cluster<false>(x, x_stride, out, tw, twp, q, fin, finp,
+                                           outer, channels, stream);
+  }
   if (parts == 1 && ckks::reg_shape(log_n)) {
     return ckks::reg_dispatch(log_n, [&](auto log_n_c) {
       constexpr int kLogN = decltype(log_n_c)::value;
@@ -203,11 +307,13 @@ extern "C" int ckks_ntt(const uint32_t* x, long long x_stride, uint32_t* out,
                                                 finp, outer, channels, stream);
     });
   }
-  return launch_ntt(x, x_stride, out, tw, twp, q, fin, finp, outer, channels,
-                    log_n, parts, inverse, stream);
+  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_one_block(x, x_stride, out, tw, twp, q, fin, finp, outer, channels,
+                          log_n, inverse, stream);
 }
 
-// The same on uint64 words (wide chains, radix-2^64 Shoup companions).
+// The same on uint64 words (wide chains, radix-2^64 Shoup companions;
+// parts 1, 2 or 4: ntt_kernel).
 extern "C" int ckks_ntt64(const uint64_t* x, long long x_stride,
                           uint64_t* out, const uint64_t* tw,
                           const uint64_t* twp, const uint64_t* q,
@@ -224,6 +330,29 @@ const void* ckks::ntt_reg_kernel(int log_n, bool inverse) {
     constexpr int kLogN = decltype(log_n_c)::value;
     return inverse ? reg_kernel<kLogN, true>() : reg_kernel<kLogN, false>();
   });
+}
+
+const void* ckks::ntt_cluster_kernel(bool inverse) {
+  return inverse ? reinterpret_cast<const void*>(ntt_kernel_cluster<true>)
+                 : reinterpret_cast<const void*>(ntt_kernel_cluster<false>);
+}
+
+// The cluster kernel `kernel` (ckks::ClusterKernel: 0 K3, 1 K4 forward, 2 K4
+// inverse) as built and as it fits the current device (ckks::cluster_info:
+// registers, spill bytes, threads, shared bytes, blocks a cluster, resident
+// clusters). Returns cudaErrorInvalidValue for another id.
+extern "C" int ckks_cluster_info(int kernel, int* info) {
+  using ckks::BigPlan;
+  switch (kernel) {
+    case ckks::kClusterModDown:
+      return ckks::cluster_info(ckks::moddown_cluster_kernel(), BigPlan::kForwardBytes, info);
+    case ckks::kClusterNttForward:
+      return ckks::cluster_info(ckks::ntt_cluster_kernel(false), BigPlan::kForwardBytes, info);
+    case ckks::kClusterNttInverse:
+      return ckks::cluster_info(ckks::ntt_cluster_kernel(true), BigPlan::kInverseBytes, info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* ckks_error_string(int code) {

@@ -33,8 +33,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("ntt.cuh", "ntt_reg.cuh", "ntt.cu", "keyswitch.cu", "moddown.cu",
-           "ntt_mxu.cu", "coeff_ntt.cu")
+SOURCES = ("ntt.cuh", "ntt_reg.cuh", "ntt_cluster.cuh", "ntt.cu", "keyswitch.cu",
+           "moddown.cu", "ntt_mxu.cu", "coeff_ntt.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -67,6 +67,8 @@ _SIGNATURES.update({f"{name}64": sig for name, sig in list(_SIGNATURES.items())}
 _SIGNATURES["ckks_ntt_mxu"] = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _P]
 _SIGNATURES["ckks_enable_peer_access"] = [_I, _I]
+# kernel id, int info[6] (csrc/ntt_cluster.cuh cluster_info)
+_SIGNATURES["ckks_cluster_info"] = [_I, _P]
 
 
 def _nvcc() -> str:

@@ -219,8 +219,8 @@ def mod_down_combine(yhat, ks, t=None, *, child_moduli, dropped_moduli,
     NTT-domain planes (channel slices of larger stacks are read in place).
     P = prod(dropped_moduli). Returns int32 (..., L', N). ``launches``
     counts every launch, ``launches_no_t`` those without t (K3'),
-    ``launches_cluster`` those on a cluster of 2 blocks per plane
-    (N = 2^16).
+    ``launches_cluster`` those on a cluster (N = 2^16: 16 blocks per plane,
+    ``csrc/ntt_cluster.cuh``).
     """
     out, parts = _combine(yhat, ks, t, child_moduli, dropped_moduli,
                           degree, t_scale, wide=False)

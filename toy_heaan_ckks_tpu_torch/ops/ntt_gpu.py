@@ -9,9 +9,11 @@ chains and of ``ops/ntt_pallas_wide.py`` (``_ntt_kernel_wide``,
 ``ckks_ntt`` on uint32 words (K1; K4 at N = 2^16) and ``ckks_ntt64`` on
 uint64 words (K5, K5' at N >= 2^15, and K7 when a folded final constant
 is given); the twin is ``ops/ntt.py``'s int64 transform. Every kernel
-holds a plane on chip: one block up to 128 KiB, a thread-block cluster of
-``plane_split``'s P blocks above (each wrapper counts those launches in
-``launches_cluster``). ``ntt_planes`` takes int32 planes (small chains, Shoup
+holds a plane on chip: one block up to 128 KiB, a thread-block cluster
+above, where ``plane_split`` says a plane needs one (each wrapper counts
+those launches in ``launches_cluster``): of its P blocks, except K4 on
+uint32 planes at N = 2^16, which spreads a plane over the cluster of
+``csrc/ntt_cluster.cuh`` (16 blocks of register passes). ``ntt_planes`` takes int32 planes (small chains, Shoup
 radix 2^32), ``ntt_planes_wide`` int64 planes (wide chains, radix 2^64).
 Each sends a CPU tensor to the twin and launches its kernel for a CUDA
 tensor — there is no fallback from one to the other. One entry point
@@ -159,7 +161,7 @@ def count_launch(fn, parts: int) -> None:
 
 def ntt_planes(x: torch.Tensor, moduli, degree: int, inverse: bool,
                final: tuple | None = None) -> torch.Tensor:
-    """K1 (N <= 2^15) / K4 (N = 2^16, a cluster of 2 blocks per plane): NTT
+    """K1 (N <= 2^15) / K4 (N = 2^16, a cluster of 16 blocks per plane): NTT
     of int32 (..., L, N) planes of a small chain over ``moduli``.
 
     ``final``: per-channel plain factors applied after the inverse
