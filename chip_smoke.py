@@ -14,9 +14,9 @@ place of the K1 folds):
 - wide: N = 2^13, 4 x 61-bit primes, digit_size 1, batch 8 (kernels K5/K7
   NTT, K6 key switch, K8 / K8' mod-down, on uint64 words);
 - big: N = 2^16, 4 x 30-bit primes, digit_size 2, batch 4 (bench.py's third
-  configuration: K4 NTT and K3 / K3', each plane over a thread-block
-  cluster of 16 blocks of register passes, csrc/ntt_cluster.cuh; K2 on
-  clusters of 2 blocks);
+  configuration: K4 NTT, K2 key switch and K3 / K3', each plane over a
+  thread-block cluster of 16 blocks of register passes,
+  csrc/ntt_cluster.cuh, K2 one cluster NTT a digit);
 - big-wide: N = 2^15, 3 x 61-bit primes, digit_size 1, batch 4
   (tools/ab_check.py's wide-2^15-61b-ds1: K5'/K7, K6, K8 / K8' on clusters
   of 2 blocks); its rotation phase runs ``batched_rotate`` and
@@ -29,8 +29,8 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    versions and the kernel build time (one nvcc per source, in parallel);
 2. each kernel against its plain torch twin on the same CUDA inputs at each
    path's shapes — forward, inverse with folded constants and yhat
-   emission of the NTT, the key switch (on the small path with and
-   without the skip-own input d), the mod-down with t (multiply
+   emission of the NTT, the key switch (on the small and big paths with
+   and without the skip-own input d), the mod-down with t (multiply
    shapes) and without t (key-switch shapes: the whole base kept, the
    specials dropped) — plus the wide kernels once at N = 2^14, 3 x 62-bit,
    ds 1, batch 2 (63-bit special, 128 KiB uint64 plane) and once at
@@ -94,8 +94,9 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    K2, K3 and K3' rows also carry their register-pass kernel's registers,
    spill bytes, threads and shared memory a block, resident blocks an SM
    and SASS counts (beside the template's uint32 one-block form; K1's
-   forward under ``forward``), and the K2 row its time without d; the big
-   K4, K3 and K3' rows name their cluster form and carry its registers,
+   forward under ``forward``), and the small and big K2 rows their time
+   without d; the big K4, K2, K3 and K3' rows name their cluster form and
+   carry its registers,
    spill bytes, threads and shared memory a block, blocks a cluster (C),
    resident clusters and SASS counts (K4's forward under ``forward``).
 
@@ -364,8 +365,8 @@ def kernel_cases(cfg: PathConfig, dev, wide: bool) -> dict:
             lambda: ksg.gadget_accumulate_twin(y, key_a, key_b, primes, ext, n,
                                                ds, d),
             *ks_work(True)),
-        # K2 on one block per plane also without d (every digit raised)
-        **({} if wide or clustered(cfg, wide) else {"gadget_accumulate[no_d]": Case(
+        # K2 on uint32 planes also without d (every digit raised)
+        **({} if wide else {"gadget_accumulate[no_d]": Case(
             lambda: accumulate(y, key_a, key_b, **{**ks_kw, "d_ntt": None}),
             lambda: ksg.gadget_accumulate_twin(y, key_a, key_b, primes, ext, n,
                                                ds, None),
@@ -1161,6 +1162,17 @@ def time_rotation(cfg: PathConfig, run: dict, rot_run: dict, iters: int) -> None
                       lambda: batched_rotate((a0, a1), rk, ctx))
 
 
+def time_no_d(cfg: PathConfig, rows: list, case: Case, int_ops_per_s: float,
+              twin_iters: int) -> None:
+    """Phase 4: K2 without d (every digit raised) on the path, its times
+    and bound added to the path's K2 row as ``no_d_*``."""
+    t = time_cases(cfg, {"gadget_accumulate[no_d]": case}, int_ops_per_s,
+                   twin_iters)["gadget_accumulate[no_d]"]
+    row = next(r for r in rows if r["name"].split("@")[0] == "gadget_accumulate")
+    row.update(no_d_ms=t.ms, no_d_device_ms=t.device_ms, no_d_plain_ms=t.plain_ms,
+               no_d_bound_ms=t.bound_ms)
+
+
 def _same_kernel(case_name: str) -> tuple:
     """The cases that run the kernel a JSON row stands for."""
     if case_name == "inverse+fold":
@@ -1270,6 +1282,7 @@ def reg_infos(cfg: PathConfig, rows: list) -> None:
 CLUSTER_KERNELS = {
     "ntt_planes": {"": (2, "ntt_kernel_cluster<true>", "ntt_kernel_clusterILb1E"),
                    "forward": (1, "ntt_kernel_cluster<false>", "ntt_kernel_clusterILb0E")},
+    "gadget_accumulate": {"": (3, "keyswitch_kernel_cluster", "keyswitch_kernel_cluster")},
     "mod_down_combine": {"": (0, "moddown_kernel_cluster", "moddown_kernel_cluster")},
     "mod_down_combine[no_t]": {"": (0, "moddown_kernel_cluster",
                                     "moddown_kernel_cluster")},
@@ -1408,8 +1421,7 @@ def main() -> int:
     for k, e in errs_62.items():
         wide_errs[k] = max(wide_errs[k], e)
     big_cases = kernel_cases(BIG, dev, wide=False)
-    big_errs = check_cases("K4/K2/K3/K3' big 2^16 (K4, K3: clusters of 16; K2: of 2)",
-                           big_cases)
+    big_errs = check_cases("K4/K2/K3/K3' big 2^16 (clusters of 16)", big_cases)
     big_wide_cases = kernel_cases(BIG_WIDE, dev, wide=True)
     big_wide_errs = check_cases("K5'/K6/K7/K8/K8' big-wide 2^15 (clusters of 2)",
                                 big_wide_cases)
@@ -1501,7 +1513,9 @@ def main() -> int:
             "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:604",
             "factored_branch": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:575"}),
     }
-    no_d_case = {"gadget_accumulate[no_d]": small_cases.pop("gadget_accumulate[no_d]")}
+    # K2 without d, timed apart and reported in K2's row
+    small_no_d, big_no_d = (cases.pop("gadget_accumulate[no_d]")
+                            for cases in (small_cases, big_cases))
     # the multiplies before the kernel cases: once a process has run
     # torch.profiler, the host takes longer over each launch (PERF.md §6)
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
@@ -1509,16 +1523,13 @@ def main() -> int:
         time_composite(cfg, run)
     rows = time_path(SMALL, small_cases, small_errs, small_run,
                      small_rot["launches"], small_names, int_ops_per_s, twin_iters=5)
-    ks_row = next(r for r in rows if r["name"] == "gadget_accumulate")
-    no_d = time_cases(SMALL, no_d_case, int_ops_per_s, twin_iters=2)[
-        "gadget_accumulate[no_d]"]
-    ks_row.update(no_d_ms=no_d.ms, no_d_plain_ms=no_d.plain_ms,
-                  no_d_bound_ms=no_d.bound_ms)
+    time_no_d(SMALL, rows, small_no_d, int_ops_per_s, twin_iters=2)
     reg_infos(SMALL, rows)
     rows += time_path(WIDE, wide_cases, wide_errs, wide_run, wide_rot["launches"],
                       wide_names, int_ops_per_s, twin_iters=2)
     big_rows = time_path(BIG, big_cases, big_errs, big_run, big_rot["launches"],
                          big_names, int_ops_per_s, twin_iters=3)
+    time_no_d(BIG, big_rows, big_no_d, int_ops_per_s, twin_iters=2)
     cluster_infos(BIG, big_rows)
     rows += big_rows
     rows += time_path(BIG_WIDE, big_wide_cases, big_wide_errs, big_wide_run,

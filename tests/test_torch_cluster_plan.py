@@ -1,12 +1,14 @@
-"""The cluster register-pass plan of K4 and K3 / K3' at N = 2^16, in numpy.
+"""The cluster register-pass plan of K4, K3 / K3' and K2 at N = 2^16, in numpy.
 
 ``csrc/ntt_cluster.cuh`` spreads one uint32 plane of N words over a
 thread-block cluster of C blocks (rank r holds the slice [r*M, (r+1)*M),
 M = N/C, N/32/C threads of 32 words). This file emulates that plan index
 for index, with the kernels' own maps, and holds it word for word to the
-port's twins (``ops/ntt.py``, ``moddown_gpu.mod_down_combine_twin``) at
-N = 2^16 for C in {4, 8, 16}, and at N = 2^12, C = 4 to the JAX
-reference's staged NTT (``toy_heaan_ckks_tpu/ops/ntt.py``) on the CPU:
+port's twins (``ops/ntt.py``, ``moddown_gpu.mod_down_combine_twin``,
+``keyswitch_gpu.gadget_accumulate_twin``) at N = 2^16 for C in {4, 8, 16},
+and at N = 2^12, C = 4 to the JAX reference's staged NTT
+(``toy_heaan_ckks_tpu/ops/ntt.py``) and key switch
+(``ops/keyswitch_pallas.py``, in interpret mode) on the CPU:
 
 - forward cross pass: thread t of rank r holds groups h < 32/C, group h
   the C words j + k*M (j = r*M/C + h*T + t), and runs stages 0 .. log2 C
@@ -21,11 +23,18 @@ reference's staged NTT (``toy_heaan_ckks_tpu/ops/ntt.py``) on the CPU:
   cross-pass owner at k * M/C + (j mod M/C) (``scatter_inverse``), the
   cross pass from stage log2 C - 1 down, and the final constant;
 - K3: the Phat sum in the cross pass's loads, the combine in pass 0's
-  layout (without the t term for K3').
+  layout (without the t term for K3');
+- K2: the grid's plane map (the special channels' planes first with d,
+  every cluster on one plane), each digit's raise in the cross pass's
+  loads, one forward plan per digit but the own one, the key products,
+  the own-digit term and the digit sum in pass 0's layout; and a model of
+  the cluster-barrier phases across the digits (``check_schedule``).
 
 The emulator lives here, not in the port; the card holds the CUDA kernels
 to the same twins (tests/test_torch_cuda.py, chip_smoke.py).
 """
+
+import functools
 
 import numpy as np
 import jax
@@ -34,10 +43,12 @@ import pytest
 import torch
 
 from toy_heaan_ckks_tpu import CkksContext as RefContext
+from toy_heaan_ckks_tpu.ops import keyswitch_pallas as ref_ks
 from toy_heaan_ckks_tpu.ops import ntt as ref_ntt
 
-from toy_heaan_ckks_tpu_torch import convert, generate_primes
-from toy_heaan_ckks_tpu_torch.ops import moddown_gpu, ntt_gpu
+from toy_heaan_ckks_tpu_torch import CkksContext, convert, generate_primes
+from toy_heaan_ckks_tpu_torch.keys import default_special_primes
+from toy_heaan_ckks_tpu_torch.ops import keyswitch_gpu, moddown_gpu, ntt_gpu
 from toy_heaan_ckks_tpu_torch.ops.ntt import compact_twiddles
 from toy_heaan_ckks_tpu_torch.ops.small_fast import _fold_consts
 
@@ -112,25 +123,39 @@ class Plan:
 
 def _stages(a, tw, q, kR: int, twiddle, inverse: bool):
     """Butterflies of one register pass on a (planes, C, T, 32): RegPass
-    / RegPassInv's loops, twiddle(kL, h, g) the table entry."""
+    / RegPassInv's loops (the kernels' loop over i < half taken at once: the
+    butterflies (u + i, u + half + i) of one twiddle), twiddle(kL, h, g)
+    the table entry."""
     order = range(kR - 1, -1, -1) if inverse else range(kR)
-    q = q.reshape(-1, 1, 1)
+    q = q.reshape(-1, 1, 1, 1)
     for h in range(32 >> kR):
         for kL in order:
             half = 1 << (kR - 1 - kL)
             for g in range(1 << kL):
                 w = np.take_along_axis(tw, _flat(twiddle(kL, h, g), a), axis=-1)
-                w = w.reshape(a.shape[:-1])
-                for i in range(half):
-                    u = (h << kR) + 2 * half * g + i
-                    xu, xv = a[..., u].copy(), a[..., u + half].copy()
-                    if inverse:
-                        a[..., u] = (xu + xv) % q
-                        a[..., u + half] = (xu - xv) % q * w % q
-                    else:
-                        xv = xv * w % q
-                        a[..., u] = (xu + xv) % q
-                        a[..., u + half] = (xu - xv) % q
+                w = w.reshape(a.shape[:-1] + (1,))
+                u = (h << kR) + 2 * half * g
+                xu, xv = a[..., u:u + half].copy(), a[..., u + half:u + 2 * half].copy()
+                if inverse:
+                    a[..., u:u + half] = _add(xu, xv, q)
+                    a[..., u + half:u + 2 * half] = _sub(xu, xv, q) * w % q
+                else:
+                    xv = xv * w % q
+                    a[..., u:u + half] = _add(xu, xv, q)
+                    a[..., u + half:u + 2 * half] = _sub(xu, xv, q)
+
+
+def _add(x, y, q):
+    """(x + y) mod q for x, y in [0, q): one conditional subtract."""
+    return _sub(x, q - y, q)
+
+
+def _sub(x, y, q):
+    """(x - y) mod q for x, y in [0, q]: q added where the difference is
+    negative (its sign bit)."""
+    r = x - y
+    r += (r >> 63) & q
+    return r
 
 
 def _flat(index, a):
@@ -394,3 +419,245 @@ def test_small_plan_matches_reference(inverse):
     want = jax.jit(lambda d: fn(d, rctx.ntt, rctx.chain))(
         jnp.asarray(convert.to_reference(torch.from_numpy(x3[0].astype(np.int32)))))
     np.testing.assert_array_equal(convert.to_reference(got[0]), np.asarray(want))
+
+
+# ── K2: keyswitch_kernel_cluster ────────────────────────────────────────
+
+
+def ks_plane_map(outer: int, base: int, ext: int, with_d: bool):
+    """(item, j) of each plane of the grid, by keyswitch_kernel_cluster's
+    map: with d the outer * (ext - base) special channels' planes first
+    (they run one NTT digit more), then the base channels'; (planes, 2)."""
+    spec = ext - base
+    heavy = outer * spec if with_d else 0
+    width = base if with_d else ext
+    p = np.arange(outer * ext)
+    rest = p - heavy
+    item = np.where(p < heavy, p // max(spec, 1), rest // width)
+    j = np.where(p < heavy, base + p % max(spec, 1), rest % width)
+    return np.stack([item, j], axis=1)
+
+
+def ks_blocks(log_c: int, outer: int, base: int, ext: int, with_d: bool):
+    """(rank, item, j) of each block: rank blockIdx & (C - 1), plane
+    blockIdx >> log2 C; (blocks, 3)."""
+    blocks = np.arange(outer * ext << log_c)
+    planes = ks_plane_map(outer, base, ext, with_d)[blocks >> log_c]
+    return np.concatenate([(blocks & ((1 << log_c) - 1))[:, None], planes], axis=1)
+
+
+def ks_schedule(digits: int, own: int, arrive_before_read: bool = False):
+    """One block's cluster-barrier events in program order, as
+    keyswitch_kernel_cluster and cluster_forward run them: an arrive at
+    start if the plane runs an NTT digit; per NTT digit the wait, the
+    scatter into every rank's slice, arrive and wait, the reads of its own
+    slice (the local passes and the load back to pass 0's layout), and an
+    arrive when another NTT digit follows; then the exit.
+    ``arrive_before_read`` moves that arrive before the reads (a fault the
+    model must catch)."""
+    ntts = digits - (own >= 0)
+    events = [("arrive",)] if ntts > 0 else []
+    for dt in range(digits):
+        if dt == own:
+            continue
+        ntts -= 1
+        events += [("wait",), ("scatter", dt), ("arrive",), ("wait",)]
+        tail = [("read", dt)] + ([("arrive",)] if ntts > 0 else [])
+        events += tail[::-1] if arrive_before_read and ntts > 0 else tail
+    return events + [("exit",)]
+
+
+def check_schedule(ranks: list) -> None:
+    """Asserts the barrier rules for the C ranks of one plane (each a list
+    of events, ``ks_schedule``). Wait k of any rank returns only after arrive
+    k of every rank, so an event after a rank's k-th wait follows every
+    event before each peer's k-th arrive. Checked: each rank alternates
+    arrive and wait and ends with none pending, all ranks pass the same
+    number of phases; no rank stores to a peer that has not started; no
+    scatter of a digit reaches a rank's slice before that rank's last read
+    of its previous digit; no rank reads its slice before every rank's
+    scatter of that digit; no rank's last store comes after a peer's exit."""
+    def counts(events):
+        """(arrives, waits) before each event."""
+        a = w = 0
+        out = []
+        for ev in events:
+            out.append((a, w))
+            if ev[0] == "arrive":
+                assert a == w, "two arrives without a wait"
+                a += 1
+            elif ev[0] == "wait":
+                assert w == a - 1, "a wait without an arrive"
+                w += 1
+        assert a == w, "an arrive left pending at exit"
+        return out
+
+    before = [counts(ev) for ev in ranks]
+    assert len({c[-1] for c in before}) == 1, "ranks pass different numbers of phases"
+
+    def arrive_after(rank, index):
+        """The arrive (1-based) that rank's event ``index`` precedes."""
+        return before[rank][index][0] + 1
+
+    for src, events in enumerate(ranks):
+        for i, ev in enumerate(events):
+            if ev[0] != "scatter":
+                continue
+            waits = before[src][i][1]
+            assert waits >= 1, "a store before every rank has started"
+            for dst, peer in enumerate(ranks):
+                reads = [k for k, e in enumerate(peer) if e[0] == "read"]
+                prev = [k for k in reads if peer[k][1] < ev[1]]
+                if prev:
+                    assert arrive_after(dst, prev[-1]) <= waits, (
+                        f"rank {src}'s scatter of digit {ev[1]} may overwrite rank "
+                        f"{dst}'s slice before its last read of digit {peer[prev[-1]][1]}")
+                for k in reads:
+                    if peer[k][1] == ev[1]:
+                        assert before[dst][k][1] >= arrive_after(src, i), (
+                            f"rank {dst} reads digit {ev[1]} before rank {src}'s scatter")
+        stores = [i for i, e in enumerate(events) if e[0] == "scatter"]
+        for dst, peer in enumerate(ranks):
+            if stores:
+                assert arrive_after(src, stores[-1]) <= before[dst][-1][1], (
+                    f"rank {src}'s last store may come after rank {dst}'s exit")
+
+
+def _redc(a, b, q, rinv):
+    """Montgomery product a * b * 2^-32 mod q (mont_redc), int64."""
+    return a * b % q * rinv % q
+
+
+def emulate_keyswitch(plan: Plan, y, d, key_a, key_b, base, ext, ds):
+    """K2's cluster plan on int64 y (B, L, N) plain digits, d (B, L, N) or
+    None and keys (D, E, N): the plane map, each NTT digit's raise in the
+    cross pass's loads and forward plan (all of them as one stack of
+    planes), then per plane the epilogue in pass 0's layout, digit by digit
+    in the kernel's order; returns (ks0, ks1) as int32 torch (B, E, N)."""
+    B, L, n = y.shape
+    E, D = len(ext), key_a.shape[0]
+    c = keyswitch_gpu._switch_consts(base, ext, ds)[0].astype(np.int64)  # (D*ds, E)
+    fwd, _ = _tables(ext, n)
+    planes = ks_plane_map(B, L, E, d is not None)
+    own = lambda j: j // ds if d is not None and j < L else -1
+    jobs = [(item, j, dt) for item, j in planes for dt in range(D) if dt != own(j)]
+    q = np.array([ext[j] for _, j, _ in jobs], np.int64)[:, None, None, None]
+
+    def raise_digits(pos):  # sum_{k in dt} Harvey(y_k[pos], c[k, j]) per job
+        acc = np.zeros((len(jobs),) + pos.shape, np.int64)
+        for i, (item, j, dt) in enumerate(jobs):
+            for k in range(dt * ds, min((dt + 1) * ds, L)):
+                acc[i] = (acc[i] + y[item, k][pos] * c[k, j]) % ext[j]
+        return acc
+
+    alpha = emulate_forward(plan, None, fwd[[j for _, j, _ in jobs]], q,
+                            prologue=raise_digits) if jobs else None
+    pos = _p0_positions(plan)
+    ks = np.full((2, B, E, n), -1, np.int64)
+    for item, j in planes:
+        qj = ext[j]
+        rinv = pow(1 << 32, -1, qj)
+        acc, first = None, True
+        for dt in range(D):
+            if dt == own(j):
+                continue
+            a = alpha[jobs.index((item, j, dt))]
+            v = [_redc(a, key[dt, j][pos], qj, rinv) for key in (key_b, key_a)]
+            if first and own(j) >= 0:  # the own digit's term, with the first NTT digit
+                v = [(x + _redc(d[item, j][pos], key[own(j), j][pos], qj, rinv)) % qj
+                     for x, key in zip(v, (key_b, key_a))]
+            if not first:
+                v = [(x + o) % qj for x, o in zip(v, acc)]
+            acc, first = v, False
+        if first:  # D = 1 with d: the own digit alone
+            acc = [_redc(d[item, j][pos], key[own(j), j][pos], qj, rinv)
+                   for key in (key_b, key_a)]
+        for o in range(2):
+            ks[o, item, j] = _unflatten(acc[o][None], pos, n)[0]
+    return tuple(torch.from_numpy(k.astype(np.int32)) for k in ks)
+
+
+@functools.lru_cache(maxsize=None)
+def _ks_inputs(log_n: int, bits: int, count: int, ds: int, batch: int, with_d: bool):
+    """A chain's base and extended moduli and seeded int64 y, d, key_a,
+    key_b, with the twin's (ks0, ks1) on them (computed once)."""
+    n = 1 << log_n
+    base = tuple(generate_primes(bits, count, n))
+    ext = base + default_special_primes(CkksContext.build(base, n, device="cpu"), ds)
+    D = -(-count // ds)
+    y = _planes(20, base, n, batch)
+    d = _planes(21, base, n, batch) if with_d else None
+    key_a = _planes(22, ext, n, D)
+    key_b = _planes(23, ext, n, D)
+    i32 = lambda a: None if a is None else torch.from_numpy(a.astype(np.int32))
+    want = keyswitch_gpu.gadget_accumulate_twin(i32(y), i32(key_a), i32(key_b), base,
+                                                ext, n, ds, i32(d))
+    return base, ext, y, d, key_a, key_b, want
+
+
+@pytest.mark.parametrize("outer,base,ext", [(4, 4, 6), (1, 4, 5), (3, 4, 8), (2, 3, 5)])
+@pytest.mark.parametrize("with_d", [True, False])
+@pytest.mark.parametrize("log_c", [2, 4])
+def test_ks_plane_map_is_a_bijection(outer, base, ext, with_d, log_c):
+    """Every (item, j) pair has one cluster, the C blocks of a cluster share
+    its plane with ranks 0 .. C-1, and with d the special channels' planes
+    come first."""
+    blocks = ks_blocks(log_c, outer, base, ext, with_d)
+    C = 1 << log_c
+    clusters = blocks.reshape(-1, C, 3)
+    assert (clusters[:, :, 0] == np.arange(C)).all()
+    assert (clusters[:, :, 1:] == clusters[:, :1, 1:]).all(), "a cluster spans two planes"
+    pairs = {tuple(p) for p in clusters[:, 0, 1:]}
+    assert pairs == {(i, j) for i in range(outer) for j in range(ext)}
+    assert len(clusters) == outer * ext
+    if with_d:
+        heavy = outer * (ext - base)
+        assert (clusters[:heavy, 0, 2] >= base).all() and (clusters[heavy:, 0, 2] < base).all()
+
+
+@pytest.mark.parametrize("digits,own", [(1, -1), (1, 0), (2, -1), (2, 0), (2, 1),
+                                        (4, -1), (4, 0), (4, 3)])
+def test_ks_barrier_schedule(digits, own):
+    """The cluster-barrier phases of a plane's C = 16 ranks across the
+    digits: no scatter before a peer's last read of the previous digit or
+    after a peer's exit; with one NTT digit (D = 2 with d, or D = 1), or
+    none (D = 1 with d: no barrier, no peer), the same rules hold."""
+    check_schedule([ks_schedule(digits, own)] * 16)
+    if digits - (own >= 0) > 1:  # the arrive before the last read must be caught
+        with pytest.raises(AssertionError, match="overwrite"):
+            check_schedule([ks_schedule(digits, own, arrive_before_read=True)] * 16)
+
+
+@pytest.mark.parametrize("log_c", [2, 3, 4])
+@pytest.mark.parametrize("ds", [2, 1])
+@pytest.mark.parametrize("with_d", [True, False])
+def test_keyswitch_plan_matches_twin(log_c, ds, with_d):
+    """K2's cluster plan at N = 2^16 on the big path's 4 x 30-bit base (ds 2:
+    D = 2, E = 6; ds 1: D = 4, E = 5), batch 1, against
+    ``gadget_accumulate_twin`` word for word."""
+    base, ext, y, d, key_a, key_b, want = _ks_inputs(16, 30, 4, ds, 1, with_d)
+    got = emulate_keyswitch(Plan(16, log_c), y, d, key_a, key_b, base, ext, ds)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_keyswitch_plan_d1_runs_no_ntt_on_base():
+    """D = 1 with d (ds 4 over 4 primes): the base planes take their own
+    digit alone and run no NTT; the special planes one."""
+    base, ext, y, d, key_a, key_b, want = _ks_inputs(16, 30, 4, 4, 1, True)
+    got = emulate_keyswitch(Plan(16, 4), y, d, key_a, key_b, base, ext, 4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_small_keyswitch_plan_matches_reference():
+    """N = 2^12 on C = 4, 3 x 31-bit base, ds 2 (a short last digit group)
+    with d, against the JAX reference's K2 (``gadget_accumulate_pallas``)
+    in interpret mode on the CPU."""
+    base, ext, y, d, key_a, key_b, _ = _ks_inputs(12, 31, 3, 2, 1, True)
+    got = emulate_keyswitch(Plan(12, 2), y, d, key_a, key_b, base, ext, 2)
+    j = lambda a: jnp.asarray(a.astype(np.uint32))
+    key = lambda a: jnp.asarray(convert.to_reference(torch.from_numpy(a.astype(np.int32))))
+    want = ref_ks.gadget_accumulate_pallas(
+        j(y), key(key_a), key(key_b), base_moduli=base, ext_moduli=ext, degree=1 << 12,
+        digit_size=2, interpret=True, stack_limbs=False, d_ntt=j(d))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w))

@@ -174,22 +174,38 @@ def test_keyswitch_kernel_main_path_shape(dev, with_d):
     _keyswitch_vs_twin(dev, 1 << 14, 4, 8, with_d, 32)
 
 
-@pytest.mark.parametrize("with_d", [True, False])
-def test_keyswitch_kernel_2_16_matches_twin(dev, with_d):
-    """K2 at N = 2^16 on a cluster of 2 blocks per plane: the big path's
-    chain (4 x 30-bit, ds 2: D = 2, E = 6)."""
+def _keyswitch_2_16_vs_twin(dev, digit_size, batch, with_d):
+    """K2 at N = 2^16 (keyswitch_kernel_cluster, a cluster of 16 blocks
+    per plane) against its twin on the big path's 4 x 30-bit base: one
+    cluster launch, uint32-equal outputs."""
     degree = 1 << 16
-    base, ext = _chain(4, 2, degree, 30)
-    y = _planes(1, base, degree, (2,), dev)
-    d = _planes(2, base, degree, (2,), dev) if with_d else None
-    ka = _planes(3, ext, degree, (2,), dev)
-    kb = _planes(4, ext, degree, (2,), dev)
+    base, ext = _chain(4, digit_size, degree, 30)
+    digits = -(-len(base) // digit_size)
+    y = _planes(1, base, degree, (batch,), dev)
+    d = _planes(2, base, degree, (batch,), dev) if with_d else None
+    ka = _planes(3, ext, degree, (digits,), dev)
+    kb = _planes(4, ext, degree, (digits,), dev)
     got, counts = _counted(keyswitch_gpu.gadget_accumulate, lambda: keyswitch_gpu.gadget_accumulate(
         y, ka, kb, base_moduli=base, ext_moduli=ext, degree=degree,
-        digit_size=2, d_ntt=d))
+        digit_size=digit_size, d_ntt=d))
     assert counts == (1, 1)
-    want = keyswitch_gpu.gadget_accumulate_twin(y, ka, kb, base, ext, degree, 2, d)
+    want = keyswitch_gpu.gadget_accumulate_twin(y, ka, kb, base, ext, degree,
+                                                digit_size, d)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("with_d", [True, False])
+def test_keyswitch_kernel_2_16_matches_twin(dev, with_d):
+    """The big path's chain (4 x 30-bit, ds 2: D = 2, E = 6), batch 2."""
+    _keyswitch_2_16_vs_twin(dev, 2, 2, with_d)
+
+
+# ds 1: D = 4 digits (a special plane runs 4 cluster NTTs in a row); ds 4:
+# D = 1 (with d the base planes run no NTT and touch no peer); batch 1
+@pytest.mark.parametrize("digit_size,batch", [(1, 2), (4, 2), (2, 1)])
+@pytest.mark.parametrize("with_d", [True, False])
+def test_keyswitch_cluster_form_digits(dev, digit_size, batch, with_d):
+    _keyswitch_2_16_vs_twin(dev, digit_size, batch, with_d)
 
 
 def _moddown_vs_twin(dev, degree, count, digit_size, with_t, batch, keyswitch=False,

@@ -7,7 +7,9 @@ Imports ``chip_smoke.py`` and ``toy_heaan_ckks_tpu_torch`` from the
 checkout at PATH (its kernels are built there at first use), makes the
 kernel cases of each of its paths small, wide, big and big-wide that it
 has (``chip_smoke.kernel_cases``: the same seeded inputs and shapes in
-every checkout that has the path), and K10 / K11 at the big coeff path's
+every checkout that has the path; copy one ``chip_smoke.py`` into both
+trees for the same cases, e.g. K2 with and without d on the small and big
+paths), and K10 / K11 at the big coeff path's
 planes where it has them (``chip_smoke.coeff_cases``, (4, 4, 2^16) on
 P = 4, under ``K10/K11 big``), and
 prints one JSON line: the card's name and power limit and, per case, the
@@ -134,11 +136,19 @@ def composite_times(smoke, dev) -> dict:
 def cluster_forms(smoke) -> dict | None:
     """{form: [registers, spill bytes, threads, shared bytes, blocks a
     cluster, resident clusters]} (``chip_smoke.cluster_info``), or None
-    where the checkout has no cluster forms."""
+    where the checkout has no cluster forms; a form whose id the
+    checkout's library does not know (a newer ``chip_smoke.py`` in an
+    older checkout) maps to None."""
     if not hasattr(smoke, "cluster_info"):
         return None
-    return {shown: smoke.cluster_info(kernel) for forms in smoke.CLUSTER_KERNELS.values()
-            for kernel, shown, _ in forms.values()}
+    forms = {}
+    for entry in smoke.CLUSTER_KERNELS.values():
+        for kernel, shown, _ in entry.values():
+            try:
+                forms[shown] = smoke.cluster_info(kernel)
+            except RuntimeError:
+                forms[shown] = None
+    return forms
 
 
 def main() -> int:

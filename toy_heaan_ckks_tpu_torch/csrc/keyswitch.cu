@@ -7,10 +7,11 @@
 // ops/keyswitch_pallas_wide.py _ks_kernel_wide / _ks_kernel_wide_base,
 // called through gadget_accumulate_pallas_wide, on uint64 words (wide
 // chains, Harvey64 and REDC64 with radix 2^64: ckks_keyswitch64). One block,
-// or one cluster of 2 or 4 blocks for a plane above 128 KiB (ntt.cuh
-// PlanePart; the reference's factored branches keyswitch_pallas.py:117,
-// :170 and keyswitch_pallas_wide.py:149, :194), owns one (extended channel
-// j, item) pair and loops over the digits itself (the TPU carried nothing
+// or one thread-block cluster for a plane above 128 KiB (ntt.cuh PlanePart:
+// 2 or 4 blocks; ntt_cluster.cuh: 16; the reference's factored branches
+// keyswitch_pallas.py:117, :170 and keyswitch_pallas_wide.py:149, :194),
+// owns one (extended channel j, item) pair and loops over the digits
+// itself (the TPU carried nothing
 // across grid steps either, but its grid ran in order; here blocks run in
 // any order and share nothing outside their cluster); each block runs the
 // raise, the key products and the accumulation on its own slice:
@@ -30,8 +31,9 @@
 // or REDC64 is several 32-bit multiplies).
 //
 // uint32 planes that one block holds (N = 2^10 .. 2^15) run another body,
-// keyswitch_kernel_reg<log2 N>; the uint64 form and the cluster form
-// (N = 2^16) run keyswitch_kernel above. Its design:
+// keyswitch_kernel_reg<log2 N>, and uint32 planes of 2^16 a third,
+// keyswitch_kernel_cluster (below); the uint64 forms run keyswitch_kernel
+// above. The one-block design:
 //
 // - NTT passes in registers (csrc/ntt_reg.cuh, shared with K1 and K3):
 //   N / 32 threads of 32 words, 5+5+4 stages at 2^14 with one
@@ -65,7 +67,29 @@
 //   keyswitch_kernel; 0.158 with the blocks in item order (special blocks
 //   not first); 0.166 with two blocks of 64 registers an SM; 0.196 with
 //   256 threads of 64 words (two blocks an SM). Without d: 0.183 (0.316).
+//
+// K2 on uint32 planes of 2^16 (keyswitch_kernel_cluster) runs K4's cluster
+// plan (csrc/ntt_cluster.cuh: 16 blocks of 128 threads a plane) once per
+// NTT digit: the raise formed in the cross pass's loads of the digit's y_k
+// planes (groups of 16 words at stride N/16, coalesced over the threads),
+// and the key products, the own-digit term and the digit sum on the
+// slice's coalesced words after the last exchange, each thread reading and
+// writing only its own words of out0/out1. The cluster barrier carries
+// the digits: a block arrives once its threads have read the slice for the
+// last time in a digit (the load back to pass 0's layout), and the next
+// digit's scatter waits for every rank's arrival, so no store reaches a
+// slice that its rank still reads; the raise, the cross pass and the
+// epilogue lie between the two. A plane with no NTT digit (a base channel
+// whose only digit is its own, D = 1 with d) never touches the barrier or
+// a peer. 128 registers a thread, four blocks an SM (28 clusters resident,
+// the big path's 24 planes at batch 4 at once; no spill at 64 either).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_ab.py,
+// device time; (4, 4 base, 2^16), ds 2, E 6): with d 0.0427 ms against
+// 0.3011-0.3020 for keyswitch_kernel on clusters of 2, and 0.0458-0.0474
+// at 64 registers (58 clusters resident); without d 0.0537-0.0542
+// (0.3002-0.3070; 64 registers 0.0550-0.0563).
 #include "ntt.cuh"
+#include "ntt_cluster.cuh"
 #include "ntt_reg.cuh"
 
 namespace {
@@ -150,6 +174,25 @@ int launch_keyswitch(const T* y, long long y_stride, const T* d,
       keyswitch_kernel<T, false>, keyswitch_kernel<T, true>, outer * ext,
       log_n, parts, stream, y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
       qinv, tw, twp, out0, out1, base, ext, digits, digit_size, log_n);
+}
+
+// uint32 planes below 2^10: keyswitch_kernel's one-block form (the uint32
+// planes of 2^16 run keyswitch_kernel_cluster, so the template runs on
+// clusters only on uint64 words).
+int launch_one_block(const uint32_t* y, long long y_stride, const uint32_t* d,
+                     long long d_stride, const uint32_t* key_a, const uint32_t* key_b,
+                     const uint32_t* c, const uint32_t* cs, const uint32_t* q,
+                     const uint32_t* qinv, const uint32_t* tw, const uint32_t* twp,
+                     uint32_t* out0, uint32_t* out1, int outer, int base, int ext,
+                     int digits, int digit_size, int log_n, cudaStream_t stream) {
+  const size_t smem = ckks::plane_bytes<uint32_t>(log_n);
+  const cudaError_t err = ckks::reserve_smem(
+      reinterpret_cast<const void*>(keyswitch_kernel<uint32_t, false>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  keyswitch_kernel<uint32_t, false><<<outer * ext, ckks::kThreads, smem, stream>>>(
+      y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp, out0, out1,
+      base, ext, digits, digit_size, log_n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 using ckks::kLogRegWords;
@@ -292,13 +335,139 @@ int launch_reg(const uint32_t* y, long long y_stride, const uint32_t* d,
   return static_cast<int>(cudaGetLastError());
 }
 
+using ckks::BigPlan;
+
+// K2 on uint32 planes of 2^16 words (see the header): one cluster of
+// BigPlan::kC blocks of N/C/32 threads per (item, extended channel j), the
+// special channels' planes first when d is given.
+__global__ void __launch_bounds__(BigPlan::kThreads, 4)  // 128 registers a thread
+keyswitch_kernel_cluster(const uint32_t* __restrict__ y, long long y_stride,
+                         const uint32_t* __restrict__ d, long long d_stride,
+                         const uint32_t* __restrict__ key_a,
+                         const uint32_t* __restrict__ key_b,
+                         const uint32_t* __restrict__ c,
+                         const uint32_t* __restrict__ cs,
+                         const uint32_t* __restrict__ q,
+                         const uint32_t* __restrict__ qinv,
+                         const uint32_t* __restrict__ tw,
+                         const uint32_t* __restrict__ twp,
+                         uint32_t* __restrict__ out0, uint32_t* __restrict__ out1,
+                         int outer, int base, int ext, int digits, int digit_size) {
+  using Cross = ckks::CrossPass<BigPlan, false>;
+  constexpr long long n = 1LL << ckks::kClusterLogN;
+  constexpr int kC = BigPlan::kC, kM = BigPlan::kM, kT = BigPlan::kThreads;
+  const int tid = threadIdx.x;
+  const int r = static_cast<int>(blockIdx.x) & (kC - 1);  // rank in the cluster
+  const int plane = static_cast<int>(blockIdx.x) >> BigPlan::kLogC;
+  const int spec = ext - base;
+  const int heavy = d != nullptr ? outer * spec : 0;
+  int j;
+  long long item;
+  if (plane < heavy) {
+    item = plane / spec;
+    j = base + plane % spec;
+  } else {
+    const int width = d != nullptr ? base : ext;
+    item = (plane - heavy) / width;
+    j = (plane - heavy) % width;
+  }
+  const int own = d != nullptr && j < base ? j / digit_size : -1;
+  // the digits that run the cluster NTT, the same on every rank of the plane
+  int ntts = own >= 0 ? digits - 1 : digits;
+  if (ntts > 0) ckks::cluster_arrive_relaxed();  // this block has started
+  uint32_t* s = ckks::smem_plane<uint32_t>();
+  const uint32_t qj = q[j], qi = qinv[j];
+  const uint32_t* w = tw + j * n;
+  const uint32_t* wp = twp + j * n;
+  const uint32_t* yi = y + item * y_stride;
+  // every word of the epilogue is at slice position m * kT + tid of rank r
+  const long long slice = r * kM + tid;
+  const long long o_off = (item * ext + j) * n + slice;
+  uint32_t* o0 = out0 + o_off;
+  uint32_t* o1 = out1 + o_off;
+  const long long key_t = ext * n;  // key planes (digits, ext, N)
+  const uint32_t* ka = key_a + j * n + slice;
+  const uint32_t* kb = key_b + j * n + slice;
+  const uint32_t* dj = own >= 0 ? d + item * d_stride + j * n + slice : nullptr;
+
+  uint32_t a[kRegWords];
+  bool first = true;
+  for (int dt = 0; dt < digits; ++dt) {
+    if (dt == own) continue;
+    // the raise, into the cross pass's words
+    const int k0 = dt * digit_size;
+    const int k1 = min(k0 + digit_size, base);
+    {
+      const uint32_t ck = c[k0 * ext + j], cks = cs[k0 * ext + j];
+      const uint32_t* yk = yi + k0 * n;
+#pragma unroll
+      for (int h = 0; h < BigPlan::kGroups; ++h)
+#pragma unroll
+        for (int k = 0; k < kC; ++k)
+          a[h * kC + k] = ckks::harvey(ckks::ldg(yk + Cross::first(r, h, tid) + k * kM),
+                                       ck, cks, qj);
+    }
+    for (int k = k0 + 1; k < k1; ++k) {
+      const uint32_t ck = c[k * ext + j], cks = cs[k * ext + j];
+      const uint32_t* yk = yi + k * n;
+#pragma unroll
+      for (int h = 0; h < BigPlan::kGroups; ++h)
+#pragma unroll
+        for (int g = 0; g < kC; ++g) {
+          const int u = h * kC + g;
+          a[u] = ckks::add_mod(
+              a[u], ckks::harvey(ckks::ldg(yk + Cross::first(r, h, tid) + g * kM), ck, cks, qj),
+              qj);
+        }
+    }
+    Cross::run(a, w, wp, qj);
+    // waits for every rank's arrival, scatters, and returns once this
+    // block has read its slice for the last time in this digit
+    ckks::cluster_forward<BigPlan>(s, a, r, tid, w, wp, qj);
+    if (--ntts > 0) ckks::cluster_arrive();  // the next digit's scatter may come
+    // the key products, the own digit's (with the first NTT digit) and the
+    // sum over the digits, on the slice's coalesced words
+    const uint32_t* kat = ka + dt * key_t;
+    const uint32_t* kbt = kb + dt * key_t;
+    const bool with_own = first && own >= 0;
+#pragma unroll
+    for (int m = 0; m < kRegWords; ++m) {
+      const int p = m * kT;
+      uint32_t v0 = ckks::mont_redc(a[m], ckks::ldg(kbt + p), qj, qi);
+      uint32_t v1 = ckks::mont_redc(a[m], ckks::ldg(kat + p), qj, qi);
+      if (with_own) {
+        const uint32_t x = ckks::ldg(dj + p);
+        v0 = ckks::add_mod(v0, ckks::mont_redc(x, ckks::ldg(kb + own * key_t + p), qj, qi), qj);
+        v1 = ckks::add_mod(v1, ckks::mont_redc(x, ckks::ldg(ka + own * key_t + p), qj, qi), qj);
+      }
+      if (!first) {
+        v0 = ckks::add_mod(v0, o0[p], qj);
+        v1 = ckks::add_mod(v1, o1[p], qj);
+      }
+      o0[p] = v0;
+      o1[p] = v1;
+    }
+    first = false;
+  }
+  if (first && own >= 0) {  // D = 1 with d: the own digit alone, no peer
+#pragma unroll 4
+    for (int m = 0; m < kRegWords; ++m) {
+      const int p = m * kT;
+      const uint32_t x = ckks::ldg(dj + p);
+      o0[p] = ckks::mont_redc(x, ckks::ldg(kb + own * key_t + p), qj, qi);
+      o1[p] = ckks::mont_redc(x, ckks::ldg(ka + own * key_t + p), qj, qi);
+    }
+  }
+}
+
 }  // namespace
 
 // y: (outer, base, N) plain digit values, item stride y_stride; d: NTT-domain
 // input (outer, base, N) with stride d_stride, or nullptr (no skip-own);
 // key_a/key_b: (digits, ext, N); c/cs: (digits * digit_size, ext);
 // q/qinv: (ext,); tw/twp: (ext, N) forward twiddles; out0/out1: contiguous
-// (outer, ext, N); parts: blocks per plane (1, or a cluster of 2 or 4).
+// (outer, ext, N); parts: 1 (one block a plane) or, at N = 2^16 only, above
+// 1 (a cluster: keyswitch_kernel_cluster on ckks::BigPlan::kC blocks).
 // Returns the launch's error code (0 on success).
 extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
                               const uint32_t* d, long long d_stride,
@@ -316,9 +485,20 @@ extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
           out0, out1, outer, base, ext, digits, digit_size, stream);
     });
   }
-  return launch_keyswitch(y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
-                          qinv, tw, twp, out0, out1, outer, base, ext, digits,
-                          digit_size, log_n, parts, stream);
+  if (parts > 1 && log_n == ckks::kClusterLogN) {
+    return ckks::launch_cluster<BigPlan, &keyswitch_kernel_cluster>(
+        outer * ext, BigPlan::kForwardBytes, stream, y, y_stride, d, d_stride, key_a,
+        key_b, c, cs, q, qinv, tw, twp, out0, out1, outer, base, ext, digits,
+        digit_size);
+  }
+  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_one_block(y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw,
+                          twp, out0, out1, outer, base, ext, digits, digit_size, log_n,
+                          stream);
+}
+
+const void* ckks::keyswitch_cluster_kernel() {
+  return reinterpret_cast<const void*>(keyswitch_kernel_cluster);
 }
 
 const void* ckks::keyswitch_reg_kernel(int log_n) {
@@ -344,7 +524,8 @@ extern "C" int ckks_reg_info(int kernel, int log_n, int* info) {
   return ckks::reg_info(fn, log_n, info);
 }
 
-// The same on uint64 words (wide chains; qinv = -q^-1 mod 2^64).
+// The same on uint64 words (wide chains; qinv = -q^-1 mod 2^64; parts 1, 2
+// or 4: keyswitch_kernel).
 extern "C" int ckks_keyswitch64(const uint64_t* y, long long y_stride,
                                 const uint64_t* d, long long d_stride,
                                 const uint64_t* key_a, const uint64_t* key_b,

@@ -338,7 +338,7 @@ const void* ckks::ntt_cluster_kernel(bool inverse) {
 }
 
 // The cluster kernel `kernel` (ckks::ClusterKernel: 0 K3, 1 K4 forward, 2 K4
-// inverse) as built and as it fits the current device (ckks::cluster_info:
+// inverse, 3 K2) as built and as it fits the current device (ckks::cluster_info:
 // registers, spill bytes, threads, shared bytes, blocks a cluster, resident
 // clusters). Returns cudaErrorInvalidValue for another id.
 extern "C" int ckks_cluster_info(int kernel, int* info) {
@@ -350,6 +350,9 @@ extern "C" int ckks_cluster_info(int kernel, int* info) {
       return ckks::cluster_info(ckks::ntt_cluster_kernel(false), BigPlan::kForwardBytes, info);
     case ckks::kClusterNttInverse:
       return ckks::cluster_info(ckks::ntt_cluster_kernel(true), BigPlan::kInverseBytes, info);
+    case ckks::kClusterKeySwitch:
+      return ckks::cluster_info(ckks::keyswitch_cluster_kernel(), BigPlan::kForwardBytes,
+                                info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

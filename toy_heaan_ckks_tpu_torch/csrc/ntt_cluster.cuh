@@ -1,7 +1,8 @@
 // The register-pass NTT of one uint32 plane of N = 2^16 words spread over
 // a thread-block cluster of C blocks, shared by the cluster forms of K4
-// (csrc/ntt.cu, ntt_kernel_cluster) and K3 / K3' (csrc/moddown.cu,
-// moddown_kernel_cluster). The stage, group and twiddle conventions are
+// (csrc/ntt.cu, ntt_kernel_cluster), K3 / K3' (csrc/moddown.cu,
+// moddown_kernel_cluster) and K2 (csrc/keyswitch.cu,
+// keyswitch_kernel_cluster, one forward a digit). The stage, group and twiddle conventions are
 // those of ntt.cuh (tree order, the compact table of the whole plane), so
 // the words equal the twins' and the one-block forms'.
 //
@@ -34,7 +35,8 @@
 //   starts and waits just before the scatter, so no block writes to a
 //   peer that has not started; the barrier after the scatter is the last
 //   distributed access, so no block exits while a peer may still write to
-//   it. Block barriers: 3 in the forward's local passes, 2 in the
+//   it. A kernel that runs the forward again on the same slice (K2, once a
+//   digit) arrives between the two, after its last read of the slice. Block barriers: 3 in the forward's local passes, 2 in the
 //   inverse's (15 one-stage barriers and 2 cluster barriers of the
 //   ntt.cuh template's forward on clusters of 2).
 #pragma once
@@ -208,7 +210,8 @@ struct CrossPass {
 // the cluster barrier, and the local passes with the slice's twiddles;
 // returns with a[] in pass 0's layout (word m at slice position m*T + t)
 // and no peer touching s. Every thread arrived on the cluster barrier
-// when its block started.
+// when its block started, or after its last read of s in an earlier
+// forward.
 template <typename Plan>
 __device__ __forceinline__ void cluster_forward(uint32_t* s, uint32_t (&a)[kRegWords],
                                                 int r, int t,
@@ -305,9 +308,10 @@ __device__ __forceinline__ void cluster_inverse(uint32_t* s, uint32_t (&a)[kRegW
 // The cluster kernels, by the id ckks_cluster_info takes; each source
 // defines its own.
 enum ClusterKernel { kClusterModDown = 0, kClusterNttForward = 1,
-                     kClusterNttInverse = 2 };
+                     kClusterNttInverse = 2, kClusterKeySwitch = 3 };
 const void* moddown_cluster_kernel();           // csrc/moddown.cu
 const void* ntt_cluster_kernel(bool inverse);   // csrc/ntt.cu
+const void* keyswitch_cluster_kernel();         // csrc/keyswitch.cu
 
 // The launch of `planes` planes on clusters of Plan::kC blocks of
 // Plan::kThreads with `smem` dynamic shared bytes each: the kernel opts in

@@ -191,7 +191,8 @@ def _accumulate(y_plain, key_a, key_b, base_moduli, ext_moduli, degree: int,
 def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
                       degree: int, digit_size: int = 1, d_ntt=None):
     """K2: fused decompose + raise + NTT + key inner product (small chains;
-    at N = 2^16 on a cluster of 2 blocks per plane).
+    at N = 2^16 on a thread-block cluster of 16 blocks per plane,
+    ``csrc/ntt_cluster.cuh``).
 
     y_plain: int32 (..., L, N) plain digit values (the inverse NTT of d
              times the digit-local CRT inverses).
