@@ -18,7 +18,8 @@ place of the K1 folds):
   thread-block cluster of 16 blocks of register passes,
   csrc/ntt_cluster.cuh, K2 one cluster NTT a digit);
 - big-wide: N = 2^15, 3 x 61-bit primes, digit_size 1, batch 4
-  (tools/ab_check.py's wide-2^15-61b-ds1: K5'/K7, K6, K8 / K8' on clusters
+  (tools/ab_check.py's wide-2^15-61b-ds1: K5'/K7 and K6 on the same
+  cluster plan on uint64 words, 16 blocks a plane, K8 / K8' on clusters
   of 2 blocks); its rotation phase runs ``batched_rotate`` and
   ``rotate_ciphertext`` only.
 
@@ -34,7 +35,8 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    shapes) and without t (key-switch shapes: the whole base kept, the
    specials dropped) — plus the wide kernels once at N = 2^14, 3 x 62-bit,
    ds 1, batch 2 (63-bit special, 128 KiB uint64 plane) and once at
-   N = 2^16, 2 x 61-bit, ds 1, batch 1 (clusters of 4 blocks); and K9 small,
+   N = 2^16, 2 x 61-bit, ds 1, batch 1 (K5'/K7, K6 on clusters of 16
+   blocks, K8 of 4); and K9 small,
    the matrix-product NTT (forward, inverse, inverse with the
    decomposition fold) against its twin and against K1 on the same
    inputs at (32, 8, 2^14), (2, 2, 2^15) and (4, 3, 2^10); and K10/K11
@@ -94,11 +96,13 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    K2, K3 and K3' rows also carry their register-pass kernel's registers,
    spill bytes, threads and shared memory a block, resident blocks an SM
    and SASS counts (beside the template's uint32 one-block form; K1's
-   forward under ``forward``), and the small and big K2 rows their time
-   without d; the big K4, K2, K3 and K3' rows name their cluster form and
-   carry its registers,
+   forward under ``forward``), and the K2 / K6 row of every path its time
+   without d; the big K4, K2, K3 and K3' rows and the big-wide K5'/K7 and
+   K6 rows name their cluster form and carry its registers,
    spill bytes, threads and shared memory a block, blocks a cluster (C),
-   resident clusters and SASS counts (K4's forward under ``forward``).
+   resident clusters and SASS counts (K4's and K5''s forward under
+   ``forward``); the uint64 cluster forms are also timed at N = 2^16
+   (1, 2, 2^16), each with its form's registers and resident clusters.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -160,7 +164,8 @@ WIDE_62 = PathConfig("wide-62b", 1 << 14, 62, 3, 1, 2, 62, 1e-6)
 BIG = PathConfig("big", 1 << 16, 30, 4, 2, 4, 30, BIG_MUL_ERR)
 # tools/ab_check.py:49 (wide-2^15-61b-ds1)
 BIG_WIDE = PathConfig("big-wide", 1 << 15, 61, 3, 1, 4, 61, BIG_WIDE_MUL_ERR)
-# uint64 planes at N = 2^16 (clusters of 4 blocks): kernel checks only
+# uint64 planes at N = 2^16 (K5'/K7, K6 on clusters of 16 blocks, K8 of
+# 4): kernel checks and times only
 WIDE_16 = PathConfig("wide-2^16", 1 << 16, 61, 2, 1, 1, 61, 0.0)
 
 
@@ -365,12 +370,12 @@ def kernel_cases(cfg: PathConfig, dev, wide: bool) -> dict:
             lambda: ksg.gadget_accumulate_twin(y, key_a, key_b, primes, ext, n,
                                                ds, d),
             *ks_work(True)),
-        # K2 on uint32 planes also without d (every digit raised)
-        **({} if wide else {"gadget_accumulate[no_d]": Case(
+        # K2 / K6 also without d (every digit raised)
+        "gadget_accumulate[no_d]": Case(
             lambda: accumulate(y, key_a, key_b, **{**ks_kw, "d_ntt": None}),
             lambda: ksg.gadget_accumulate_twin(y, key_a, key_b, primes, ext, n,
                                                ds, None),
-            *ks_work(False))}),
+            *ks_work(False)),
         "mod_down_combine": Case(
             lambda: mod_down(yhat, ks, t, **md_kw),
             lambda: mdg.mod_down_combine_twin(yhat, ks, t, child, dropped, n,
@@ -828,8 +833,8 @@ def run_mxu(cfg: PathConfig, run: dict, rot_run: dict, counters) -> dict:
 
 # K10 / K11 phase 2 shapes: (label, batch, channels, degree, prime bits,
 # shard counts); each sharded NTT is held to its twin on the same slabs and
-# to the whole-plane kernel of the label (K1, K4 on clusters of 16, K5' on
-# clusters of 2); P = 1 is K10 alone
+# to the whole-plane kernel of the label (K1, K4 and K5' on clusters of
+# 16); P = 1 is K10 alone
 COEFF_SHAPES = (
     ("K1", 32, 8, 1 << 14, 31, (1, 2, 8)),
     ("K4", 4, 4, 1 << 16, 30, (4, 8)),
@@ -1164,11 +1169,12 @@ def time_rotation(cfg: PathConfig, run: dict, rot_run: dict, iters: int) -> None
 
 def time_no_d(cfg: PathConfig, rows: list, case: Case, int_ops_per_s: float,
               twin_iters: int) -> None:
-    """Phase 4: K2 without d (every digit raised) on the path, its times
-    and bound added to the path's K2 row as ``no_d_*``."""
+    """Phase 4: K2 / K6 without d (every digit raised) on the path, its
+    times and bound added to the path's K2 / K6 row as ``no_d_*``."""
     t = time_cases(cfg, {"gadget_accumulate[no_d]": case}, int_ops_per_s,
                    twin_iters)["gadget_accumulate[no_d]"]
-    row = next(r for r in rows if r["name"].split("@")[0] == "gadget_accumulate")
+    row = next(r for r in rows if r["name"].split("@")[0] in ("gadget_accumulate",
+                                                               "gadget_accumulate_wide"))
     row.update(no_d_ms=t.ms, no_d_device_ms=t.device_ms, no_d_plain_ms=t.plain_ms,
                no_d_bound_ms=t.bound_ms)
 
@@ -1275,18 +1281,36 @@ def reg_infos(cfg: PathConfig, rows: list) -> None:
                 row.update(info)
 
 
-# The big path's rows that run a cluster register-pass kernel (uint32,
-# N = 2^16, csrc/ntt_cluster.cuh): the key each form goes under ("" the
-# row itself), ckks_cluster_info's kernel id, its printed name and the
-# needle of its mangled name.
+# The rows that run a cluster register-pass kernel (csrc/ntt_cluster.cuh):
+# the big path's (uint32, N = 2^16) and the big-wide path's (uint64, 2^15):
+# the key each form goes under ("" the row itself), ckks_cluster_info's
+# kernel id, its printed name and the needle of its mangled name.
+def _wide_cluster_forms(log_n: int) -> dict:
+    """The uint64 forms at 2^log_n: ids 4 + 3 (log_n - 15) + (0 forward,
+    1 inverse, 2 key switch)."""
+    first = 4 + 3 * (log_n - 15)
+    return {
+        "ntt_planes_wide": {
+            "": (first + 1, f"ntt_kernel_cluster64<{log_n},true>",
+                 f"ntt_kernel_cluster64ILi{log_n}ELb1E"),
+            "forward": (first, f"ntt_kernel_cluster64<{log_n},false>",
+                        f"ntt_kernel_cluster64ILi{log_n}ELb0E")},
+        "gadget_accumulate_wide": {"": (first + 2, f"keyswitch_kernel_cluster64<{log_n}>",
+                                        f"keyswitch_kernel_cluster64ILi{log_n}EE")},
+    }
+
+
 CLUSTER_KERNELS = {
     "ntt_planes": {"": (2, "ntt_kernel_cluster<true>", "ntt_kernel_clusterILb1E"),
                    "forward": (1, "ntt_kernel_cluster<false>", "ntt_kernel_clusterILb0E")},
-    "gadget_accumulate": {"": (3, "keyswitch_kernel_cluster", "keyswitch_kernel_cluster")},
+    "gadget_accumulate": {"": (3, "keyswitch_kernel_cluster", "keyswitch_kernel_clusterEPKj")},
     "mod_down_combine": {"": (0, "moddown_kernel_cluster", "moddown_kernel_cluster")},
     "mod_down_combine[no_t]": {"": (0, "moddown_kernel_cluster",
                                     "moddown_kernel_cluster")},
+    **_wide_cluster_forms(15),
 }
+# the uint64 forms at 2^16 (the wide-2^16 kernel checks and times)
+WIDE_16_CLUSTER_KERNELS = _wide_cluster_forms(16)
 
 
 def cluster_info(kernel: int) -> list:
@@ -1304,8 +1328,8 @@ def cluster_info(kernel: int) -> list:
 
 
 def cluster_infos(cfg: PathConfig, rows: list) -> None:
-    """Adds to each big row of CLUSTER_KERNELS the cluster form that ran
-    (``cluster_info``), with its SASS counts."""
+    """Adds to each row of a clustered path that CLUSTER_KERNELS names the
+    cluster form that ran (``cluster_info``), with its SASS counts."""
     from toy_heaan_ckks_tpu_torch.ops import _build
 
     sass = sass_counts(_build.library_path(), {
@@ -1423,10 +1447,10 @@ def main() -> int:
     big_cases = kernel_cases(BIG, dev, wide=False)
     big_errs = check_cases("K4/K2/K3/K3' big 2^16 (clusters of 16)", big_cases)
     big_wide_cases = kernel_cases(BIG_WIDE, dev, wide=True)
-    big_wide_errs = check_cases("K5'/K6/K7/K8/K8' big-wide 2^15 (clusters of 2)",
+    big_wide_errs = check_cases("K5'/K6/K7 (clusters of 16) K8/K8' (of 2) big-wide 2^15",
                                 big_wide_cases)
     wide_16_cases = kernel_cases(WIDE_16, dev, wide=True)
-    wide_16_errs = check_cases("K5'/K6/K7/K8/K8' wide 2^16 (clusters of 4)",
+    wide_16_errs = check_cases("K5'/K6/K7 (clusters of 16) K8/K8' (of 4) wide 2^16",
                                wide_16_cases)
     for k, e in wide_16_errs.items():
         big_wide_errs[k] = max(big_wide_errs[k], e)
@@ -1513,9 +1537,10 @@ def main() -> int:
             "replaces": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:604",
             "factored_branch": "toy_heaan_ckks_tpu/ops/keyswitch_pallas_wide.py:575"}),
     }
-    # K2 without d, timed apart and reported in K2's row
-    small_no_d, big_no_d = (cases.pop("gadget_accumulate[no_d]")
-                            for cases in (small_cases, big_cases))
+    # K2 / K6 without d, timed apart and reported in the K2 / K6 row
+    small_no_d, wide_no_d, big_no_d, big_wide_no_d = (
+        cases.pop("gadget_accumulate[no_d]")
+        for cases in (small_cases, wide_cases, big_cases, big_wide_cases))
     # the multiplies before the kernel cases: once a process has run
     # torch.profiler, the host takes longer over each launch (PERF.md §6)
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
@@ -1525,18 +1550,29 @@ def main() -> int:
                      small_rot["launches"], small_names, int_ops_per_s, twin_iters=5)
     time_no_d(SMALL, rows, small_no_d, int_ops_per_s, twin_iters=2)
     reg_infos(SMALL, rows)
-    rows += time_path(WIDE, wide_cases, wide_errs, wide_run, wide_rot["launches"],
-                      wide_names, int_ops_per_s, twin_iters=2)
+    wide_rows = time_path(WIDE, wide_cases, wide_errs, wide_run, wide_rot["launches"],
+                          wide_names, int_ops_per_s, twin_iters=2)
+    time_no_d(WIDE, wide_rows, wide_no_d, int_ops_per_s, twin_iters=1)
+    rows += wide_rows
     big_rows = time_path(BIG, big_cases, big_errs, big_run, big_rot["launches"],
                          big_names, int_ops_per_s, twin_iters=3)
     time_no_d(BIG, big_rows, big_no_d, int_ops_per_s, twin_iters=2)
     cluster_infos(BIG, big_rows)
     rows += big_rows
-    rows += time_path(BIG_WIDE, big_wide_cases, big_wide_errs, big_wide_run,
-                      big_wide_rot["launches"], big_wide_names, int_ops_per_s,
-                      twin_iters=1)
-    time_cases(WIDE_16, {k: wide_16_cases[k] for k in ("forward", "inverse+fold")},
-               int_ops_per_s, twin_iters=1)
+    big_wide_rows = time_path(BIG_WIDE, big_wide_cases, big_wide_errs, big_wide_run,
+                              big_wide_rot["launches"], big_wide_names, int_ops_per_s,
+                              twin_iters=1)
+    time_no_d(BIG_WIDE, big_wide_rows, big_wide_no_d, int_ops_per_s, twin_iters=1)
+    cluster_infos(BIG_WIDE, big_wide_rows)
+    rows += big_wide_rows
+    # the uint64 cluster forms at 2^16: times, and each form as built
+    time_cases(WIDE_16, {k: wide_16_cases[k] for k in (
+        "forward", "inverse+fold", "inv_ntt_to_yhat", "gadget_accumulate",
+        "gadget_accumulate[no_d]")}, int_ops_per_s, twin_iters=1)
+    for forms in WIDE_16_CLUSTER_KERNELS.values():
+        for kernel, shown, _ in forms.values():
+            print(f"[{WIDE_16.name}] {shown}: registers, spill bytes, threads, shared "
+                  f"bytes, blocks a cluster, resident clusters {cluster_info(kernel)}")
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
                      (BIG_WIDE, big_wide_run)):
         ctx, child, rlk, (a0, a1, b0, b1) = (run["ctx"], run["child"], run["rlk"],

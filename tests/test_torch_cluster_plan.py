@@ -1,31 +1,40 @@
-"""The cluster register-pass plan of K4, K3 / K3' and K2 at N = 2^16, in numpy.
+"""The cluster register-pass plan of K4, K3 / K3' and K2 at N = 2^16 and of
+K5' / K7 and K6 at N = 2^15 and 2^16, in numpy.
 
-``csrc/ntt_cluster.cuh`` spreads one uint32 plane of N words over a
-thread-block cluster of C blocks (rank r holds the slice [r*M, (r+1)*M),
-M = N/C, N/32/C threads of 32 words). This file emulates that plan index
-for index, with the kernels' own maps, and holds it word for word to the
-port's twins (``ops/ntt.py``, ``moddown_gpu.mod_down_combine_twin``,
-``keyswitch_gpu.gadget_accumulate_twin``) at N = 2^16 for C in {4, 8, 16},
-and at N = 2^12, C = 4 to the JAX reference's staged NTT
-(``toy_heaan_ckks_tpu/ops/ntt.py``) and key switch
-(``ops/keyswitch_pallas.py``, in interpret mode) on the CPU:
+``csrc/ntt_cluster.cuh`` spreads one plane of N words over a thread-block
+cluster of C blocks (rank r holds the slice [r*M, (r+1)*M), M = N/C,
+N/W/C threads of W words): uint32 planes with W = 32, uint64 planes with
+the W and C that the header builds (``kLogWideWords``,
+``kWideLogCluster15`` / ``16``, read from it here). This file emulates
+that plan index for index, with the kernels' own maps and, on uint64
+words, their Harvey64 and REDC64 arithmetic (Shoup companions), and holds
+it word for word to the port's twins (``ops/ntt.py``,
+``moddown_gpu.mod_down_combine_twin``,
+``keyswitch_gpu.gadget_accumulate_twin``): uint32 at N = 2^16 for C in
+{4, 8, 16}, uint64 at 2^15 and 2^16 for the C built; and at N = 2^12,
+C = 4 to the JAX reference's staged NTT (``toy_heaan_ckks_tpu/ops/ntt.py``)
+and, on uint32 words, its key switch (``ops/keyswitch_pallas.py``, in
+interpret mode) on the CPU:
 
-- forward cross pass: thread t of rank r holds groups h < 32/C, group h
+- forward cross pass: thread t of rank r holds groups h < W/C, group h
   the C words j + k*M (j = r*M/C + h*T + t), and runs stages 0 .. log2 C
   - 1 on them with twiddles tw[2^l + g] (``cross_groups``);
 - the scatter: word k of group j to rank k's shared memory at pad(j),
-  a permutation of the slots (``scatter_forward``);
-- the local passes: ``RegPass`` of a 2^(16 - log2 C) plane, the twiddle of
-  local stage s' = kS + kL and group g at (C + r) * 2^s' + blk * 2^kL + g
-  (``local_forward``), then pass 0's layout for a coalesced store;
+  a permutation of the slots (``scatter_forward``); the pad is one word
+  after every 128 bytes, which keeps the uint64 plan's shared-memory
+  accesses free of bank conflicts (``_wavefronts``);
+- the local passes: ``RegPass`` of a 2^(log2 N - log2 C) plane, the
+  twiddle of local stage s' = kS + kL and group g at (C + r) * 2^s' +
+  blk * 2^kL + g (``local_forward``), then pass 0's layout for a
+  coalesced store;
 - the inverse in reverse: the last local pass loaded as runs of adjacent
   words, the Gentleman-Sande passes down to pass 0, each word sent to its
   cross-pass owner at k * M/C + (j mod M/C) (``scatter_inverse``), the
   cross pass from stage log2 C - 1 down, and the final constant;
 - K3: the Phat sum in the cross pass's loads, the combine in pass 0's
   layout (without the t term for K3');
-- K2: the grid's plane map (the special channels' planes first with d,
-  every cluster on one plane), each digit's raise in the cross pass's
+- K2 / K6: the grid's plane map (the special channels' planes first with
+  d, every cluster on one plane), each digit's raise in the cross pass's
   loads, one forward plan per digit but the own one, the key products,
   the own-digit term and the digit sum in pass 0's layout; and a model of
   the cluster-barrier phases across the digits (``check_schedule``).
@@ -35,6 +44,9 @@ to the same twins (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import functools
+import re
+import sys
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -49,34 +61,61 @@ from toy_heaan_ckks_tpu.ops import ntt as ref_ntt
 from toy_heaan_ckks_tpu_torch import CkksContext, convert, generate_primes
 from toy_heaan_ckks_tpu_torch.keys import default_special_primes
 from toy_heaan_ckks_tpu_torch.ops import keyswitch_gpu, moddown_gpu, ntt_gpu
+from toy_heaan_ckks_tpu_torch.ops.modular import shoup
 from toy_heaan_ckks_tpu_torch.ops.ntt import compact_twiddles
 from toy_heaan_ckks_tpu_torch.ops.small_fast import _fold_consts
 
-LOG_WORDS = 5  # a thread holds 32 words
+
+class Words:
+    """The kernels' word (``csrc/ntt_reg.cuh`` ``RegWords``): its bits, the
+    2^log_w words a thread holds, and one pad word after every 128 bytes."""
+
+    def __init__(self, bits: int, log_w: int):
+        self.bits, self.log_w = bits, log_w
+        self.W = 1 << log_w
+        self.bytes = bits // 8
+        self.log_pad = 5 if bits == 32 else 4
+
+    def pad(self, p):
+        """Shared-memory word of slice position p."""
+        return p + (p >> self.log_pad)
 
 
-def pad(p):
-    """Shared-memory word of slice position p: one pad word per 32."""
-    return p + (p >> 5)
+W32 = Words(32, 5)  # the uint32 forms: 32 words a thread
+
+
+def _header_constant(name: str) -> int:
+    """An int constant of ``csrc/ntt_cluster.cuh``, the plan as built."""
+    text = (Path(ntt_gpu.__file__).parent.parent / "csrc" / "ntt_cluster.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+# the uint64 cluster forms (ntt_cluster.cuh WideWords, WidePlan): words a
+# thread and log2 C at N = 2^15 and 2^16
+W64 = Words(64, _header_constant("kLogWideWords"))
+WIDE_LOG_C = {15: _header_constant("kWideLogCluster15"),
+              16: _header_constant("kWideLogCluster16")}
 
 
 class Plan:
     """The index maps of one plane of 2^log_n words on C = 2^log_c blocks."""
 
-    def __init__(self, log_n: int, log_c: int):
-        self.log_n, self.log_c = log_n, log_c
+    def __init__(self, log_n: int, log_c: int, words: Words = W32):
+        self.log_n, self.log_c, self.words = log_n, log_c, words
+        self.pad = words.pad
+        log_w, self.W = words.log_w, words.W
         self.C = 1 << log_c
         self.log_m = log_n - log_c
         self.M = 1 << self.log_m
-        self.T = self.M >> LOG_WORDS  # threads a block
-        self.GX = 32 >> log_c  # cross-pass groups a thread
+        self.T = self.M >> log_w  # threads a block
+        self.GX = self.W >> log_c  # cross-pass groups a thread
         self.MC = self.M >> log_c  # cross-pass groups a rank (T * GX)
-        rest = self.log_m - LOG_WORDS
-        r1 = rest if rest <= LOG_WORDS else (rest + 1) // 2
-        # (kS, kR) of the local passes: RegPlan<log_m>
-        self.passes = [(0, LOG_WORDS), (LOG_WORDS, r1)]
+        rest = self.log_m - log_w
+        r1 = rest if rest <= log_w else (rest + 1) // 2
+        # (kS, kR) of the local passes: RegPlan<log_m, words>
+        self.passes = [(0, log_w), (log_w, r1)]
         if rest > r1:
-            self.passes.append((LOG_WORDS + r1, rest - r1))
+            self.passes.append((log_w + r1, rest - r1))
         # rank, thread grids broadcast against (planes, C, T)
         self.r = np.arange(self.C)[:, None]
         self.t = np.arange(self.T)[None, :]
@@ -87,8 +126,8 @@ class Plan:
         return self.r * self.MC + h * self.T + self.t
 
     def cross_positions(self):
-        """Plane position of word (rank, thread, h * C + k): (C, T, 32)."""
-        out = np.empty((self.C, self.T, 32), np.int64)
+        """Plane position of word (rank, thread, h * C + k): (C, T, W)."""
+        out = np.empty((self.C, self.T, self.W), np.int64)
         for h in range(self.GX):
             for k in range(self.C):
                 out[:, :, h * self.C + k] = self.cross_j(h) + k * self.M
@@ -100,18 +139,18 @@ class Plan:
 
     # ── the local passes: RegPass<log_m, kS, kR> ────────────────────────
     def gid(self, h: int, kR: int):
-        return self.t + (h << (self.log_m - LOG_WORDS))
+        return self.t + (h << (self.log_m - self.words.log_w))
 
     def slots(self, kS: int, kR: int):
         """Shared-memory word of (thread, h * 2^kR + m): RegPass::base +
-        pad(m << kLogOff), (T, 32)."""
+        pad(m << kLogOff), (T, W)."""
         log_off = self.log_m - kS - kR
-        out = np.empty((self.T, 32), np.int64)
-        for h in range(32 >> kR):
+        out = np.empty((self.T, self.W), np.int64)
+        for h in range(self.W >> kR):
             g = self.gid(h, kR)[0]
-            base = pad(((g >> log_off) << (self.log_m - kS)) + (g & ((1 << log_off) - 1)))
+            base = self.pad(((g >> log_off) << (self.log_m - kS)) + (g & ((1 << log_off) - 1)))
             for m in range(1 << kR):
-                out[:, (h << kR) + m] = base + pad(m << log_off)
+                out[:, (h << kR) + m] = base + self.pad(m << log_off)
         return out
 
     def local_twiddle(self, kS: int, kR: int, kL: int, h: int, g: int):
@@ -121,26 +160,65 @@ class Plan:
         return ((self.C + self.r) << (kS + kL)) + (blk << kL) + g
 
 
-def _stages(a, tw, q, kR: int, twiddle, inverse: bool):
-    """Butterflies of one register pass on a (planes, C, T, 32): RegPass
+_M32 = np.uint64(0xFFFFFFFF)
+_S32 = np.uint64(32)
+
+
+def _mulhi64(a, b):
+    """The high word of the 128-bit product of uint64 arrays (``__umul64hi``)."""
+    a0, a1, b0, b1 = a & _M32, a >> _S32, b & _M32, b >> _S32
+    lo, m1, m2 = a0 * b0, a1 * b0, a0 * b1
+    carry = ((lo >> _S32) + (m1 & _M32) + (m2 & _M32)) >> _S32
+    return a1 * b1 + (m1 >> _S32) + (m2 >> _S32) + carry
+
+
+def _harvey64(x, w, wp, q):
+    """x * w mod q as ``ntt.cuh`` ``harvey`` on uint64 words (wp the Shoup
+    companion floor(w * 2^64 / q)), on int64 arrays of values below 2^63."""
+    x, w, wp, q = (np.asarray(v).astype(np.uint64) for v in (x, w, wp, q))
+    r = x * w - _mulhi64(x, wp) * q
+    return np.where(r >= q, r - q, r).astype(np.int64)
+
+
+def _redc64(a, b, q, qinv):
+    """a * b * 2^-64 mod q as ``ntt.cuh`` ``mont_redc`` on uint64 words
+    (qinv = -q^-1 mod 2^64)."""
+    a, b, q, qinv = (np.asarray(v).astype(np.uint64) for v in (a, b, q, qinv))
+    t_lo = a * b
+    r = _mulhi64(a, b) + _mulhi64(t_lo * qinv, q) + (t_lo != 0).astype(np.uint64)
+    return np.where(r >= q, r - q, r).astype(np.int64)
+
+
+def _mul(x, w, wp, q):
+    """x * w mod q: exact in int64 for the uint32 forms' primes (wp None),
+    the kernels' Harvey64 for the uint64 forms'."""
+    return x * w % q if wp is None else _harvey64(x, w, wp, q)
+
+
+def _stages(a, tabs, q, kR: int, twiddle, inverse: bool):
+    """Butterflies of one register pass on a (planes, C, T, W): RegPass
     / RegPassInv's loops (the kernels' loop over i < half taken at once: the
     butterflies (u + i, u + half + i) of one twiddle), twiddle(kL, h, g)
-    the table entry."""
+    the table entry of tabs = (tw, twp), twp the Shoup companions of the
+    uint64 forms (None for uint32)."""
     order = range(kR - 1, -1, -1) if inverse else range(kR)
     q = q.reshape(-1, 1, 1, 1)
-    for h in range(32 >> kR):
+    tw, twp = tabs
+    gather = lambda t, idx: None if t is None else np.take_along_axis(
+        t, idx, axis=-1).reshape(a.shape[:-1] + (1,))
+    for h in range(a.shape[-1] >> kR):
         for kL in order:
             half = 1 << (kR - 1 - kL)
             for g in range(1 << kL):
-                w = np.take_along_axis(tw, _flat(twiddle(kL, h, g), a), axis=-1)
-                w = w.reshape(a.shape[:-1] + (1,))
+                idx = _flat(twiddle(kL, h, g), a)
+                w, wp = gather(tw, idx), gather(twp, idx)
                 u = (h << kR) + 2 * half * g
                 xu, xv = a[..., u:u + half].copy(), a[..., u + half:u + 2 * half].copy()
                 if inverse:
                     a[..., u:u + half] = _add(xu, xv, q)
-                    a[..., u + half:u + 2 * half] = _sub(xu, xv, q) * w % q
+                    a[..., u + half:u + 2 * half] = _mul(_sub(xu, xv, q), w, wp, q)
                 else:
-                    xv = xv * w % q
+                    xv = _mul(xv, w, wp, q)
                     a[..., u:u + half] = _add(xu, xv, q)
                     a[..., u + half:u + 2 * half] = _sub(xu, xv, q)
 
@@ -164,10 +242,12 @@ def _flat(index, a):
     return np.broadcast_to(idx, (a.shape[0], idx.shape[1]))
 
 
-def scatter_forward(plan: Plan):
+def scatter_forward(plan: Plan, pad=None):
     """(rank, slot) each cross-pass word (rank r, thread t, h * C + k) is
-    written to: rank k's shared memory at pad(j)."""
-    dst_rank = np.empty((plan.C, plan.T, 32), np.int64)
+    written to: rank k's shared memory at pad(j) (the plan's pad unless
+    one is given)."""
+    pad = pad or plan.pad
+    dst_rank = np.empty((plan.C, plan.T, plan.W), np.int64)
     dst_slot = np.empty_like(dst_rank)
     for h in range(plan.GX):
         for k in range(plan.C):
@@ -180,14 +260,15 @@ def scatter_inverse(plan: Plan):
     """(owner, slot) each word of the last inverse local pass (rank r,
     thread t, word m at slice position p = m * T + t) is written to: the
     rank that holds group p in the cross pass, at r * M/C + (p mod M/C)."""
-    p = np.arange(32)[None, None, :] * plan.T + plan.t[:, :, None]
-    owner = np.broadcast_to(p >> (plan.log_m - plan.log_c), (plan.C, plan.T, 32))
+    shape = (plan.C, plan.T, plan.W)
+    p = np.arange(plan.W)[None, None, :] * plan.T + plan.t[:, :, None]
+    owner = np.broadcast_to(p >> (plan.log_m - plan.log_c), shape)
     slot = plan.r[:, :, None] * plan.MC + (p & (plan.MC - 1))
-    return owner, np.broadcast_to(slot, (plan.C, plan.T, 32))
+    return owner, np.broadcast_to(slot, shape)
 
 
 def _exchange(a, dst_rank, dst_slot, size: int):
-    """Write a (planes, C, T, 32) to per-rank buffers (planes, C, size),
+    """Write a (planes, C, T, W) to per-rank buffers (planes, C, size),
     each slot written at most once."""
     buf = np.full((a.shape[0], a.shape[1], size), -1, np.int64)
     flat = (dst_rank * size + dst_slot).reshape(-1)
@@ -196,34 +277,41 @@ def _exchange(a, dst_rank, dst_slot, size: int):
     return buf
 
 
-def _local_forward(plan: Plan, s, tw, q):
+def _take(s, slot):
+    """Words of the slices s (planes, C, slots) at slot (T, W)."""
+    return np.take_along_axis(s, np.broadcast_to(slot.reshape(1, 1, -1), s.shape[:2] + (slot.size,)),
+                              axis=-1).reshape(s.shape[:2] + slot.shape)
+
+
+def _put(s, slot, a):
+    np.put_along_axis(s, np.broadcast_to(slot.reshape(1, 1, -1), s.shape[:2] + (slot.size,)),
+                      a.reshape(s.shape[:2] + (-1,)), axis=-1)
+
+
+def _local_forward(plan: Plan, s, tabs, q):
     """The forward local passes from the scattered slices s (planes, C,
     pad(M)); returns a[] in pass 0's layout (word m at m * T + t)."""
     a = None
     for kS, kR in plan.passes:
         slot = plan.slots(kS, kR)
-        a = np.take_along_axis(s, np.broadcast_to(slot.reshape(1, 1, -1), s.shape[:2] + (slot.size,)),
-                               axis=-1).reshape(s.shape[:2] + slot.shape)
+        a = _take(s, slot)
         assert (a >= 0).all(), "a slot read before it was written"
-        _stages(a, tw, q, kR, lambda kL, h, g, kS=kS, kR=kR:
+        _stages(a, tabs, q, kR, lambda kL, h, g, kS=kS, kR=kR:
                 plan.local_twiddle(kS, kR, kL, h, g), inverse=False)
         s = s.copy()
-        np.put_along_axis(s, np.broadcast_to(slot.reshape(1, 1, -1), s.shape[:2] + (slot.size,)),
-                          a.reshape(s.shape[:2] + (-1,)), axis=-1)
+        _put(s, slot, a)
     # the last pass's runs back to pass 0's layout
-    slot = plan.slots(*plan.passes[0])
-    return np.take_along_axis(s, np.broadcast_to(slot.reshape(1, 1, -1), s.shape[:2] + (slot.size,)),
-                              axis=-1).reshape(s.shape[:2] + slot.shape)
+    return _take(s, plan.slots(*plan.passes[0]))
 
 
 def _p0_positions(plan: Plan):
     """Plane position of pass 0's word (rank, thread, m): r*M + m*T + t."""
-    return (plan.r[:, :, None] * plan.M + np.arange(32)[None, None, :] * plan.T
+    return (plan.r[:, :, None] * plan.M + np.arange(plan.W)[None, None, :] * plan.T
             + plan.t[:, :, None])
 
 
 def _unflatten(a, pos, n: int):
-    """Per-plane words a (planes, C, T, 32) at plane positions pos ->
+    """Per-plane words a (planes, C, T, W) at plane positions pos ->
     (planes, n), each position written once."""
     out = np.full((a.shape[0], n), -1, np.int64)
     flat = pos.reshape(-1)
@@ -232,57 +320,72 @@ def _unflatten(a, pos, n: int):
     return out
 
 
-def emulate_forward(plan: Plan, x, tw, q, prologue=None):
-    """Forward NTT of x (planes, N) with twiddle rows tw (planes, N) and
-    moduli q (planes, 1, 1, 1). ``prologue(pos)``: the cross pass's loads
-    (default x at pos). Returns (planes, C, T, 32) in pass 0's layout."""
+def emulate_forward(plan: Plan, x, tabs, q, prologue=None):
+    """Forward NTT of x (planes, N) with twiddle rows tabs = (tw, twp)
+    (planes, N) and moduli q (planes, 1, 1, 1). ``prologue(pos)``: the
+    cross pass's loads (default x at pos). Returns (planes, C, T, W) in
+    pass 0's layout."""
     pos = plan.cross_positions()
     a = x[:, pos] if prologue is None else prologue(pos)
-    _stages(a, tw, q, plan.log_c, lambda kL, h, g: plan.cross_twiddle(kL, g),
+    _stages(a, tabs, q, plan.log_c, lambda kL, h, g: plan.cross_twiddle(kL, g),
             inverse=False)
-    s = _exchange(a, *scatter_forward(plan), pad(plan.M))
-    return _local_forward(plan, s, tw, q)
+    s = _exchange(a, *scatter_forward(plan), plan.pad(plan.M))
+    return _local_forward(plan, s, tabs, q)
 
 
-def emulate_inverse(plan: Plan, x, tw, q, fin):
-    """Inverse NTT of x (planes, N), final per-plane constant fin
-    (planes, 1, 1, 1); returns (planes, N)."""
+def emulate_inverse(plan: Plan, x, tabs, q, fin):
+    """Inverse NTT of x (planes, N), final per-plane constant fin = (f,
+    fp) (planes, 1, 1, 1), fp its Shoup companion (None for uint32);
+    returns (planes, N)."""
     kS_last, kR_last = plan.passes[-1]
     # load_runs: group h of thread t, the run of 2^kR words at gid << kR
-    run = np.empty((plan.C, plan.T, 32), np.int64)
-    for h in range(32 >> kR_last):
+    run = np.empty((plan.C, plan.T, plan.W), np.int64)
+    for h in range(plan.W >> kR_last):
         for i in range(1 << kR_last):
             run[:, :, (h << kR_last) + i] = (plan.r * plan.M
                                              + (plan.gid(h, kR_last) << kR_last) + i)
-    assert np.array_equal(plan.slots(kS_last, kR_last)[None] - pad(run - plan.r[:, :, None] * plan.M),
+    assert np.array_equal(plan.slots(kS_last, kR_last)[None]
+                          - plan.pad(run - plan.r[:, :, None] * plan.M),
                           np.zeros_like(run)), "runs are not the last pass's words"
     a = x[:, run]
-    s = np.full(a.shape[:2] + (pad(plan.M),), -1, np.int64)
+    s = np.full(a.shape[:2] + (plan.pad(plan.M),), -1, np.int64)
     for idx, (kS, kR) in enumerate(reversed(plan.passes)):
         slot = plan.slots(kS, kR)
         if idx:
-            a = np.take_along_axis(s, np.broadcast_to(slot.reshape(1, 1, -1), s.shape[:2] + (slot.size,)),
-                                   axis=-1).reshape(s.shape[:2] + slot.shape)
+            a = _take(s, slot)
             assert (a >= 0).all()
-        _stages(a, tw, q, kR, lambda kL, h, g, kS=kS, kR=kR:
+        _stages(a, tabs, q, kR, lambda kL, h, g, kS=kS, kR=kR:
                 plan.local_twiddle(kS, kR, kL, h, g), inverse=True)
         if kS:
-            np.put_along_axis(s, np.broadcast_to(slot.reshape(1, 1, -1), s.shape[:2] + (slot.size,)),
-                              a.reshape(s.shape[:2] + (-1,)), axis=-1)
+            _put(s, slot, a)
     xs = _exchange(a, *scatter_inverse(plan), plan.M)
     # the cross pass: word k of group h at k * M/C + h * T + t
     b = np.empty_like(a)
     for h in range(plan.GX):
         for k in range(plan.C):
             b[:, :, :, h * plan.C + k] = xs[:, :, k * plan.MC + h * plan.T + plan.t[0]]
-    _stages(b, tw, q, plan.log_c, lambda kL, h, g: plan.cross_twiddle(kL, g),
+    _stages(b, tabs, q, plan.log_c, lambda kL, h, g: plan.cross_twiddle(kL, g),
             inverse=True)
-    return _unflatten(b * fin % q, plan.cross_positions(), 1 << plan.log_n)
+    return _unflatten(_mul(b, *fin, q), plan.cross_positions(), 1 << plan.log_n)
 
 
-def _tables(moduli, degree):
+def _companions(w, moduli, words: Words):
+    """Shoup companions of (..., L, N) int64 words w over ``moduli``
+    (int64 bits of uint64 values), or None for uint32."""
+    if words.bits == 32:
+        return None
+    q = np.array(moduli, dtype=object).reshape((-1,) + (1,) * (np.ndim(w) - 1))
+    return shoup(w, q, 64).view(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(moduli, degree, bits: int = 32):
+    """Compact (fwd, fwd companions, inv, inv companions) of a chain, int64
+    (L, N); the companions None for uint32."""
     fwd, inv = compact_twiddles(tuple(moduli), degree)
-    return fwd.astype(np.int64), inv.astype(np.int64)
+    words = W32 if bits == 32 else W64
+    fwd, inv = fwd.astype(np.int64), inv.astype(np.int64)
+    return fwd, _companions(fwd, moduli, words), inv, _companions(inv, moduli, words)
 
 
 def _planes(seed, moduli, degree, batch):
@@ -291,51 +394,55 @@ def _planes(seed, moduli, degree, batch):
                      for q in moduli], axis=1)  # (batch, L, N)
 
 
+def _tile(table, B):
+    return None if table is None else np.tile(table, (B, 1))
+
+
 def _ntt(plan: Plan, x3, moduli, inverse: bool, final=None):
-    """Emulated NTT of int64 (B, L, N) planes; returns int32 torch."""
+    """Emulated NTT of int64 (B, L, N) planes; returns torch planes of the
+    plan's word (int32 or int64)."""
     B, L, n = x3.shape
-    fwd, inv = _tables(moduli, n)
-    tw = np.tile(inv if inverse else fwd, (B, 1))  # (B*L, N)
+    fwd, fwdp, inv, invp = _tables(tuple(moduli), n, plan.words.bits)
+    tabs = (_tile(inv, B), _tile(invp, B)) if inverse else (_tile(fwd, B), _tile(fwdp, B))
     q = np.tile(np.array(moduli, np.int64), B)[:, None, None, None]
     x = x3.reshape(B * L, n)
     if inverse:
         f = final or tuple(pow(n, -1, m) for m in moduli)
-        fin = np.tile(np.array([v % m for v, m in zip(f, moduli)], np.int64), B)
-        out = emulate_inverse(plan, x, tw, q, fin[:, None, None, None])
+        f = np.array([v % m for v, m in zip(f, moduli)], np.int64)
+        fp = _companions(f, moduli, plan.words)
+        col = lambda v: None if v is None else np.tile(v, B)[:, None, None, None]
+        out = emulate_inverse(plan, x, tabs, q, (col(f), col(fp)))
     else:
-        out = _unflatten(emulate_forward(plan, x, tw, q), _p0_positions(plan), n)
-    return torch.from_numpy(out.reshape(B, L, n).astype(np.int32))
+        out = _unflatten(emulate_forward(plan, x, tabs, q), _p0_positions(plan), n)
+    dtype = np.int32 if plan.words.bits == 32 else np.int64
+    return torch.from_numpy(out.reshape(B, L, n).astype(dtype))
 
 
 PLANS = [(16, 2), (16, 3), (16, 4)]  # C = 4, 8, 16 at N = 2^16
 
 
-@pytest.mark.parametrize("log_n,log_c", PLANS)
-def test_scatters_are_permutations(log_n, log_c):
+def _check_scatters(plan: Plan):
     """Each cross-pass word reaches one slot of one rank, every slot that
     the next pass reads is written, and no two words share one."""
-    plan = Plan(log_n, log_c)
     rank, slot = scatter_forward(plan)
-    flat = rank * pad(plan.M) + slot
+    flat = rank * plan.pad(plan.M) + slot
     read = np.unique(plan.slots(*plan.passes[0]))
     assert np.array_equal(np.unique(flat), np.unique(
-        np.arange(plan.C)[:, None] * pad(plan.M) + read[None, :]))
-    assert len(np.unique(flat)) == flat.size == 1 << log_n
+        np.arange(plan.C)[:, None] * plan.pad(plan.M) + read[None, :]))
+    assert len(np.unique(flat)) == flat.size == 1 << plan.log_n
     owner, slot = scatter_inverse(plan)
     flat = (owner * plan.M + slot).reshape(-1)
-    assert np.array_equal(np.sort(flat), np.arange(1 << log_n))
+    assert np.array_equal(np.sort(flat), np.arange(1 << plan.log_n))
 
 
-@pytest.mark.parametrize("log_n,log_c", PLANS)
-def test_local_twiddles_are_the_planes(log_n, log_c):
+def _check_local_twiddles(plan: Plan):
     """(C + r) * 2^s' + blk * 2^kL + g is the whole plane's entry 2^s + g
     of global stage s = log2 C + s' for the butterfly's global group."""
-    plan = Plan(log_n, log_c)
     for kS, kR in plan.passes:
         log_off = plan.log_m - kS - kR
         for kL in range(kR):
-            s = log_c + kS + kL
-            for h in range(32 >> kR):
+            s = plan.log_c + kS + kL
+            for h in range(plan.W >> kR):
                 gid = plan.gid(h, kR)
                 blk = gid >> log_off
                 for g in range(1 << kL):
@@ -343,8 +450,20 @@ def test_local_twiddles_are_the_planes(log_n, log_c):
                     local = ((blk << (plan.log_m - kS))
                              + (g << (plan.log_m - kS - kL)) + (gid & ((1 << log_off) - 1)))
                     glob = plan.r * plan.M + local
-                    want = (1 << s) + (glob >> (log_n - s))
+                    want = (1 << s) + (glob >> (plan.log_n - s))
                     assert np.array_equal(plan.local_twiddle(kS, kR, kL, h, g), want)
+
+
+@pytest.mark.parametrize("log_n,log_c", PLANS)
+def test_scatters_are_permutations(log_n, log_c):
+    """The scatters of the uint32 plans (``_check_scatters``)."""
+    _check_scatters(Plan(log_n, log_c))
+
+
+@pytest.mark.parametrize("log_n,log_c", PLANS)
+def test_local_twiddles_are_the_planes(log_n, log_c):
+    """The slice twiddles of the uint32 plans (``_check_local_twiddles``)."""
+    _check_local_twiddles(Plan(log_n, log_c))
 
 
 @pytest.mark.parametrize("log_n,log_c", PLANS)
@@ -383,7 +502,7 @@ def test_moddown_plan_matches_twin(log_n, log_c, with_t):
     yhat = _planes(1, dropped, n, 1)[0]  # (G, N)
     ks = _planes(2, child, n, 1)[0]
     t = _planes(3, child, n, 1)[0]
-    fwd, _ = _tables(child, n)
+    fwd = _tables(child, n)[0]
     q = np.array(child, np.int64)[:, None, None, None]
 
     def phat(pos):  # sum_m Harvey(yhat_m[pos], c[m, j]) per kept channel j
@@ -392,7 +511,7 @@ def test_moddown_plan_matches_twin(log_n, log_c, with_t):
             acc = (acc + yhat[m][pos][None] * c[m][:, None, None, None]) % q
         return acc
 
-    ext = emulate_forward(plan, None, fwd, q, prologue=phat)
+    ext = emulate_forward(plan, None, (fwd, None), q, prologue=phat)
     pos = _p0_positions(plan)
     head = ks[:, pos]
     if with_t:
@@ -523,21 +642,19 @@ def check_schedule(ranks: list) -> None:
                     f"rank {src}'s last store may come after rank {dst}'s exit")
 
 
-def _redc(a, b, q, rinv):
-    """Montgomery product a * b * 2^-32 mod q (mont_redc), int64."""
-    return a * b % q * rinv % q
-
-
 def emulate_keyswitch(plan: Plan, y, d, key_a, key_b, base, ext, ds):
-    """K2's cluster plan on int64 y (B, L, N) plain digits, d (B, L, N) or
-    None and keys (D, E, N): the plane map, each NTT digit's raise in the
-    cross pass's loads and forward plan (all of them as one stack of
+    """K2's / K6's cluster plan on int64 y (B, L, N) plain digits, d (B, L,
+    N) or None and keys (D, E, N): the plane map, each NTT digit's raise in
+    the cross pass's loads and forward plan (all of them as one stack of
     planes), then per plane the epilogue in pass 0's layout, digit by digit
-    in the kernel's order; returns (ks0, ks1) as int32 torch (B, E, N)."""
+    in the kernel's order; returns (ks0, ks1) as torch (B, E, N) planes of
+    the plan's word (int32 / int64; R = 2^32 / 2^64)."""
     B, L, n = y.shape
     E, D = len(ext), key_a.shape[0]
-    c = keyswitch_gpu._switch_consts(base, ext, ds)[0].astype(np.int64)  # (D*ds, E)
-    fwd, _ = _tables(ext, n)
+    bits = plan.words.bits
+    c, cs, _, qinv, _ = keyswitch_gpu._switch_consts(base, ext, ds, bits)  # (D*ds, E)
+    c, cs = c.astype(np.int64), None if bits == 32 else cs.view(np.int64)
+    fwd, fwdp = _tables(ext, n, bits)[:2]
     planes = ks_plane_map(B, L, E, d is not None)
     own = lambda j: j // ds if d is not None and j < L else -1
     jobs = [(item, j, dt) for item, j in planes for dt in range(D) if dt != own(j)]
@@ -547,40 +664,47 @@ def emulate_keyswitch(plan: Plan, y, d, key_a, key_b, base, ext, ds):
         acc = np.zeros((len(jobs),) + pos.shape, np.int64)
         for i, (item, j, dt) in enumerate(jobs):
             for k in range(dt * ds, min((dt + 1) * ds, L)):
-                acc[i] = (acc[i] + y[item, k][pos] * c[k, j]) % ext[j]
+                term = _mul(y[item, k][pos], c[k, j], None if cs is None else cs[k, j], ext[j])
+                acc[i] = _add(acc[i], term, ext[j])
         return acc
 
-    alpha = emulate_forward(plan, None, fwd[[j for _, j, _ in jobs]], q,
-                            prologue=raise_digits) if jobs else None
+    rows = [j for _, j, _ in jobs]
+    tabs = (fwd[rows], None if fwdp is None else fwdp[rows])
+    alpha = emulate_forward(plan, None, tabs, q, prologue=raise_digits) if jobs else None
     pos = _p0_positions(plan)
     ks = np.full((2, B, E, n), -1, np.int64)
     for item, j in planes:
         qj = ext[j]
-        rinv = pow(1 << 32, -1, qj)
+        if bits == 32:  # mont_redc: a * b * 2^-32 mod q
+            rinv = pow(1 << 32, -1, qj)
+            redc = lambda a, b: a * b % qj * rinv % qj
+        else:
+            redc = lambda a, b: _redc64(a, b, qj, qinv[j])
         acc, first = None, True
         for dt in range(D):
             if dt == own(j):
                 continue
             a = alpha[jobs.index((item, j, dt))]
-            v = [_redc(a, key[dt, j][pos], qj, rinv) for key in (key_b, key_a)]
+            v = [redc(a, key[dt, j][pos]) for key in (key_b, key_a)]
             if first and own(j) >= 0:  # the own digit's term, with the first NTT digit
-                v = [(x + _redc(d[item, j][pos], key[own(j), j][pos], qj, rinv)) % qj
+                v = [_add(x, redc(d[item, j][pos], key[own(j), j][pos]), qj)
                      for x, key in zip(v, (key_b, key_a))]
             if not first:
-                v = [(x + o) % qj for x, o in zip(v, acc)]
+                v = [_add(x, o, qj) for x, o in zip(v, acc)]
             acc, first = v, False
         if first:  # D = 1 with d: the own digit alone
-            acc = [_redc(d[item, j][pos], key[own(j), j][pos], qj, rinv)
-                   for key in (key_b, key_a)]
+            acc = [redc(d[item, j][pos], key[own(j), j][pos]) for key in (key_b, key_a)]
         for o in range(2):
             ks[o, item, j] = _unflatten(acc[o][None], pos, n)[0]
-    return tuple(torch.from_numpy(k.astype(np.int32)) for k in ks)
+    dtype = np.int32 if bits == 32 else np.int64
+    return tuple(torch.from_numpy(k.astype(dtype)) for k in ks)
 
 
 @functools.lru_cache(maxsize=None)
 def _ks_inputs(log_n: int, bits: int, count: int, ds: int, batch: int, with_d: bool):
     """A chain's base and extended moduli and seeded int64 y, d, key_a,
-    key_b, with the twin's (ks0, ks1) on them (computed once)."""
+    key_b, with the twin's (ks0, ks1) on them (computed once): int32
+    planes below 32-bit primes, int64 planes (a wide chain) above."""
     n = 1 << log_n
     base = tuple(generate_primes(bits, count, n))
     ext = base + default_special_primes(CkksContext.build(base, n, device="cpu"), ds)
@@ -589,9 +713,10 @@ def _ks_inputs(log_n: int, bits: int, count: int, ds: int, batch: int, with_d: b
     d = _planes(21, base, n, batch) if with_d else None
     key_a = _planes(22, ext, n, D)
     key_b = _planes(23, ext, n, D)
-    i32 = lambda a: None if a is None else torch.from_numpy(a.astype(np.int32))
-    want = keyswitch_gpu.gadget_accumulate_twin(i32(y), i32(key_a), i32(key_b), base,
-                                                ext, n, ds, i32(d))
+    dtype = np.int32 if bits < 32 else np.int64
+    tt = lambda a: None if a is None else torch.from_numpy(a.astype(dtype))
+    want = keyswitch_gpu.gadget_accumulate_twin(tt(y), tt(key_a), tt(key_b), base,
+                                                ext, n, ds, tt(d))
     return base, ext, y, d, key_a, key_b, want
 
 
@@ -661,3 +786,185 @@ def test_small_keyswitch_plan_matches_reference():
         digit_size=2, interpret=True, stack_limbs=False, d_ntt=j(d))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w))
+
+
+# ── K5' / K7 and K6: the uint64 cluster forms at N = 2^15 and 2^16 ─────
+
+
+def _wide_plan(log_n: int) -> Plan:
+    """The uint64 plan as built (``WidePlan<log_n>``)."""
+    return Plan(log_n, WIDE_LOG_C[log_n], W64)
+
+
+def _wavefronts(slots, words: Words) -> int:
+    """Shared-memory wavefronts of one warp's access to word slots (32,):
+    4-byte words in one phase of 32 threads over 32 banks, 8-byte words in
+    two phases of 16 threads over 16 pairs of banks; a word that several
+    threads of a phase touch is one access."""
+    per = 128 // words.bytes
+    return sum(int(np.bincount(np.unique(slots[p:p + per]) % per).max())
+               for p in range(0, len(slots), per))
+
+
+def _accesses(plan: Plan):
+    """(name, slots (C, T)) of every shared-memory instruction of the
+    plan: each pass's loads and stores (one instruction per word of a[],
+    the same slots on every rank), the forward scatter into the peers'
+    slices, and the inverse's stores into and loads from its buffer."""
+    for kS, kR in plan.passes:
+        slots = plan.slots(kS, kR)
+        for m in range(plan.W):
+            yield f"pass ({kS}, {kR}) word {m}", np.broadcast_to(slots[:, m], (plan.C, plan.T))
+    for h in range(plan.GX):
+        yield f"scatter group {h}", plan.pad(plan.cross_j(h))
+        for k in range(plan.C):
+            yield f"buffer store {k}, {h}", plan.r * plan.MC + plan.t + h * plan.T
+            yield f"buffer load {k}, {h}", np.broadcast_to(k * plan.MC + h * plan.T + plan.t,
+                                                          (plan.C, plan.T))
+
+
+@pytest.mark.parametrize("log_n", [15, 16])
+def test_wide_plan_shapes(log_n):
+    """The built plan's scatters and slice twiddles (``_check_scatters``,
+    ``_check_local_twiddles``)."""
+    plan = _wide_plan(log_n)
+    _check_scatters(plan)
+    _check_local_twiddles(plan)
+
+
+@pytest.mark.parametrize("log_n", [15, 16])
+def test_wide_plan_is_conflict_free(log_n):
+    """Every shared-memory access of the built uint64 plan takes the least
+    wavefronts a warp can (two half-warps of 8-byte words): the pad of one
+    word after every 16 keeps the exchanges and the scatter free of bank
+    conflicts."""
+    plan = _wide_plan(log_n)
+    phases = 32 * plan.words.bytes // 128
+    for name, slots in _accesses(plan):
+        for row in np.asarray(slots).reshape(plan.C, plan.T):
+            for w in range(0, plan.T, 32):
+                assert _wavefronts(row[w:w + 32], plan.words) == phases, name
+
+
+def _wide_ntt_case(log_n: int, mode: str, count: int = 1):
+    """One wide chain's planes and final constants for ``mode``: forward,
+    inverse (N^-1), fold (the decomposition fold's constants) or yhat (the
+    mod-down's yhat emission, the last of ``count`` + 1 primes dropped)."""
+    n = 1 << log_n
+    moduli = tuple(generate_primes(61, count + (mode == "yhat"), n))
+    final = None
+    if mode == "fold":
+        final = moddown_gpu._fold_consts_wide(moduli, n, tuple((q - 1) // 3 for q in moduli))
+    elif mode == "yhat":
+        final = moddown_gpu._down_consts_wide(moduli[:-1], moduli[-1:], n)[6]
+        moduli = moduli[-1:]
+    return moduli, final, _planes(log_n + len(mode), moduli, n, 1)
+
+
+# forward and inverse at both rings; the final constants of the fold and
+# the yhat emission (the same inverse passes) at 2^15
+WIDE_NTT = [(15, "forward"), (15, "inverse"), (15, "fold"), (15, "yhat"),
+            (16, "forward"), (16, "inverse")]
+
+
+@pytest.mark.parametrize("log_n,mode", WIDE_NTT)
+def test_wide_ntt_plan_matches_twin(log_n, mode):
+    """K5' / K7 on the built uint64 plan (Harvey64 butterflies, Shoup
+    companions) against ``ntt_gpu.ntt_twin`` word for word, one 61-bit
+    plane."""
+    moduli, final, x3 = _wide_ntt_case(log_n, mode)
+    n = 1 << log_n
+    got = _ntt(_wide_plan(log_n), x3, moduli, mode != "forward", final)
+    want = ntt_gpu.ntt_twin(torch.from_numpy(x3), moduli, n, mode != "forward", final)
+    assert torch.equal(got, want)
+
+
+# (log2 N, digit_size, base primes, with d), batch 1: at 2^15 D = 2 with
+# d and D = 1 with d (the base plane runs no NTT), at 2^16 D = 1 without d
+# (both planes run one); D = 2 without d at 2^12 below. 36-bit primes
+# (uint64 words, R = 2^64), as the twin's bit-serial products cost time by
+# the bit (61-bit words in the NTT cases and the 2^12 key switch)
+WIDE_KS = [(15, 1, 2, True), (15, 1, 1, True), (16, 1, 1, False)]
+
+
+@pytest.mark.parametrize("log_n,ds,count,with_d", WIDE_KS)
+def test_wide_keyswitch_plan_matches_twin(log_n, ds, count, with_d):
+    """K6 on the built uint64 plan (Harvey64 raise, REDC64 key products)
+    against ``gadget_accumulate_twin`` word for word."""
+    base, ext, y, d, key_a, key_b, want = _ks_inputs(log_n, 36, count, ds, 1, with_d)
+    got = emulate_keyswitch(_wide_plan(log_n), y, d, key_a, key_b, base, ext, ds)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _limbs(t: torch.Tensor):
+    """int64 planes -> the reference's uint32 limb pairs."""
+    return jnp.asarray(convert.to_reference(t))
+
+
+def _limbs_equal(got: torch.Tensor, want) -> None:
+    want = np.asarray(want, dtype=np.uint32)
+    words = want[..., 0, :].astype(np.uint64) | (want[..., 1, :].astype(np.uint64) << np.uint64(32))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64), words)
+
+
+def test_wide_small_plan_matches_reference():
+    """N = 2^12 on C = 4 with the built words a thread (slices of 2^10),
+    one 61-bit plane: the forward against the JAX reference's staged NTT
+    (``ops/ntt.py``) on the CPU, which tests/test_torch_wide.py holds to
+    its ``ntt_pallas_wide``, and the inverse against the twin (the staged
+    NTT's XLA compile takes ~9 s a direction on one core here, and
+    ``ntt_pallas_wide`` in interpret mode minutes)."""
+    n = 1 << 12
+    moduli = tuple(generate_primes(61, 1, n))
+    x3 = _planes(7, moduli, n, 1)
+    rctx = RefContext.build(moduli, n)
+    want = jax.jit(lambda d: ref_ntt.forward_ntt(d, rctx.ntt, rctx.chain))(
+        _limbs(torch.from_numpy(x3[0])))
+    _limbs_equal(_ntt(Plan(12, 2, W64), x3, moduli, False)[0], want)
+    inv = ntt_gpu.ntt_twin(torch.from_numpy(x3), moduli, n, True)
+    assert torch.equal(_ntt(Plan(12, 2, W64), x3, moduli, True), inv)
+
+
+@pytest.mark.parametrize("with_d", [True, False])
+def test_wide_small_keyswitch_plan_matches_twin(with_d):
+    """K6 at N = 2^12 on C = 4, 3 x 61-bit, ds 2 (D = 2, a short last
+    digit group) against ``gadget_accumulate_twin``, which
+    tests/test_torch_wide.py holds to the reference's
+    ``gadget_accumulate_pallas_wide`` (that kernel in interpret mode takes
+    35 s at N = 2^10 on one core, about 10 min at 2^12)."""
+    base, ext, y, d, key_a, key_b, want = _ks_inputs(12, 61, 3, 2, 1, with_d)
+    got = emulate_keyswitch(Plan(12, 2, W64), y, d, key_a, key_b, base, ext, 2)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_wide_plan_mutations_fail(monkeypatch):
+    """The emulation catches a slice twiddle without the rank's lead (r in
+    place of C + r) and a scatter at the uint32 pad (one word after every
+    32, where the uint64 passes read one after every 16)."""
+    n = 1 << 12
+    moduli = tuple(generate_primes(61, 1, n))
+    x3 = _planes(8, moduli, n, 1)
+    want = ntt_gpu.ntt_twin(torch.from_numpy(x3), moduli, n, False)
+    assert torch.equal(_ntt(Plan(12, 2, W64), x3, moduli, False), want)
+    bad = Plan(12, 2, W64)
+    lead = bad.local_twiddle
+    bad.local_twiddle = lambda kS, kR, kL, h, g: lead(kS, kR, kL, h, g) - (bad.C << (kS + kL))
+    assert not torch.equal(_ntt(bad, x3, moduli, False), want)
+    monkeypatch.setattr(sys.modules[__name__], "scatter_forward",
+                        functools.partial(scatter_forward, pad=W32.pad))
+    with pytest.raises(AssertionError, match="read before it was written"):
+        _ntt(Plan(12, 2, W64), x3, moduli, False)
+
+
+@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("digits,own", [(3, -1), (3, 0), (3, 2), (2, 1), (1, 0)])
+def test_wide_ks_barrier_schedule(log_n, digits, own):
+    """K6's digit loop (the big-wide chain's D = 3 at ds 1, with d a base
+    plane skipping digit 0 or 2) on the built uint64 plan's C ranks: the
+    barrier rules of ``check_schedule``, and the arrive before the last
+    read caught."""
+    C = _wide_plan(log_n).C
+    check_schedule([ks_schedule(digits, own)] * C)
+    if digits - (own >= 0) > 1:
+        with pytest.raises(AssertionError, match="overwrite"):
+            check_schedule([ks_schedule(digits, own, arrive_before_read=True)] * C)

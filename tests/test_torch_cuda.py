@@ -312,7 +312,8 @@ def test_mxu_kernel_reads_channel_slices(dev, inverse):
 
 # wide chains: 61-bit at 2^13 (the wide main path), 62-bit with 63-bit
 # specials at 2^14 (the 128 KiB uint64 plane), 40-bit at 2^10, and 61-bit
-# at 2^15 / 2^16 (K5', K6, K8 on clusters of 2 / 4 blocks per plane)
+# at 2^15 / 2^16 (K5', K6 on clusters of 16 blocks of register passes,
+# K8 on clusters of 2 / 4 blocks per plane)
 WIDE = [(61, 1 << 13), (62, 1 << 14), (40, 1 << 10), (61, 1 << 15), (61, 1 << 16)]
 
 
@@ -343,6 +344,75 @@ def test_wide_keyswitch_kernel_matches_twin(dev, bits, degree, digit_size, count
     )
     want = keyswitch_gpu.gadget_accumulate_twin(
         y, ka, kb, base, ext, degree, digit_size, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _wide_ntt_vs_twin(dev, x, moduli, degree, mode):
+    """K5' / K7 at N = 2^15 or 2^16 (ntt_kernel_cluster64, the cluster plan
+    on uint64 words) against its twin: one launch, on a cluster,
+    uint64-equal outputs; ``mode`` as in ``_ntt_vs_twin`` (yhat: ``moduli``
+    dropped from a chain of 2 more)."""
+    inverse = mode != "forward"
+    final = None
+    if mode == "fold":
+        final = moddown_gpu._fold_consts_wide(moduli, degree,
+                                              tuple((q - 1) // 3 for q in moduli))
+    elif mode == "yhat":
+        kept = tuple(port.generate_primes(59, 2, degree))
+        final = moddown_gpu._down_consts_wide(kept, moduli, degree)[6]
+    got, counts = _counted(ntt_gpu.ntt_planes_wide, lambda: ntt_gpu.ntt_planes_wide(
+        x, moduli, degree, inverse, final))
+    assert counts == (1, 1)
+    assert torch.equal(got, ntt_gpu.ntt_twin(x, moduli, degree, inverse, final))
+
+
+# N = 2^15 (the big-wide path) and 2^16: batches of 1, 3 and 4 items of 1
+# to 4 channels, 61-bit primes
+@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+@pytest.mark.parametrize("batch,channels", [(1, 1), (3, 3), (4, 4), (1, 4), (4, 2)])
+@pytest.mark.parametrize("mode", ["forward", "inverse", "fold", "yhat"])
+def test_wide_ntt_cluster_form_matches_twin(dev, degree, batch, channels, mode):
+    """K5' / K7's cluster register-pass form on uint64 words in each mode."""
+    moduli = tuple(port.generate_primes(61, channels, degree))
+    x = _planes(batch * 10 + channels, moduli, degree, (batch,), dev, torch.int64)
+    _wide_ntt_vs_twin(dev, x, moduli, degree, mode)
+
+
+@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+@pytest.mark.parametrize("mode", ["forward", "inverse", "yhat"])
+def test_wide_ntt_cluster_form_unaligned_input(dev, degree, mode):
+    """K5' / K7 on planes one word off a 16-byte boundary (the inverse's
+    runs are 16-byte loads: the wrapper copies them)."""
+    moduli = tuple(port.generate_primes(61, 3, degree))
+    x = _planes(12, moduli, degree, (2,), dev, torch.int64)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    flat[1:] = x.reshape(-1)
+    _wide_ntt_vs_twin(dev, flat[1:].view(x.shape), moduli, degree, mode)
+
+
+# (digit_size, base primes): D = 3 (a special plane runs 3 cluster NTTs in
+# a row), D = 2 with a short last digit group, D = 1 (with d the base
+# planes run no NTT and touch no peer)
+@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+@pytest.mark.parametrize("digit_size,count", [(1, 3), (2, 3), (2, 2)])
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("with_d", [True, False])
+def test_wide_keyswitch_cluster_form_digits(dev, degree, digit_size, count, batch, with_d):
+    """K6 at N = 2^15 and 2^16 (keyswitch_kernel_cluster64) against its
+    twin: one cluster launch, uint64-equal outputs."""
+    base, ext = _chain(count, digit_size, degree, 61)
+    digits = -(-count // digit_size)
+    y = _planes(1, base, degree, (batch,), dev, torch.int64)
+    d = _planes(2, base, degree, (batch,), dev, torch.int64) if with_d else None
+    ka = _planes(3, ext, degree, (digits,), dev, torch.int64)
+    kb = _planes(4, ext, degree, (digits,), dev, torch.int64)
+    got, counts = _counted(keyswitch_gpu.gadget_accumulate_wide,
+                           lambda: keyswitch_gpu.gadget_accumulate_wide(
+                               y, ka, kb, base_moduli=base, ext_moduli=ext, degree=degree,
+                               digit_size=digit_size, d_ntt=d))
+    assert counts == (1, 1)
+    want = keyswitch_gpu.gadget_accumulate_twin(y, ka, kb, base, ext, degree,
+                                                digit_size, d)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

@@ -5,11 +5,11 @@
 
 Imports ``chip_smoke.py`` and ``toy_heaan_ckks_tpu_torch`` from the
 checkout at PATH (its kernels are built there at first use), makes the
-kernel cases of each of its paths small, wide, big and big-wide that it
-has (``chip_smoke.kernel_cases``: the same seeded inputs and shapes in
-every checkout that has the path; copy one ``chip_smoke.py`` into both
-trees for the same cases, e.g. K2 with and without d on the small and big
-paths), and K10 / K11 at the big coeff path's
+kernel cases of each of its paths small, wide, big, big-wide and
+wide-2^16 that it has (``chip_smoke.kernel_cases``: the same seeded
+inputs and shapes in every checkout that has the path; copy one
+``chip_smoke.py`` into both trees for the same cases, e.g. K2 / K6 with
+and without d on every path), and K10 / K11 at the big coeff path's
 planes where it has them (``chip_smoke.coeff_cases``, (4, 4, 2^16) on
 P = 4, under ``K10/K11 big``), and
 prints one JSON line: the card's name and power limit and, per case, the
@@ -29,7 +29,9 @@ CUDA-event ms per call over windows of 10 calls, before the process first
 runs torch.profiler and again after one profiler window. Where the
 checkout has the cluster forms of ``csrc/ntt_cluster.cuh``, ``cluster``
 gives each form's registers, spill bytes, threads and shared bytes a
-block, blocks a cluster and resident clusters.
+block, blocks a cluster and resident clusters (uint32 K4, K3, K2 at
+2^16; uint64 K5' / K7 and K6 at 2^15 and 2^16; null for a form the
+checkout's library does not have).
 """
 
 from __future__ import annotations
@@ -142,7 +144,8 @@ def cluster_forms(smoke) -> dict | None:
     if not hasattr(smoke, "cluster_info"):
         return None
     forms = {}
-    for entry in smoke.CLUSTER_KERNELS.values():
+    tables = (smoke.CLUSTER_KERNELS, getattr(smoke, "WIDE_16_CLUSTER_KERNELS", {}))
+    for entry in (e for table in tables for e in table.values()):
         for kernel, shown, _ in entry.values():
             try:
                 forms[shown] = smoke.cluster_info(kernel)
@@ -173,7 +176,8 @@ def main() -> int:
     sass = _sass_counts() if args.sass else None
     composite = composite_times(smoke, dev) if args.composite else None
     times, device = {}, {}
-    paths = (("SMALL", False), ("WIDE", True), ("BIG", False), ("BIG_WIDE", True))
+    paths = (("SMALL", False), ("WIDE", True), ("BIG", False), ("BIG_WIDE", True),
+             ("WIDE_16", True))
     cases = [(f"{cfg.name} {name}", case)
              for cfg, wide in ((getattr(smoke, p), wide) for p, wide in paths
                                if hasattr(smoke, p))

@@ -7,8 +7,8 @@
 // ops/keyswitch_pallas_wide.py _ks_kernel_wide / _ks_kernel_wide_base,
 // called through gadget_accumulate_pallas_wide, on uint64 words (wide
 // chains, Harvey64 and REDC64 with radix 2^64: ckks_keyswitch64). One block,
-// or one thread-block cluster for a plane above 128 KiB (ntt.cuh PlanePart:
-// 2 or 4 blocks; ntt_cluster.cuh: 16; the reference's factored branches
+// or one thread-block cluster of 16 for a plane above 128 KiB
+// (ntt_cluster.cuh; the reference's factored branches
 // keyswitch_pallas.py:117, :170 and keyswitch_pallas_wide.py:149, :194),
 // owns one (extended channel j, item) pair and loops over the digits
 // itself (the TPU carried nothing
@@ -88,6 +88,19 @@
 // 0.3011-0.3020 for keyswitch_kernel on clusters of 2, and 0.0458-0.0474
 // at 64 registers (58 clusters resident); without d 0.0537-0.0542
 // (0.3002-0.3070; 64 registers 0.0550-0.0563).
+//
+// K6 on uint64 planes of 2^15 and 2^16 (keyswitch_kernel_cluster64<log2
+// N>) runs the same body on the uint64 plan (ntt_cluster.cuh WidePlan: 16
+// blocks of 16 words a thread), the raise a Harvey64 in the cross pass's
+// loads and the key products REDC64s on the slice's words. 126-128
+// registers a thread, no spill; 28 clusters resident at 2^15 (the
+// big-wide path's 16 planes at batch 4 at once), 14 at 2^16. Measured on
+// an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_ab.py, device time;
+// (4, 3 base, 2^15), ds 1, E 4): with d 0.0606-0.0608 ms against
+// 0.2912-0.2929 for keyswitch_kernel on clusters of 2, without d
+// 0.0673-0.0677 (0.2897-0.2929); at (1, 2 base, 2^16) 0.046 (0.209); on
+// clusters of 8 at 2^15 0.064 / 0.085; with 32 words a thread (232
+// registers) 0.140-0.148.
 #include "ntt.cuh"
 #include "ntt_cluster.cuh"
 #include "ntt_reg.cuh"
@@ -163,33 +176,20 @@ keyswitch_kernel(const T* __restrict__ y, long long y_stride,
   }
 }
 
+// One block a plane: keyswitch_kernel's one-block form (uint32 planes
+// below 2^10, uint64 planes up to 2^14; the larger planes run the cluster
+// forms below).
 template <typename T>
-int launch_keyswitch(const T* y, long long y_stride, const T* d,
-                     long long d_stride, const T* key_a, const T* key_b,
-                     const T* c, const T* cs, const T* q, const T* qinv,
-                     const T* tw, const T* twp, T* out0, T* out1, int outer,
+int launch_one_block(const T* y, long long y_stride, const T* d, long long d_stride,
+                     const T* key_a, const T* key_b, const T* c, const T* cs, const T* q,
+                     const T* qinv, const T* tw, const T* twp, T* out0, T* out1, int outer,
                      int base, int ext, int digits, int digit_size, int log_n,
-                     int parts, cudaStream_t stream) {
-  return ckks::launch_planes<T>(
-      keyswitch_kernel<T, false>, keyswitch_kernel<T, true>, outer * ext,
-      log_n, parts, stream, y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
-      qinv, tw, twp, out0, out1, base, ext, digits, digit_size, log_n);
-}
-
-// uint32 planes below 2^10: keyswitch_kernel's one-block form (the uint32
-// planes of 2^16 run keyswitch_kernel_cluster, so the template runs on
-// clusters only on uint64 words).
-int launch_one_block(const uint32_t* y, long long y_stride, const uint32_t* d,
-                     long long d_stride, const uint32_t* key_a, const uint32_t* key_b,
-                     const uint32_t* c, const uint32_t* cs, const uint32_t* q,
-                     const uint32_t* qinv, const uint32_t* tw, const uint32_t* twp,
-                     uint32_t* out0, uint32_t* out1, int outer, int base, int ext,
-                     int digits, int digit_size, int log_n, cudaStream_t stream) {
-  const size_t smem = ckks::plane_bytes<uint32_t>(log_n);
+                     cudaStream_t stream) {
+  const size_t smem = ckks::plane_bytes<T>(log_n);
   const cudaError_t err = ckks::reserve_smem(
-      reinterpret_cast<const void*>(keyswitch_kernel<uint32_t, false>), smem);
+      reinterpret_cast<const void*>(keyswitch_kernel<T, false>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  keyswitch_kernel<uint32_t, false><<<outer * ext, ckks::kThreads, smem, stream>>>(
+  keyswitch_kernel<T, false><<<outer * ext, ckks::kThreads, smem, stream>>>(
       y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp, out0, out1,
       base, ext, digits, digit_size, log_n);
   return static_cast<int>(cudaGetLastError());
@@ -336,29 +336,25 @@ int launch_reg(const uint32_t* y, long long y_stride, const uint32_t* d,
 }
 
 using ckks::BigPlan;
+using ckks::WidePlan;
 
-// K2 on uint32 planes of 2^16 words (see the header): one cluster of
-// BigPlan::kC blocks of N/C/32 threads per (item, extended channel j), the
-// special channels' planes first when d is given.
-__global__ void __launch_bounds__(BigPlan::kThreads, 4)  // 128 registers a thread
-keyswitch_kernel_cluster(const uint32_t* __restrict__ y, long long y_stride,
-                         const uint32_t* __restrict__ d, long long d_stride,
-                         const uint32_t* __restrict__ key_a,
-                         const uint32_t* __restrict__ key_b,
-                         const uint32_t* __restrict__ c,
-                         const uint32_t* __restrict__ cs,
-                         const uint32_t* __restrict__ q,
-                         const uint32_t* __restrict__ qinv,
-                         const uint32_t* __restrict__ tw,
-                         const uint32_t* __restrict__ twp,
-                         uint32_t* __restrict__ out0, uint32_t* __restrict__ out1,
-                         int outer, int base, int ext, int digits, int digit_size) {
-  using Cross = ckks::CrossPass<BigPlan, false>;
-  constexpr long long n = 1LL << ckks::kClusterLogN;
-  constexpr int kC = BigPlan::kC, kM = BigPlan::kM, kT = BigPlan::kThreads;
+// The cluster form of Plan (see the header): one cluster of Plan::kC
+// blocks of N/C/W threads per (item, extended channel j), the special
+// channels' planes first when d is given.
+template <typename Plan, typename T = typename Plan::Word>
+__device__ __forceinline__ void keyswitch_cluster_body(
+    const T* __restrict__ y, long long y_stride, const T* __restrict__ d,
+    long long d_stride, const T* __restrict__ key_a, const T* __restrict__ key_b,
+    const T* __restrict__ c, const T* __restrict__ cs, const T* __restrict__ q,
+    const T* __restrict__ qinv, const T* __restrict__ tw, const T* __restrict__ twp,
+    T* __restrict__ out0, T* __restrict__ out1, int outer, int base, int ext, int digits,
+    int digit_size) {
+  using Cross = ckks::CrossPass<Plan, false>;
+  constexpr long long n = 1LL << Plan::kLogN;
+  constexpr int kC = Plan::kC, kM = Plan::kM, kT = Plan::kThreads, kW = Plan::kW;
   const int tid = threadIdx.x;
   const int r = static_cast<int>(blockIdx.x) & (kC - 1);  // rank in the cluster
-  const int plane = static_cast<int>(blockIdx.x) >> BigPlan::kLogC;
+  const int plane = static_cast<int>(blockIdx.x) >> Plan::kLogC;
   const int spec = ext - base;
   const int heavy = d != nullptr ? outer * spec : 0;
   int j;
@@ -375,22 +371,22 @@ keyswitch_kernel_cluster(const uint32_t* __restrict__ y, long long y_stride,
   // the digits that run the cluster NTT, the same on every rank of the plane
   int ntts = own >= 0 ? digits - 1 : digits;
   if (ntts > 0) ckks::cluster_arrive_relaxed();  // this block has started
-  uint32_t* s = ckks::smem_plane<uint32_t>();
-  const uint32_t qj = q[j], qi = qinv[j];
-  const uint32_t* w = tw + j * n;
-  const uint32_t* wp = twp + j * n;
-  const uint32_t* yi = y + item * y_stride;
+  T* s = ckks::smem_plane<T>();
+  const T qj = q[j], qi = qinv[j];
+  const T* w = tw + j * n;
+  const T* wp = twp + j * n;
+  const T* yi = y + item * y_stride;
   // every word of the epilogue is at slice position m * kT + tid of rank r
   const long long slice = r * kM + tid;
   const long long o_off = (item * ext + j) * n + slice;
-  uint32_t* o0 = out0 + o_off;
-  uint32_t* o1 = out1 + o_off;
+  T* o0 = out0 + o_off;
+  T* o1 = out1 + o_off;
   const long long key_t = ext * n;  // key planes (digits, ext, N)
-  const uint32_t* ka = key_a + j * n + slice;
-  const uint32_t* kb = key_b + j * n + slice;
-  const uint32_t* dj = own >= 0 ? d + item * d_stride + j * n + slice : nullptr;
+  const T* ka = key_a + j * n + slice;
+  const T* kb = key_b + j * n + slice;
+  const T* dj = own >= 0 ? d + item * d_stride + j * n + slice : nullptr;
 
-  uint32_t a[kRegWords];
+  T a[kW];
   bool first = true;
   for (int dt = 0; dt < digits; ++dt) {
     if (dt == own) continue;
@@ -398,20 +394,20 @@ keyswitch_kernel_cluster(const uint32_t* __restrict__ y, long long y_stride,
     const int k0 = dt * digit_size;
     const int k1 = min(k0 + digit_size, base);
     {
-      const uint32_t ck = c[k0 * ext + j], cks = cs[k0 * ext + j];
-      const uint32_t* yk = yi + k0 * n;
+      const T ck = c[k0 * ext + j], cks = cs[k0 * ext + j];
+      const T* yk = yi + k0 * n;
 #pragma unroll
-      for (int h = 0; h < BigPlan::kGroups; ++h)
+      for (int h = 0; h < Plan::kGroups; ++h)
 #pragma unroll
         for (int k = 0; k < kC; ++k)
           a[h * kC + k] = ckks::harvey(ckks::ldg(yk + Cross::first(r, h, tid) + k * kM),
                                        ck, cks, qj);
     }
     for (int k = k0 + 1; k < k1; ++k) {
-      const uint32_t ck = c[k * ext + j], cks = cs[k * ext + j];
-      const uint32_t* yk = yi + k * n;
+      const T ck = c[k * ext + j], cks = cs[k * ext + j];
+      const T* yk = yi + k * n;
 #pragma unroll
-      for (int h = 0; h < BigPlan::kGroups; ++h)
+      for (int h = 0; h < Plan::kGroups; ++h)
 #pragma unroll
         for (int g = 0; g < kC; ++g) {
           const int u = h * kC + g;
@@ -423,20 +419,20 @@ keyswitch_kernel_cluster(const uint32_t* __restrict__ y, long long y_stride,
     Cross::run(a, w, wp, qj);
     // waits for every rank's arrival, scatters, and returns once this
     // block has read its slice for the last time in this digit
-    ckks::cluster_forward<BigPlan>(s, a, r, tid, w, wp, qj);
+    ckks::cluster_forward<Plan>(s, a, r, tid, w, wp, qj);
     if (--ntts > 0) ckks::cluster_arrive();  // the next digit's scatter may come
     // the key products, the own digit's (with the first NTT digit) and the
     // sum over the digits, on the slice's coalesced words
-    const uint32_t* kat = ka + dt * key_t;
-    const uint32_t* kbt = kb + dt * key_t;
+    const T* kat = ka + dt * key_t;
+    const T* kbt = kb + dt * key_t;
     const bool with_own = first && own >= 0;
 #pragma unroll
-    for (int m = 0; m < kRegWords; ++m) {
+    for (int m = 0; m < kW; ++m) {
       const int p = m * kT;
-      uint32_t v0 = ckks::mont_redc(a[m], ckks::ldg(kbt + p), qj, qi);
-      uint32_t v1 = ckks::mont_redc(a[m], ckks::ldg(kat + p), qj, qi);
+      T v0 = ckks::mont_redc(a[m], ckks::ldg(kbt + p), qj, qi);
+      T v1 = ckks::mont_redc(a[m], ckks::ldg(kat + p), qj, qi);
       if (with_own) {
-        const uint32_t x = ckks::ldg(dj + p);
+        const T x = ckks::ldg(dj + p);
         v0 = ckks::add_mod(v0, ckks::mont_redc(x, ckks::ldg(kb + own * key_t + p), qj, qi), qj);
         v1 = ckks::add_mod(v1, ckks::mont_redc(x, ckks::ldg(ka + own * key_t + p), qj, qi), qj);
       }
@@ -451,13 +447,66 @@ keyswitch_kernel_cluster(const uint32_t* __restrict__ y, long long y_stride,
   }
   if (first && own >= 0) {  // D = 1 with d: the own digit alone, no peer
 #pragma unroll 4
-    for (int m = 0; m < kRegWords; ++m) {
+    for (int m = 0; m < kW; ++m) {
       const int p = m * kT;
-      const uint32_t x = ckks::ldg(dj + p);
+      const T x = ckks::ldg(dj + p);
       o0[p] = ckks::mont_redc(x, ckks::ldg(kb + own * key_t + p), qj, qi);
       o1[p] = ckks::mont_redc(x, ckks::ldg(ka + own * key_t + p), qj, qi);
     }
   }
+}
+
+// K2 on uint32 planes of 2^16 words (see the header).
+__global__ void __launch_bounds__(BigPlan::kThreads, 4)  // 128 registers a thread
+keyswitch_kernel_cluster(const uint32_t* __restrict__ y, long long y_stride,
+                         const uint32_t* __restrict__ d, long long d_stride,
+                         const uint32_t* __restrict__ key_a,
+                         const uint32_t* __restrict__ key_b,
+                         const uint32_t* __restrict__ c,
+                         const uint32_t* __restrict__ cs,
+                         const uint32_t* __restrict__ q,
+                         const uint32_t* __restrict__ qinv,
+                         const uint32_t* __restrict__ tw,
+                         const uint32_t* __restrict__ twp,
+                         uint32_t* __restrict__ out0, uint32_t* __restrict__ out1,
+                         int outer, int base, int ext, int digits, int digit_size) {
+  keyswitch_cluster_body<BigPlan>(y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv,
+                                  tw, twp, out0, out1, outer, base, ext, digits,
+                                  digit_size);
+}
+
+// K6 on uint64 planes of 2^kLogN words, 2^15 and 2^16 (see the header).
+template <int kLogN>
+__global__ void __launch_bounds__(WidePlan<kLogN>::kThreads,
+                                  ckks::kWideThreadsPerSm / WidePlan<kLogN>::kThreads)
+keyswitch_kernel_cluster64(const uint64_t* __restrict__ y, long long y_stride,
+                           const uint64_t* __restrict__ d, long long d_stride,
+                           const uint64_t* __restrict__ key_a,
+                           const uint64_t* __restrict__ key_b,
+                           const uint64_t* __restrict__ c,
+                           const uint64_t* __restrict__ cs,
+                           const uint64_t* __restrict__ q,
+                           const uint64_t* __restrict__ qinv,
+                           const uint64_t* __restrict__ tw,
+                           const uint64_t* __restrict__ twp,
+                           uint64_t* __restrict__ out0, uint64_t* __restrict__ out1,
+                           int outer, int base, int ext, int digits, int digit_size) {
+  keyswitch_cluster_body<WidePlan<kLogN>>(y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
+                                          qinv, tw, twp, out0, out1, outer, base, ext,
+                                          digits, digit_size);
+}
+
+template <int kLogN>
+int launch_cluster64(const uint64_t* y, long long y_stride, const uint64_t* d,
+                     long long d_stride, const uint64_t* key_a, const uint64_t* key_b,
+                     const uint64_t* c, const uint64_t* cs, const uint64_t* q,
+                     const uint64_t* qinv, const uint64_t* tw, const uint64_t* twp,
+                     uint64_t* out0, uint64_t* out1, int outer, int base, int ext,
+                     int digits, int digit_size, cudaStream_t stream) {
+  using Plan = WidePlan<kLogN>;
+  return ckks::launch_cluster<Plan, &keyswitch_kernel_cluster64<kLogN>>(
+      outer * ext, Plan::kForwardBytes, stream, y, y_stride, d, d_stride, key_a, key_b, c,
+      cs, q, qinv, tw, twp, out0, out1, outer, base, ext, digits, digit_size);
 }
 
 }  // namespace
@@ -501,6 +550,12 @@ const void* ckks::keyswitch_cluster_kernel() {
   return reinterpret_cast<const void*>(keyswitch_kernel_cluster);
 }
 
+const void* ckks::keyswitch_cluster64_kernel(int log_n) {
+  if (!wide_cluster_shape(log_n)) return nullptr;
+  return log_n == 15 ? reinterpret_cast<const void*>(keyswitch_kernel_cluster64<15>)
+                     : reinterpret_cast<const void*>(keyswitch_kernel_cluster64<16>);
+}
+
 const void* ckks::keyswitch_reg_kernel(int log_n) {
   if (!reg_shape(log_n)) return nullptr;
   return reg_dispatch(log_n, [](auto log_n_c) {
@@ -524,8 +579,10 @@ extern "C" int ckks_reg_info(int kernel, int log_n, int* info) {
   return ckks::reg_info(fn, log_n, info);
 }
 
-// The same on uint64 words (wide chains; qinv = -q^-1 mod 2^64; parts 1, 2
-// or 4: keyswitch_kernel).
+// The same on uint64 words (wide chains; qinv = -q^-1 mod 2^64): parts 1
+// (N <= 2^14, keyswitch_kernel's one-block form) or, at N = 2^15 and 2^16
+// only, above 1 (a cluster: keyswitch_kernel_cluster64 on
+// ckks::WidePlan's C blocks whatever parts says).
 extern "C" int ckks_keyswitch64(const uint64_t* y, long long y_stride,
                                 const uint64_t* d, long long d_stride,
                                 const uint64_t* key_a, const uint64_t* key_b,
@@ -535,7 +592,12 @@ extern "C" int ckks_keyswitch64(const uint64_t* y, long long y_stride,
                                 uint64_t* out0, uint64_t* out1, int outer,
                                 int base, int ext, int digits, int digit_size,
                                 int log_n, int parts, cudaStream_t stream) {
-  return launch_keyswitch(y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
-                          qinv, tw, twp, out0, out1, outer, base, ext, digits,
-                          digit_size, log_n, parts, stream);
+  if (parts > 1 && ckks::wide_cluster_shape(log_n)) {
+    return (log_n == 15 ? launch_cluster64<15> : launch_cluster64<16>)(
+        y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp, out0, out1, outer,
+        base, ext, digits, digit_size, stream);
+  }
+  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_one_block(y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp,
+                          out0, out1, outer, base, ext, digits, digit_size, log_n, stream);
 }

@@ -7,9 +7,8 @@
 // ckks_ntt64), ops/ntt_pallas_wide.py _ntt_kernel_wide (K5) and
 // _ntt_kernel_fac_wide (K5', N >= 2^15) and ops/keyswitch_pallas_wide.py
 // _inv_yhat_kernel_wide (K7, the inverse with a folded final constant).
-// One block, or one cluster of blocks for a plane above 128 KiB (ntt.cuh
-// PlanePart: 2 or 4; ntt_cluster.cuh: 16), owns one (item, channel) plane
-// of N residues: it
+// One block, or one cluster of 16 blocks for a plane above 128 KiB
+// (ntt_cluster.cuh), owns one (item, channel) plane of N residues: it
 // loads the plane once, runs all log2(N) butterfly stages in shared
 // memory, applies the per-channel final constant (inverse only: N^-1, or
 // the folded constants of the mod-down yhat emission / the decomposition
@@ -22,8 +21,9 @@
 //
 // uint32 planes that one block holds (N = 2^10 .. 2^15) run another body,
 // ntt_kernel_reg<log2 N, inverse>, and uint32 planes of 2^16 a third,
-// ntt_kernel_cluster<inverse> (below); the uint64 forms run ntt_kernel
-// above. The one-block design is K2's NTT
+// ntt_kernel_cluster<inverse> (below); uint64 planes up to 2^14 run
+// ntt_kernel above, and those of 2^15 and 2^16 ntt_kernel_cluster64 (the
+// cluster plan on uint64 words, below). The one-block design is K2's NTT
 // (csrc/ntt_reg.cuh): N / 32 threads of 32 words, 5+5+4 stages at 2^14 in
 // registers with one shared-memory exchange between passes, each
 // twiddle loaded once per pass and thread:
@@ -61,6 +61,21 @@
 // 0.014-0.016 ms against 0.102 for ntt_kernel, inverse with the fold
 // 0.014 (0.114), yhat at (4, 3) 0.011 (0.114); on clusters of 8 blocks
 // 0.017 / 0.019-0.020 / 0.013, of 4 0.018-0.019 / 0.018 / 0.018.
+//
+// K5' / K7 on uint64 planes of 2^15 and 2^16 (ntt_kernel_cluster64<log2
+// N, inverse>) run the same plan and body on 64-bit words
+// (ntt_cluster.cuh WidePlan): 16 blocks of 16 words a thread (128 threads
+// at 2^15, 256 at 2^16), the slice's 11 / 12 stages as 4+4+3 / 4+4+4
+// register passes, one 8-byte distributed-shared-memory store a word, a
+// pad of one 8-byte word after 16. 96-126 registers a thread, no spill.
+// ntt_kernel on clusters of 2 / 4 gave the big-wide path's 12 planes 24
+// blocks of 512 threads, 15 one-stage barriers each. Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (tools/kernel_ab.py, device time, (4, 3, 2^15)):
+// forward 0.0127-0.0128 ms against 0.0768-0.0773 for ntt_kernel, inverse
+// with the fold 0.0125-0.0126 (0.0732-0.0736), yhat at (4, 2)
+// 0.0125-0.0127 (0.0730-0.0734); at (1, 2, 2^16) 0.014-0.015 (0.082-0.085).
+// On clusters of 8 at 2^15 0.014-0.015; with 32 words a thread (166-198
+// registers) 0.027-0.028.
 #include "ntt.cuh"
 #include "ntt_cluster.cuh"
 #include "ntt_reg.cuh"
@@ -102,29 +117,18 @@ ntt_kernel(const T* __restrict__ x, long long x_stride, T* __restrict__ out,
   }
 }
 
+// One block a plane: ntt_kernel's one-block form (uint32 planes below
+// 2^10, uint64 planes up to 2^14; the larger planes run the cluster forms
+// below).
 template <typename T>
-int launch_ntt(const T* x, long long x_stride, T* out, const T* tw,
-               const T* twp, const T* q, const T* fin, const T* finp,
-               int outer, int channels, int log_n, int parts, int inverse,
-               cudaStream_t stream) {
-  return ckks::launch_planes<T>(ntt_kernel<T, false>, ntt_kernel<T, true>,
-                                outer * channels, log_n, parts, stream, x,
-                                x_stride, out, tw, twp, q, fin, finp,
-                                channels, log_n, inverse);
-}
-
-// uint32 planes below 2^10: ntt_kernel's one-block form (the uint32 planes
-// of 2^16 run ntt_kernel_cluster, so the template runs on clusters only on
-// uint64 words).
-int launch_one_block(const uint32_t* x, long long x_stride, uint32_t* out,
-                     const uint32_t* tw, const uint32_t* twp, const uint32_t* q,
-                     const uint32_t* fin, const uint32_t* finp, int outer,
-                     int channels, int log_n, int inverse, cudaStream_t stream) {
-  const size_t smem = ckks::plane_bytes<uint32_t>(log_n);
+int launch_one_block(const T* x, long long x_stride, T* out, const T* tw, const T* twp,
+                     const T* q, const T* fin, const T* finp, int outer, int channels,
+                     int log_n, int inverse, cudaStream_t stream) {
+  const size_t smem = ckks::plane_bytes<T>(log_n);
   const cudaError_t err =
-      ckks::reserve_smem(reinterpret_cast<const void*>(ntt_kernel<uint32_t, false>), smem);
+      ckks::reserve_smem(reinterpret_cast<const void*>(ntt_kernel<T, false>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_kernel<uint32_t, false><<<outer * channels, ckks::kThreads, smem, stream>>>(
+  ntt_kernel<T, false><<<outer * channels, ckks::kThreads, smem, stream>>>(
       x, x_stride, out, tw, twp, q, fin, finp, channels, log_n, inverse);
   return static_cast<int>(cudaGetLastError());
 }
@@ -133,21 +137,19 @@ using ckks::kLogRegWords;
 using ckks::kRegWords;
 using ckks::RegPlan;
 
-// dst[m * N/32 + tid] = a[m] * fin (Harvey), or a[m] without fin.
-template <int kLogN>
-__device__ __forceinline__ void store_words(uint32_t* __restrict__ dst,
-                                            const uint32_t (&a)[kRegWords], int tid,
-                                            const uint32_t* __restrict__ f,
-                                            const uint32_t* __restrict__ fp,
-                                            uint32_t q) {
-  constexpr int kT = RegPlan<kLogN>::kThreads;
+// dst[m * N/W + tid] = a[m] * fin (Harvey), or a[m] without fin.
+template <int kLogN, typename Wd = ckks::Words32, typename T = typename Wd::Word>
+__device__ __forceinline__ void store_words(T* __restrict__ dst, const T (&a)[Wd::kCount],
+                                            int tid, const T* __restrict__ f,
+                                            const T* __restrict__ fp, T q) {
+  constexpr int kT = RegPlan<kLogN, Wd>::kThreads;
   if (f != nullptr) {
-    const uint32_t fv = *f, fpv = *fp;
+    const T fv = *f, fpv = *fp;
 #pragma unroll
-    for (int m = 0; m < kRegWords; ++m) dst[m * kT + tid] = ckks::harvey(a[m], fv, fpv, q);
+    for (int m = 0; m < Wd::kCount; ++m) dst[m * kT + tid] = ckks::harvey(a[m], fv, fpv, q);
   } else {
 #pragma unroll
-    for (int m = 0; m < kRegWords; ++m) dst[m * kT + tid] = a[m];
+    for (int m = 0; m < Wd::kCount; ++m) dst[m * kT + tid] = a[m];
   }
 }
 
@@ -213,9 +215,61 @@ int launch_reg(const uint32_t* x, long long x_stride, uint32_t* out,
 }
 
 using ckks::BigPlan;
+using ckks::WidePlan;
 
-// K4 on uint32 planes of 2^16 words (see the header): one cluster of
-// BigPlan::kC blocks of N/C/32 threads per (item, channel) plane.
+// The cluster form of Plan (see the header): one cluster of Plan::kC
+// blocks of N/C/W threads per (item, channel) plane.
+template <typename Plan, bool kInverse, typename T = typename Plan::Word>
+__device__ __forceinline__ void ntt_cluster_body(const T* __restrict__ x, long long x_stride,
+                                                 T* __restrict__ out, const T* __restrict__ tw,
+                                                 const T* __restrict__ twp,
+                                                 const T* __restrict__ q,
+                                                 const T* __restrict__ fin,
+                                                 const T* __restrict__ finp, int channels) {
+  using Cross = ckks::CrossPass<Plan, kInverse>;
+  constexpr long long n = 1LL << Plan::kLogN;
+  constexpr int kC = Plan::kC, kM = Plan::kM, kW = Plan::kW;
+  ckks::cluster_arrive_relaxed();  // this block has started
+  T* s = ckks::smem_plane<T>();
+  const int tid = threadIdx.x;
+  const int r = static_cast<int>(blockIdx.x) & (kC - 1);  // rank in the cluster
+  const int plane = static_cast<int>(blockIdx.x) >> Plan::kLogC;
+  const int ch = plane % channels;
+  const long long item = plane / channels;
+  const T qc = q[ch];
+  const T* src = x + item * x_stride + ch * n;
+  T* dst = out + (item * channels + ch) * n;
+  const T* w = tw + ch * n;
+  const T* wp = twp + ch * n;
+
+  T a[kW];
+  if constexpr (!kInverse) {
+#pragma unroll
+    for (int h = 0; h < Plan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k)
+        a[h * kC + k] = ckks::ldg(src + Cross::first(r, h, tid) + k * kM);
+    Cross::run(a, w, wp, qc);
+    ckks::cluster_forward<Plan>(s, a, r, tid, w, wp, qc);
+    store_words<Plan::kLogM, typename Plan::Words>(
+        dst + r * kM, a, tid, fin == nullptr ? nullptr : fin + ch,
+        fin == nullptr ? nullptr : finp + ch, qc);
+  } else {
+    ckks::load_runs<ckks::RegLast<Plan::kLogM, typename Plan::Words>>(src + r * kM, a, tid);
+    ckks::cluster_inverse<Plan>(s, a, r, tid, w, wp, qc);
+    if (fin != nullptr) {
+      const T fv = fin[ch], fpv = finp[ch];
+#pragma unroll
+      for (int m = 0; m < kW; ++m) a[m] = ckks::harvey(a[m], fv, fpv, qc);
+    }
+#pragma unroll
+    for (int h = 0; h < Plan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k) dst[Cross::first(r, h, tid) + k * kM] = a[h * kC + k];
+  }
+}
+
+// K4 on uint32 planes of 2^16 words (see the header).
 template <bool kInverse>
 __global__ void __launch_bounds__(BigPlan::kThreads, BigPlan::kMinBlocks)
 ntt_kernel_cluster(const uint32_t* __restrict__ x, long long x_stride,
@@ -223,46 +277,21 @@ ntt_kernel_cluster(const uint32_t* __restrict__ x, long long x_stride,
                    const uint32_t* __restrict__ twp, const uint32_t* __restrict__ q,
                    const uint32_t* __restrict__ fin,
                    const uint32_t* __restrict__ finp, int channels) {
-  using Cross = ckks::CrossPass<BigPlan, kInverse>;
-  constexpr long long n = 1LL << ckks::kClusterLogN;
-  constexpr int kC = BigPlan::kC, kM = BigPlan::kM;
-  ckks::cluster_arrive_relaxed();  // this block has started
-  uint32_t* s = ckks::smem_plane<uint32_t>();
-  const int tid = threadIdx.x;
-  const int r = static_cast<int>(blockIdx.x) & (kC - 1);  // rank in the cluster
-  const int plane = static_cast<int>(blockIdx.x) >> BigPlan::kLogC;
-  const int ch = plane % channels;
-  const long long item = plane / channels;
-  const uint32_t qc = q[ch];
-  const uint32_t* src = x + item * x_stride + ch * n;
-  uint32_t* dst = out + (item * channels + ch) * n;
-  const uint32_t* w = tw + ch * n;
-  const uint32_t* wp = twp + ch * n;
+  ntt_cluster_body<BigPlan, kInverse>(x, x_stride, out, tw, twp, q, fin, finp, channels);
+}
 
-  uint32_t a[kRegWords];
-  if constexpr (!kInverse) {
-#pragma unroll
-    for (int h = 0; h < BigPlan::kGroups; ++h)
-#pragma unroll
-      for (int k = 0; k < kC; ++k)
-        a[h * kC + k] = ckks::ldg(src + Cross::first(r, h, tid) + k * kM);
-    Cross::run(a, w, wp, qc);
-    ckks::cluster_forward<BigPlan>(s, a, r, tid, w, wp, qc);
-    store_words<BigPlan::kLogM>(dst + r * kM, a, tid, fin == nullptr ? nullptr : fin + ch,
-                                fin == nullptr ? nullptr : finp + ch, qc);
-  } else {
-    ckks::load_runs<ckks::RegLast<BigPlan::kLogM>>(src + r * kM, a, tid);
-    ckks::cluster_inverse<BigPlan>(s, a, r, tid, w, wp, qc);
-    if (fin != nullptr) {
-      const uint32_t fv = fin[ch], fpv = finp[ch];
-#pragma unroll
-      for (int m = 0; m < kRegWords; ++m) a[m] = ckks::harvey(a[m], fv, fpv, qc);
-    }
-#pragma unroll
-    for (int h = 0; h < BigPlan::kGroups; ++h)
-#pragma unroll
-      for (int k = 0; k < kC; ++k) dst[Cross::first(r, h, tid) + k * kM] = a[h * kC + k];
-  }
+// K5' / K7 on uint64 planes of 2^kLogN words, 2^15 and 2^16 (see the
+// header).
+template <int kLogN, bool kInverse>
+__global__ void __launch_bounds__(WidePlan<kLogN>::kThreads,
+                                  ckks::kWideThreadsPerSm / WidePlan<kLogN>::kThreads)
+ntt_kernel_cluster64(const uint64_t* __restrict__ x, long long x_stride,
+                     uint64_t* __restrict__ out, const uint64_t* __restrict__ tw,
+                     const uint64_t* __restrict__ twp, const uint64_t* __restrict__ q,
+                     const uint64_t* __restrict__ fin,
+                     const uint64_t* __restrict__ finp, int channels) {
+  ntt_cluster_body<WidePlan<kLogN>, kInverse>(x, x_stride, out, tw, twp, q, fin, finp,
+                                              channels);
 }
 
 template <bool kInverse>
@@ -273,6 +302,23 @@ int launch_cluster(const uint32_t* x, long long x_stride, uint32_t* out,
   return ckks::launch_cluster<BigPlan, &ntt_kernel_cluster<kInverse>>(
       outer * channels, kInverse ? BigPlan::kInverseBytes : BigPlan::kForwardBytes,
       stream, x, x_stride, out, tw, twp, q, fin, finp, channels);
+}
+
+template <int kLogN, bool kInverse>
+int launch_cluster64(const uint64_t* x, long long x_stride, uint64_t* out,
+                     const uint64_t* tw, const uint64_t* twp, const uint64_t* q,
+                     const uint64_t* fin, const uint64_t* finp, int outer, int channels,
+                     cudaStream_t stream) {
+  using Plan = WidePlan<kLogN>;
+  return ckks::launch_cluster<Plan, &ntt_kernel_cluster64<kLogN, kInverse>>(
+      outer * channels, kInverse ? Plan::kInverseBytes : Plan::kForwardBytes, stream, x,
+      x_stride, out, tw, twp, q, fin, finp, channels);
+}
+
+template <int kLogN>
+const void* cluster64_kernel(bool inverse) {
+  return inverse ? reinterpret_cast<const void*>(ntt_kernel_cluster64<kLogN, true>)
+                 : reinterpret_cast<const void*>(ntt_kernel_cluster64<kLogN, false>);
 }
 
 }  // namespace
@@ -312,16 +358,31 @@ extern "C" int ckks_ntt(const uint32_t* x, long long x_stride, uint32_t* out,
                           log_n, inverse, stream);
 }
 
-// The same on uint64 words (wide chains, radix-2^64 Shoup companions;
-// parts 1, 2 or 4: ntt_kernel).
+// The same on uint64 words (wide chains, radix-2^64 Shoup companions):
+// parts 1 (N <= 2^14, ntt_kernel's one-block form) or, at N = 2^15 and
+// 2^16 only, above 1 (a cluster: ntt_kernel_cluster64 on
+// ckks::WidePlan's C blocks whatever parts says; the inverse reads x as
+// 16-byte vectors: x 16-byte aligned, x_stride even).
 extern "C" int ckks_ntt64(const uint64_t* x, long long x_stride,
                           uint64_t* out, const uint64_t* tw,
                           const uint64_t* twp, const uint64_t* q,
                           const uint64_t* fin, const uint64_t* finp,
                           int outer, int channels, int log_n, int parts,
                           int inverse, cudaStream_t stream) {
-  return launch_ntt(x, x_stride, out, tw, twp, q, fin, finp, outer, channels,
-                    log_n, parts, inverse, stream);
+  if (parts > 1 && ckks::wide_cluster_shape(log_n)) {
+    auto run = [&](auto log_n_c) {
+      constexpr int kLogN = decltype(log_n_c)::value;
+      return inverse ? launch_cluster64<kLogN, true>(x, x_stride, out, tw, twp, q, fin,
+                                                     finp, outer, channels, stream)
+                     : launch_cluster64<kLogN, false>(x, x_stride, out, tw, twp, q, fin,
+                                                      finp, outer, channels, stream);
+    };
+    return log_n == 15 ? run(std::integral_constant<int, 15>{})
+                       : run(std::integral_constant<int, 16>{});
+  }
+  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_one_block(x, x_stride, out, tw, twp, q, fin, finp, outer, channels,
+                          log_n, inverse, stream);
 }
 
 const void* ckks::ntt_reg_kernel(int log_n, bool inverse) {
@@ -338,24 +399,49 @@ const void* ckks::ntt_cluster_kernel(bool inverse) {
 }
 
 // The cluster kernel `kernel` (ckks::ClusterKernel: 0 K3, 1 K4 forward, 2 K4
-// inverse, 3 K2) as built and as it fits the current device (ckks::cluster_info:
-// registers, spill bytes, threads, shared bytes, blocks a cluster, resident
-// clusters). Returns cudaErrorInvalidValue for another id.
+// inverse, 3 K2; uint64 4 K5' forward, 5 K5'/K7 inverse, 6 K6 at 2^15, 7, 8,
+// 9 the same at 2^16) as built and as it fits the current device
+// (ckks::cluster_info: registers, spill bytes, threads, shared bytes, blocks
+// a cluster, resident clusters). Returns cudaErrorInvalidValue for another
+// id.
 extern "C" int ckks_cluster_info(int kernel, int* info) {
   using ckks::BigPlan;
   switch (kernel) {
     case ckks::kClusterModDown:
-      return ckks::cluster_info(ckks::moddown_cluster_kernel(), BigPlan::kForwardBytes, info);
+      return ckks::cluster_info<BigPlan>(ckks::moddown_cluster_kernel(),
+                                         BigPlan::kForwardBytes, info);
     case ckks::kClusterNttForward:
-      return ckks::cluster_info(ckks::ntt_cluster_kernel(false), BigPlan::kForwardBytes, info);
+      return ckks::cluster_info<BigPlan>(ckks::ntt_cluster_kernel(false),
+                                         BigPlan::kForwardBytes, info);
     case ckks::kClusterNttInverse:
-      return ckks::cluster_info(ckks::ntt_cluster_kernel(true), BigPlan::kInverseBytes, info);
+      return ckks::cluster_info<BigPlan>(ckks::ntt_cluster_kernel(true),
+                                         BigPlan::kInverseBytes, info);
     case ckks::kClusterKeySwitch:
-      return ckks::cluster_info(ckks::keyswitch_cluster_kernel(), BigPlan::kForwardBytes,
-                                info);
+      return ckks::cluster_info<BigPlan>(ckks::keyswitch_cluster_kernel(),
+                                         BigPlan::kForwardBytes, info);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  const int wide = kernel - ckks::kClusterWide;
+  if (wide < 0 || wide >= 2 * ckks::kClusterWideIds)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto info64 = [&](auto log_n_c) {
+    constexpr int kLogN = decltype(log_n_c)::value;
+    using Plan = WidePlan<kLogN>;
+    switch (wide % ckks::kClusterWideIds) {
+      case 0:
+        return ckks::cluster_info<Plan>(cluster64_kernel<kLogN>(false),
+                                        Plan::kForwardBytes, info);
+      case 1:
+        return ckks::cluster_info<Plan>(cluster64_kernel<kLogN>(true),
+                                        Plan::kInverseBytes, info);
+      default:
+        return ckks::cluster_info<Plan>(ckks::keyswitch_cluster64_kernel(kLogN),
+                                        Plan::kForwardBytes, info);
+    }
+  };
+  return wide < ckks::kClusterWideIds ? info64(std::integral_constant<int, 15>{})
+                                      : info64(std::integral_constant<int, 16>{});
 }
 
 extern "C" const char* ckks_error_string(int code) {

@@ -19,9 +19,10 @@
 // overflow 64 bits for the 63-bit special primes of a 62-bit chain.
 //
 // A plane is held on chip for the whole transform. Up to 128 KiB (uint32
-// N <= 2^15, uint64 N <= 2^14) one block holds it; a larger plane (uint32
-// 2^16, uint64 2^15: P = 2; uint64 2^16: P = 4) is spread over a
-// thread-block cluster of P blocks (PlanePart), 128 KiB each: the stages
+// N <= 2^15, uint64 N <= 2^14) one block holds it; a larger plane of the
+// uint64 mod-down K8 (2^15: P = 2; 2^16: P = 4) is spread over a
+// thread-block cluster of P blocks (PlanePart), 128 KiB each (the other
+// kernels' larger planes run ntt_cluster.cuh's plan): the stages
 // with d < N/P stay in each block's shared memory, and only the first
 // log2 P forward (last inverse) stages cross blocks, through distributed
 // shared memory between cluster barriers. This replaces the reference's

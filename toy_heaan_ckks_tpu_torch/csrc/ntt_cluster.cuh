@@ -1,30 +1,36 @@
-// The register-pass NTT of one uint32 plane of N = 2^16 words spread over
-// a thread-block cluster of C blocks, shared by the cluster forms of K4
-// (csrc/ntt.cu, ntt_kernel_cluster), K3 / K3' (csrc/moddown.cu,
-// moddown_kernel_cluster) and K2 (csrc/keyswitch.cu,
-// keyswitch_kernel_cluster, one forward a digit). The stage, group and twiddle conventions are
-// those of ntt.cuh (tree order, the compact table of the whole plane), so
-// the words equal the twins' and the one-block forms'.
+// The register-pass NTT of one plane spread over a thread-block cluster
+// of C blocks, shared by the cluster forms of K4 (csrc/ntt.cu,
+// ntt_kernel_cluster, uint32 N = 2^16), K5' / K7 (ntt_kernel_cluster64,
+// uint64 N = 2^15, 2^16), K3 / K3' (csrc/moddown.cu,
+// moddown_kernel_cluster, uint32 2^16), K2 and K6 (csrc/keyswitch.cu,
+// keyswitch_kernel_cluster / keyswitch_kernel_cluster64, one forward a
+// digit). The stage, group and twiddle conventions are those of ntt.cuh
+// (tree order, the compact table of the whole plane), so the words equal
+// the twins' and the one-block forms'. The plan is generic over the word
+// (ntt_reg.cuh RegWords): W words a thread, uint32 planes W = 32
+// (BigPlan), uint64 planes W = 16 (WidePlan).
 //
 // Rank r of the cluster holds the slice [r*M, (r+1)*M), M = N/C, in its
-// shared memory; its N/C/32 threads hold 32 words each (C = 16: 128
-// threads, slices of 2^12). The plan (ClusterPlan):
+// shared memory; its M/W threads hold W words each (uint32 2^16 on C = 16:
+// 128 threads, slices of 2^12). The plan (ClusterPlan):
 //
 // - Cross pass (stages 0 .. log2 C - 1, those with d >= M). Thread t of
-//   rank r holds 32/C groups; group h is the C words j + k*M, k < C, at
+//   rank r holds W/C groups; group h is the C words j + k*M, k < C, at
 //   a[h*C + k], j = r*M/C + h*T + t (T threads a block), so its loads are
 //   coalesced over t and the groups are spread evenly over the ranks. The
 //   stage-l butterflies take the table entries 2^l + g, the same C - 1
 //   words for every thread (CrossPass).
 // - Forward: after the cross pass, word k of group j goes to rank k's
-//   shared memory at pad(j) through distributed shared memory, one 4-byte
-//   store each (the pad word after every 32 breaks 16-byte alignment),
-//   then one cluster barrier. From there each block runs the one-block
-//   register passes of a 2^(16 - log2 C)-word plane (ntt_reg.cuh RegPlan:
-//   5+4+3 at C = 16) on its slice alone, the twiddle of local stage s' and
-//   slice group g' at (C + r) * 2^s' + g' (SlicePass: global stage
-//   log2 C + s', global group r * 2^s' + g'), and goes back to pass 0's
-//   layout for a coalesced store.
+//   shared memory at pad(j) through distributed shared memory, one store
+//   of the word's size each (st.shared::cluster.u32 / .u64: the pad word
+//   after every 128 bytes breaks 16-byte alignment), then one cluster
+//   barrier. From there each block runs the one-block register passes of
+//   a 2^(log2 N - log2 C)-word plane (ntt_reg.cuh RegPlan: 5+4+3 at
+//   uint32 C = 16, 4+4+4 at uint64 2^16 and 4+4+3 at 2^15 on C = 16) on
+//   its slice alone, the twiddle of local stage s' and slice group g' at
+//   (C + r) * 2^s' + g' (SlicePass: global stage log2 C + s', global
+//   group r * 2^s' + g'), and goes back to pass 0's layout for a coalesced
+//   store.
 // - Inverse: the local Gentleman-Sande passes on the slice, from its runs
 //   of adjacent words (16-byte loads, as ntt_kernel_reg), then each word of
 //   pass 0 goes to its cross-pass owner through distributed shared memory
@@ -35,10 +41,16 @@
 //   starts and waits just before the scatter, so no block writes to a
 //   peer that has not started; the barrier after the scatter is the last
 //   distributed access, so no block exits while a peer may still write to
-//   it. A kernel that runs the forward again on the same slice (K2, once a
-//   digit) arrives between the two, after its last read of the slice. Block barriers: 3 in the forward's local passes, 2 in the
+//   it. A kernel that runs the forward again on the same slice (K2 / K6,
+//   once a digit) arrives between the two, after its last read of the
+//   slice. Block barriers: 3 in the forward's local passes, 2 in the
 //   inverse's (15 one-stage barriers and 2 cluster barriers of the
 //   ntt.cuh template's forward on clusters of 2).
+// - Shared-memory banks: a uint64 word spans two 4-byte banks and a warp's
+//   8-byte accesses go as two half-warps of 16, so the pad of one 8-byte
+//   word after every 16 keeps the uint64 passes' exchanges (strides 1, and
+//   8 or 16 in the last pass's runs) and the scatter free of conflicts
+//   (tests/test_torch_cluster_plan.py counts them).
 #pragma once
 
 #include <utility>
@@ -47,30 +59,51 @@
 
 namespace ckks {
 
-constexpr int kClusterLogN = 16;  // the ring of the cluster forms
+constexpr int kClusterLogN = 16;  // the ring of the uint32 cluster forms
 // C = 16 blocks a plane, a non-portable cluster size: of 4, 8 and 16 the
 // fastest at the big path's shapes (more blocks of fewer threads won,
 // though 15/16 of the words then cross SMs in the scatter)
 constexpr int kLogCluster = 4;
 
-template <int kLogN, int kLogBlocks>
+template <int kLogRing, int kLogBlocks, typename Wd = Words32>
 struct ClusterPlan {
+  using Words = Wd;
+  using Word = typename Wd::Word;
+  static constexpr int kLogN = kLogRing;
   static constexpr int kLogC = kLogBlocks;
   static constexpr int kC = 1 << kLogC;
   static constexpr int kLogM = kLogN - kLogC;  // a rank's slice
   static constexpr int kM = 1 << kLogM;
-  static constexpr int kThreads = RegPlan<kLogM>::kThreads;
-  static constexpr int kGroups = kRegWords >> kLogC;  // cross-pass groups a thread
-  static constexpr int kPerRank = kM >> kLogC;        // cross-pass groups a rank
+  static constexpr int kW = Wd::kCount;  // words a thread
+  static constexpr int kThreads = RegPlan<kLogM, Wd>::kThreads;
+  static constexpr int kGroups = kW >> kLogC;  // cross-pass groups a thread
+  static constexpr int kPerRank = kM >> kLogC;  // cross-pass groups a rank
   // 1024 threads an SM: 64 registers a thread
-  static constexpr int kMinBlocks = RegPlan<kLogM>::kMinBlocksTwo;
+  static constexpr int kMinBlocks = RegPlan<kLogM, Wd>::kMinBlocksTwo;
   // the padded slice; the inverse adds the M-word buffer of the scatter
-  static constexpr size_t kForwardBytes = sizeof(uint32_t) * pad(kM);
-  static constexpr size_t kInverseBytes = kForwardBytes + sizeof(uint32_t) * kM;
-  static_assert(kLogC >= 1 && kGroups >= 1 && kLogM >= 10, "a plan of 2..32 ranks");
+  static constexpr size_t kForwardBytes = sizeof(Word) * Wd::pad(kM);
+  static constexpr size_t kInverseBytes = kForwardBytes + sizeof(Word) * kM;
+  static_assert(kLogC >= 1 && kGroups >= 1 && kLogM >= 10, "a plan of 2..W ranks");
 };
 
 using BigPlan = ClusterPlan<kClusterLogN, kLogCluster>;
+
+// The uint64 cluster forms (N = 2^15 and 2^16, planes above 128 KiB): 16
+// words a thread, 16 blocks a plane at both rings
+// (tests/test_torch_cluster_plan.py reads these three constants).
+constexpr int kLogWideWords = 4;
+constexpr int kWideLogCluster15 = 4;
+constexpr int kWideLogCluster16 = 4;
+using WideWords = RegWords<uint64_t, kLogWideWords>;
+template <int kLogN>
+constexpr int kWideLogCluster = kLogN == 15 ? kWideLogCluster15 : kWideLogCluster16;
+template <int kLogN>
+using WidePlan = ClusterPlan<kLogN, kWideLogCluster<kLogN>, WideWords>;
+// the rings of the uint64 cluster forms
+constexpr bool wide_cluster_shape(int log_n) { return log_n == 15 || log_n == 16; }
+// resident threads an SM that the uint64 cluster kernels promise ptxas
+// (__launch_bounds__): 512, up to 128 registers a thread
+constexpr int kWideThreadsPerSm = 512;
 
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -85,7 +118,8 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // The shared::cluster address of this block's shared word p in rank `rank`.
-__device__ __forceinline__ uint32_t cluster_addr(const uint32_t* p, uint32_t rank) {
+template <typename T>
+__device__ __forceinline__ uint32_t cluster_addr(const T* p, uint32_t rank) {
   const uint32_t local = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   uint32_t remote;
   asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
@@ -97,28 +131,31 @@ __device__ __forceinline__ void cluster_store(uint32_t addr, uint32_t v) {
   asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v));
 }
 
+// An 8-byte store: addr 8-byte aligned (a slot of a uint64 slice).
+__device__ __forceinline__ void cluster_store(uint32_t addr, uint64_t v) {
+  asm volatile("st.shared::cluster.u64 [%0], %1;\n" ::"r"(addr), "l"(v));
+}
+
 // Stage kL of a pass of 2^kR-word groups on group kH of a[] (RegPass::stage
 // / RegPassInv::stage): group g's twiddle is table entry k0 + g.
-template <int kR, int kH, int kL, bool kInverse>
-__device__ __forceinline__ void pass_stage(uint32_t (&a)[kRegWords], int k0,
-                                           const uint32_t* __restrict__ tw,
-                                           const uint32_t* __restrict__ twp,
-                                           uint32_t q) {
+template <int kR, int kH, int kL, bool kInverse, typename T, int kW>
+__device__ __forceinline__ void pass_stage(T (&a)[kW], int k0, const T* __restrict__ tw,
+                                           const T* __restrict__ twp, T q) {
   constexpr int kHalf = 1 << (kR - 1 - kL);
 #pragma unroll
   for (int g = 0; g < (1 << kL); ++g) {
-    const uint32_t w = ldg(tw + k0 + g);
-    const uint32_t wp = ldg(twp + k0 + g);
+    const T w = ldg(tw + k0 + g);
+    const T wp = ldg(twp + k0 + g);
 #pragma unroll
     for (int i = 0; i < kHalf; ++i) {
       const int u = (kH << kR) + 2 * kHalf * g + i;
-      const uint32_t xu = a[u];
+      const T xu = a[u];
       if constexpr (kInverse) {
-        const uint32_t xv = a[u + kHalf];
+        const T xv = a[u + kHalf];
         a[u] = add_mod(xu, xv, q);
         a[u + kHalf] = harvey(sub_mod(xu, xv, q), w, wp, q);
       } else {
-        const uint32_t xv = harvey(a[u + kHalf], w, wp, q);
+        const T xv = harvey(a[u + kHalf], w, wp, q);
         a[u] = add_mod(xu, xv, q);
         a[u + kHalf] = sub_mod(xu, xv, q);
       }
@@ -133,15 +170,17 @@ constexpr int kStageOf = kInverse ? kR - 1 - kI : kI;
 // Local pass (kS, kR) of a rank's slice of 2^kLogM words: RegPass's words
 // and butterflies, the twiddle of local stage kS + kL at (lead << (kS +
 // kL)) + (blk << kL) + g, lead = C + rank (1: RegPass's own rule).
-template <int kLogM, int kS, int kR, bool kInverse>
-struct SlicePass : RegPass<kLogM, kS, kR> {
-  using Base = RegPass<kLogM, kS, kR>;
+template <int kLogM, int kS, int kR, bool kInverse, typename Wd = Words32>
+struct SlicePass : RegPass<kLogM, kS, kR, Wd> {
+  using Base = RegPass<kLogM, kS, kR, Wd>;
+  using T = typename Base::T;
+  static constexpr int kW = Base::kW;
 
   template <int kH, int... kI>
-  __device__ __forceinline__ static void group(
-      uint32_t (&a)[kRegWords], int t, int lead, std::integer_sequence<int, kI...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
+  __device__ __forceinline__ static void group(T (&a)[kW], int t, int lead,
+                                               std::integer_sequence<int, kI...>,
+                                               const T* __restrict__ tw,
+                                               const T* __restrict__ twp, T q) {
     const int blk = Base::gid(t, kH) >> Base::kLogOff;
     (pass_stage<kR, kH, kStageOf<kInverse, kR, kI>, kInverse>(
          a, (lead << (kS + kStageOf<kInverse, kR, kI>)) +
@@ -151,27 +190,26 @@ struct SlicePass : RegPass<kLogM, kS, kR> {
   }
 
   template <int... kH>
-  __device__ __forceinline__ static void groups(
-      uint32_t (&a)[kRegWords], int t, int lead, std::integer_sequence<int, kH...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
+  __device__ __forceinline__ static void groups(T (&a)[kW], int t, int lead,
+                                                std::integer_sequence<int, kH...>,
+                                                const T* __restrict__ tw,
+                                                const T* __restrict__ twp, T q) {
     (group<kH>(a, t, lead, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
   }
 
-  __device__ __forceinline__ static void run(uint32_t (&a)[kRegWords], int t,
-                                             int lead,
-                                             const uint32_t* __restrict__ tw,
-                                             const uint32_t* __restrict__ twp,
-                                             uint32_t q) {
+  __device__ __forceinline__ static void run(T (&a)[kW], int t, int lead,
+                                             const T* __restrict__ tw,
+                                             const T* __restrict__ twp, T q) {
     groups(a, t, lead, std::make_integer_sequence<int, Base::kGroups>{}, tw, twp, q);
   }
 };
 
-// The cross pass of a plan: 32/C groups of C words a thread, stages
+// The cross pass of a plan: W/C groups of C words a thread, stages
 // 0 .. log2 C - 1 (the inverse from log2 C - 1 down), table entries
 // 2^l + g.
 template <typename Plan, bool kInverse>
 struct CrossPass {
+  using T = typename Plan::Word;
   static constexpr int kLogC = Plan::kLogC;
 
   // plane position of group h's word 0 for thread t of rank r
@@ -180,27 +218,25 @@ struct CrossPass {
   }
 
   template <int kH, int... kI>
-  __device__ __forceinline__ static void group(
-      uint32_t (&a)[kRegWords], std::integer_sequence<int, kI...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
+  __device__ __forceinline__ static void group(T (&a)[Plan::kW],
+                                               std::integer_sequence<int, kI...>,
+                                               const T* __restrict__ tw,
+                                               const T* __restrict__ twp, T q) {
     (pass_stage<kLogC, kH, kStageOf<kInverse, kLogC, kI>, kInverse>(
          a, 1 << kStageOf<kInverse, kLogC, kI>, tw, twp, q),
      ...);
   }
 
   template <int... kH>
-  __device__ __forceinline__ static void groups(
-      uint32_t (&a)[kRegWords], std::integer_sequence<int, kH...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
+  __device__ __forceinline__ static void groups(T (&a)[Plan::kW],
+                                                std::integer_sequence<int, kH...>,
+                                                const T* __restrict__ tw,
+                                                const T* __restrict__ twp, T q) {
     (group<kH>(a, std::make_integer_sequence<int, kLogC>{}, tw, twp, q), ...);
   }
 
-  __device__ __forceinline__ static void run(uint32_t (&a)[kRegWords],
-                                             const uint32_t* __restrict__ tw,
-                                             const uint32_t* __restrict__ twp,
-                                             uint32_t q) {
+  __device__ __forceinline__ static void run(T (&a)[Plan::kW], const T* __restrict__ tw,
+                                             const T* __restrict__ twp, T q) {
     groups(a, std::make_integer_sequence<int, Plan::kGroups>{}, tw, twp, q);
   }
 };
@@ -212,29 +248,29 @@ struct CrossPass {
 // and no peer touching s. Every thread arrived on the cluster barrier
 // when its block started, or after its last read of s in an earlier
 // forward.
-template <typename Plan>
-__device__ __forceinline__ void cluster_forward(uint32_t* s, uint32_t (&a)[kRegWords],
-                                                int r, int t,
-                                                const uint32_t* __restrict__ tw,
-                                                const uint32_t* __restrict__ twp,
-                                                uint32_t q) {
+template <typename Plan, typename T = typename Plan::Word>
+__device__ __forceinline__ void cluster_forward(T* s, T (&a)[Plan::kW], int r, int t,
+                                                const T* __restrict__ tw,
+                                                const T* __restrict__ twp, T q) {
+  using Wd = typename Plan::Words;
   constexpr int kLogM = Plan::kLogM;
-  using Local = RegPlan<kLogM>;
+  using Local = RegPlan<kLogM, Wd>;
   cluster_wait();  // every block of the cluster has started
 #pragma unroll
   for (int k = 0; k < Plan::kC; ++k) {
     const uint32_t base = cluster_addr(s, k);
 #pragma unroll
     for (int h = 0; h < Plan::kGroups; ++h)
-      cluster_store(base + 4u * pad(CrossPass<Plan, false>::first(r, h, t)),
+      cluster_store(base + static_cast<uint32_t>(sizeof(T)) *
+                               Wd::pad(CrossPass<Plan, false>::first(r, h, t)),
                     a[h * Plan::kC + k]);
   }
   cluster_arrive();
   cluster_wait();  // the slice is whole; no peer writes to s again
 
   const int lead = Plan::kC + r;
-  using P0 = SlicePass<kLogM, 0, kLogRegWords, false>;
-  using P1 = SlicePass<kLogM, kLogRegWords, Local::kR1, false>;
+  using P0 = SlicePass<kLogM, 0, Wd::kLog, false, Wd>;
+  using P1 = SlicePass<kLogM, Wd::kLog, Local::kR1, false, Wd>;
   P0::load(s, a, t);
   P0::run(a, t, lead, tw, twp, q);
   P0::store(s, a, t);
@@ -242,37 +278,36 @@ __device__ __forceinline__ void cluster_forward(uint32_t* s, uint32_t (&a)[kRegW
   P1::load(s, a, t);
   P1::run(a, t, lead, tw, twp, q);
   if constexpr (Local::kR2 > 0) {
-    using P2 = SlicePass<kLogM, kLogRegWords + Local::kR1, Local::kR2, false>;
+    using P2 = SlicePass<kLogM, Wd::kLog + Local::kR1, Local::kR2, false, Wd>;
     P1::store(s, a, t);
     __syncthreads();
     P2::load(s, a, t);
     P2::run(a, t, lead, tw, twp, q);
   }
   // the last pass's runs back to pass 0's layout
-  RegLast<kLogM>::store(s, a, t);
+  RegLast<kLogM, Wd>::store(s, a, t);
   __syncthreads();
-  RegPass<kLogM, 0, kLogRegWords>::load(s, a, t);
+  RegPass<kLogM, 0, Wd::kLog, Wd>::load(s, a, t);
 }
 
 // Inverse of rank r on a[] loaded as the runs of the slice's last local
-// pass (load_runs<RegLast<kLogM>>): the local passes, the scatter of pass
-// 0's words to their cross-pass owners' buffers xs (kM words after the
-// padded slice), the cluster barrier, and the cross pass; returns with
-// a[] in CrossPass's layout (word k of group h at first(r, h, t) + k*N/C)
-// and no peer touching this block's shared memory.
-template <typename Plan>
-__device__ __forceinline__ void cluster_inverse(uint32_t* s, uint32_t (&a)[kRegWords],
-                                                int r, int t,
-                                                const uint32_t* __restrict__ tw,
-                                                const uint32_t* __restrict__ twp,
-                                                uint32_t q) {
+// pass (load_runs<RegLast<kLogM, Words>>): the local passes, the scatter
+// of pass 0's words to their cross-pass owners' buffers xs (kM words
+// after the padded slice), the cluster barrier, and the cross pass;
+// returns with a[] in CrossPass's layout (word k of group h at
+// first(r, h, t) + k*N/C) and no peer touching this block's shared memory.
+template <typename Plan, typename T = typename Plan::Word>
+__device__ __forceinline__ void cluster_inverse(T* s, T (&a)[Plan::kW], int r, int t,
+                                                const T* __restrict__ tw,
+                                                const T* __restrict__ twp, T q) {
+  using Wd = typename Plan::Words;
   constexpr int kLogM = Plan::kLogM;
-  using Local = RegPlan<kLogM>;
+  using Local = RegPlan<kLogM, Wd>;
   const int lead = Plan::kC + r;
-  using P0 = SlicePass<kLogM, 0, kLogRegWords, true>;
-  using P1 = SlicePass<kLogM, kLogRegWords, Local::kR1, true>;
+  using P0 = SlicePass<kLogM, 0, Wd::kLog, true, Wd>;
+  using P1 = SlicePass<kLogM, Wd::kLog, Local::kR1, true, Wd>;
   if constexpr (Local::kR2 > 0) {
-    using P2 = SlicePass<kLogM, kLogRegWords + Local::kR1, Local::kR2, true>;
+    using P2 = SlicePass<kLogM, Wd::kLog + Local::kR1, Local::kR2, true, Wd>;
     P2::run(a, t, lead, tw, twp, q);
     P2::store(s, a, t);
     __syncthreads();
@@ -285,15 +320,16 @@ __device__ __forceinline__ void cluster_inverse(uint32_t* s, uint32_t (&a)[kRegW
   P0::run(a, t, lead, tw, twp, q);
 
   // word m at slice position p = m*T + t belongs to group p of the cross
-  // pass: owner p / (M/C) = m / (32/C), word r of its group
-  uint32_t* xs = s + pad(Plan::kM);
+  // pass: owner p / (M/C) = m / (W/C), word r of its group
+  T* xs = s + Wd::pad(Plan::kM);
+  constexpr uint32_t kBytes = sizeof(T);
   cluster_wait();  // every block of the cluster has started
 #pragma unroll
   for (int k = 0; k < Plan::kC; ++k) {
-    const uint32_t base = cluster_addr(xs, k) + 4u * (r * Plan::kPerRank + t);
+    const uint32_t base = cluster_addr(xs, k) + kBytes * (r * Plan::kPerRank + t);
 #pragma unroll
     for (int h = 0; h < Plan::kGroups; ++h)
-      cluster_store(base + 4u * (h * Plan::kThreads), a[k * Plan::kGroups + h]);
+      cluster_store(base + kBytes * (h * Plan::kThreads), a[k * Plan::kGroups + h]);
   }
   cluster_arrive();
   cluster_wait();  // xs is whole; no peer writes to it again
@@ -305,13 +341,18 @@ __device__ __forceinline__ void cluster_inverse(uint32_t* s, uint32_t (&a)[kRegW
   CrossPass<Plan, true>::run(a, tw, twp, q);
 }
 
-// The cluster kernels, by the id ckks_cluster_info takes; each source
-// defines its own.
+// The cluster kernels, by the id ckks_cluster_info takes: the uint32 forms
+// at 2^16 (0 .. 3), then the uint64 forms, three a ring (forward, inverse,
+// key switch) at 2^15 (4 .. 6) and 2^16 (7 .. 9); each source defines its
+// own.
 enum ClusterKernel { kClusterModDown = 0, kClusterNttForward = 1,
-                     kClusterNttInverse = 2, kClusterKeySwitch = 3 };
-const void* moddown_cluster_kernel();           // csrc/moddown.cu
-const void* ntt_cluster_kernel(bool inverse);   // csrc/ntt.cu
-const void* keyswitch_cluster_kernel();         // csrc/keyswitch.cu
+                     kClusterNttInverse = 2, kClusterKeySwitch = 3,
+                     kClusterWide = 4 };
+constexpr int kClusterWideIds = 3;  // uint64 forms a ring
+const void* moddown_cluster_kernel();               // csrc/moddown.cu
+const void* ntt_cluster_kernel(bool inverse);       // csrc/ntt.cu
+const void* keyswitch_cluster_kernel();             // csrc/keyswitch.cu
+const void* keyswitch_cluster64_kernel(int log_n);  // csrc/keyswitch.cu
 
 // The launch of `planes` planes on clusters of Plan::kC blocks of
 // Plan::kThreads with `smem` dynamic shared bytes each: the kernel opts in
@@ -362,13 +403,14 @@ int launch_cluster(int planes, size_t smem, cudaStream_t stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// A cluster kernel of BigPlan as built and as it fits the current
-// device: info[0..5] = registers a thread, local (spill) bytes a thread,
-// threads a block, dynamic shared bytes a block, blocks a cluster, and
-// clusters resident at once (cudaOccupancyMaxActiveClusters). Returns the
-// first CUDA error (0 if none).
+// A cluster kernel of Plan as built and as it fits the current device:
+// info[0..5] = registers a thread, local (spill) bytes a thread, threads a
+// block, dynamic shared bytes a block, blocks a cluster, and clusters
+// resident at once (cudaOccupancyMaxActiveClusters). Returns the first
+// CUDA error (0 if none).
+template <typename Plan>
 inline int cluster_info(const void* kernel, size_t smem, int* info) {
-  ClusterLaunch<BigPlan> launch(kernel, 1, smem, nullptr);
+  ClusterLaunch<Plan> launch(kernel, 1, smem, nullptr);
   if (launch.err != cudaSuccess) return static_cast<int>(launch.err);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
@@ -378,9 +420,9 @@ inline int cluster_info(const void* kernel, size_t smem, int* info) {
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = BigPlan::kThreads;
+  info[2] = Plan::kThreads;
   info[3] = static_cast<int>(smem);
-  info[4] = BigPlan::kC;
+  info[4] = Plan::kC;
   info[5] = clusters;
   return 0;
 }

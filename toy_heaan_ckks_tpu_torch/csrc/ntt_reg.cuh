@@ -1,25 +1,31 @@
-// The register-pass NTT of one uint32 plane that one block holds (N = 2^10
-// .. 2^15), shared by the one-block uint32 forms of K1 (csrc/ntt.cu,
-// ntt_kernel_reg), K2 (csrc/keyswitch.cu, keyswitch_kernel_reg) and K3
-// (csrc/moddown.cu, moddown_kernel_reg). The stage, group and twiddle
-// conventions are those of ntt.cuh; the uint64 forms and the clusters keep
-// its one-stage-per-barrier templates.
+// The register-pass NTT of one plane, shared by the one-block uint32 forms
+// of K1 (csrc/ntt.cu, ntt_kernel_reg), K2 (csrc/keyswitch.cu,
+// keyswitch_kernel_reg) and K3 (csrc/moddown.cu, moddown_kernel_reg) at
+// N = 2^10 .. 2^15, and by the slices of the cluster forms
+// (csrc/ntt_cluster.cuh). The stage, group and twiddle conventions are
+// those of ntt.cuh; the uint64 one-block forms and K8 keep its
+// one-stage-per-barrier templates.
 //
-// A block has N / 32 threads and each thread holds 32 words of the plane.
-// A pass runs r <= 5 consecutive stages on them without leaving registers:
+// The passes are generic over the word (RegWords: its type, the words W a
+// thread holds, the pad); uint32 planes take Words32, 32 words a thread,
+// and the uint64 cluster forms 16 (ntt_cluster.cuh WideWords). A block has
+// N / W threads and each thread holds W words of the plane. A pass runs
+// r <= log2 W consecutive stages on them without leaving registers:
 // for pass (s, r) a thread's group is the 2^r positions blk * N/2^s +
 // m * N/2^(s+r) + off, m < 2^r, and the stage s+l butterfly of (m, m +
 // 2^(r-1-l)) takes twiddle tw[2^(s+l) + blk * 2^l + (m >> (r-l))] of the
-// compact table, that of the whole plane, loaded once per pass. Passes:
-// 5+5 at 2^10, 5+3+3 at 2^11, 5+4+3 at 2^12, 5+4+4 at 2^13, 5+5+4 at 2^14,
-// 5+5+5 at 2^15 (a thread holds 32 >> r groups of a pass). Between passes
-// the plane goes through shared memory once (one pad word per 32: no bank
-// conflict at 2^10, 2^14, 2^15; 2- to 4-way in the middle pass at 2^11 ..
-// 2^13). Pass 0's group is m * N/32 + t for thread t, so its words come
-// from coalesced loads; the last pass's groups are runs of 2^r adjacent
-// words (RegLast), which the inverse reads as 16-byte vectors. The
-// inverse (RegPassInv) runs the same passes in reverse order, each with
-// its Gentleman-Sande stages from s+r-1 down to s.
+// compact table, that of the whole plane, loaded once per pass. Passes of
+// 32 words: 5+5 at 2^10, 5+3+3 at 2^11, 5+4+3 at 2^12, 5+4+4 at 2^13,
+// 5+5+4 at 2^14, 5+5+5 at 2^15 (a thread holds W >> r groups of a pass).
+// Between passes the plane goes through shared memory once, with one pad
+// word after every 128 bytes (32 uint32 words: no bank conflict at 2^10,
+// 2^14, 2^15; 2- to 4-way in the middle pass at 2^11 .. 2^13; 16 uint64
+// words: see ntt_cluster.cuh). Pass 0's group is m * N/W + t for thread
+// t, so its words come from coalesced loads; the last pass's groups are
+// runs of 2^r adjacent words (RegLast), which the inverse reads as
+// 16-byte vectors. The inverse (RegPassInv) runs the same passes in
+// reverse order, each with its Gentleman-Sande stages from s+r-1 down
+// to s.
 #pragma once
 
 #include <utility>
@@ -28,18 +34,33 @@
 
 namespace ckks {
 
-constexpr int kLogRegWords = 5;
-constexpr int kRegWords = 1 << kLogRegWords;  // plane words a thread holds
+// The words of a register pass: type T, 2^kLogW of them a thread, and the
+// shared-memory slot of a plane position (one pad word after every 128
+// bytes: 32 uint32 words, 16 uint64 words).
+template <typename T, int kLogW>
+struct RegWords {
+  using Word = T;
+  static constexpr int kLog = kLogW;
+  static constexpr int kCount = 1 << kLogW;
+  static constexpr int kLogPad = sizeof(T) == 4 ? 5 : 4;
 
-// Shared-memory word of plane position p: one pad word after every 32.
-__host__ __device__ constexpr int pad(int p) { return p + (p >> 5); }
+  __host__ __device__ static constexpr int pad(int p) { return p + (p >> kLogPad); }
+};
 
-// The register-pass plan of one plane of 2^kLogN uint32 words.
-template <int kLogN>
+using Words32 = RegWords<uint32_t, 5>;  // the uint32 forms: 32 words a thread
+
+constexpr int kLogRegWords = Words32::kLog;
+constexpr int kRegWords = Words32::kCount;  // plane words a thread holds
+
+// Shared-memory word of uint32 plane position p: one pad word after every 32.
+__host__ __device__ constexpr int pad(int p) { return Words32::pad(p); }
+
+// The register-pass plan of one plane of 2^kLogN words of Wd.
+template <int kLogN, typename Wd = Words32>
 struct RegPlan {
-  static constexpr int kThreads = 1 << (kLogN - kLogRegWords);
-  static constexpr int kRest = kLogN - kLogRegWords;  // stages after pass 0
-  static constexpr int kR1 = kRest <= kLogRegWords ? kRest : (kRest + 1) / 2;
+  static constexpr int kThreads = 1 << (kLogN - Wd::kLog);
+  static constexpr int kRest = kLogN - Wd::kLog;  // stages after pass 0
+  static constexpr int kR1 = kRest <= Wd::kLog ? kRest : (kRest + 1) / 2;
   static constexpr int kR2 = kRest - kR1;  // 0: two passes
   // K2: 512 threads an SM, up to 128 registers a thread below 2^15 (one
   // block at 2^14; two blocks of 64 registers were 11% slower), 64 at 2^15
@@ -47,66 +68,65 @@ struct RegPlan {
   // K1, K3: 1024 threads an SM, up to 64 registers a thread (two blocks at
   // 2^14 were 6-11% faster than one)
   static constexpr int kMinBlocksTwo = kThreads >= 1024 ? 1 : 1024 / kThreads;
-  static constexpr size_t kSmemBytes = sizeof(uint32_t) * pad(1 << kLogN);
+  static constexpr size_t kSmemBytes = sizeof(typename Wd::Word) * Wd::pad(1 << kLogN);
+  static_assert(kR1 <= Wd::kLog && kR2 <= Wd::kLog, "three passes at most");
 };
 
-// Pass (kS, kR) of the forward NTT on the 32 words a thread holds: word
+// Pass (kS, kR) of the forward NTT on the W words a thread holds: word
 // (h, m) of a[h * 2^kR + m] is plane position pos(t, h, m).
-template <int kLogN, int kS, int kR>
+template <int kLogN, int kS, int kR, typename Wd = Words32>
 struct RegPass {
-  static constexpr int kGroups = kRegWords >> kR;
+  using T = typename Wd::Word;
+  static constexpr int kW = Wd::kCount;
+  static constexpr int kGroups = kW >> kR;
   static constexpr int kLogOff = kLogN - kS - kR;
 
   __device__ __forceinline__ static int gid(int t, int h) {
-    return t + (h << (kLogN - kLogRegWords));
+    return t + (h << (kLogN - Wd::kLog));
   }
   // padded shared-memory word of (t, h, 0); word (t, h, m) lies pad(m <<
-  // kLogOff) further (kS <= kLogN - 5, so the pad is linear in m)
+  // kLogOff) further (the pad is linear in m: a group spans an aligned
+  // window of 2^(kR + kLogOff) positions)
   __device__ __forceinline__ static int base(int t, int h) {
     const int g = gid(t, h);
-    return pad(((g >> kLogOff) << (kLogN - kS)) + (g & ((1 << kLogOff) - 1)));
+    return Wd::pad(((g >> kLogOff) << (kLogN - kS)) + (g & ((1 << kLogOff) - 1)));
   }
 
-  __device__ __forceinline__ static void store(uint32_t* s,
-                                               const uint32_t (&a)[kRegWords],
-                                               int t) {
+  __device__ __forceinline__ static void store(T* s, const T (&a)[kW], int t) {
 #pragma unroll
     for (int h = 0; h < kGroups; ++h) {
-      uint32_t* p = s + base(t, h);
+      T* p = s + base(t, h);
 #pragma unroll
-      for (int m = 0; m < (1 << kR); ++m) p[pad(m << kLogOff)] = a[(h << kR) + m];
+      for (int m = 0; m < (1 << kR); ++m) p[Wd::pad(m << kLogOff)] = a[(h << kR) + m];
     }
   }
 
-  __device__ __forceinline__ static void load(const uint32_t* s,
-                                              uint32_t (&a)[kRegWords], int t) {
+  __device__ __forceinline__ static void load(const T* s, T (&a)[kW], int t) {
 #pragma unroll
     for (int h = 0; h < kGroups; ++h) {
-      const uint32_t* p = s + base(t, h);
+      const T* p = s + base(t, h);
 #pragma unroll
-      for (int m = 0; m < (1 << kR); ++m) a[(h << kR) + m] = p[pad(m << kLogOff)];
+      for (int m = 0; m < (1 << kR); ++m) a[(h << kR) + m] = p[Wd::pad(m << kLogOff)];
     }
   }
 
   // Stage kS + kL on group kH: every loop bound is a constant, so a[]
   // stays in registers.
   template <int kH, int kL>
-  __device__ __forceinline__ static void stage(uint32_t (&a)[kRegWords],
-                                               int blk,
-                                               const uint32_t* __restrict__ tw,
-                                               const uint32_t* __restrict__ twp,
-                                               uint32_t q) {
+  __device__ __forceinline__ static void stage(T (&a)[kW], int blk,
+                                               const T* __restrict__ tw,
+                                               const T* __restrict__ twp, T q) {
     constexpr int kHalf = 1 << (kR - 1 - kL);
     const int k0 = (1 << (kS + kL)) + (blk << kL);
 #pragma unroll
     for (int g = 0; g < (1 << kL); ++g) {
-      const uint32_t w = ldg(tw + k0 + g);
-      const uint32_t wp = ldg(twp + k0 + g);
+      const T w = ldg(tw + k0 + g);
+      const T wp = ldg(twp + k0 + g);
 #pragma unroll
       for (int i = 0; i < kHalf; ++i) {
         const int u = (kH << kR) + 2 * kHalf * g + i;
-        const uint32_t xu = a[u];
-        const uint32_t xv = harvey(a[u + kHalf], w, wp, q);
+        const T xu = a[u];
+        const T xv = harvey(a[u + kHalf], w, wp, q);
         a[u] = add_mod(xu, xv, q);
         a[u + kHalf] = sub_mod(xu, xv, q);
       }
@@ -114,26 +134,24 @@ struct RegPass {
   }
 
   template <int kH, int... kL>
-  __device__ __forceinline__ static void group(
-      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kL...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
+  __device__ __forceinline__ static void group(T (&a)[kW], int t,
+                                               std::integer_sequence<int, kL...>,
+                                               const T* __restrict__ tw,
+                                               const T* __restrict__ twp, T q) {
     const int blk = gid(t, kH) >> kLogOff;
     (stage<kH, kL>(a, blk, tw, twp, q), ...);
   }
 
   template <int... kH>
-  __device__ __forceinline__ static void groups(
-      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kH...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
+  __device__ __forceinline__ static void groups(T (&a)[kW], int t,
+                                                std::integer_sequence<int, kH...>,
+                                                const T* __restrict__ tw,
+                                                const T* __restrict__ twp, T q) {
     (group<kH>(a, t, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
   }
 
-  __device__ __forceinline__ static void run(uint32_t (&a)[kRegWords], int t,
-                                             const uint32_t* __restrict__ tw,
-                                             const uint32_t* __restrict__ twp,
-                                             uint32_t q) {
+  __device__ __forceinline__ static void run(T (&a)[kW], int t, const T* __restrict__ tw,
+                                             const T* __restrict__ twp, T q) {
     groups(a, t, std::make_integer_sequence<int, kGroups>{}, tw, twp, q);
   }
 };
@@ -141,27 +159,27 @@ struct RegPass {
 // Pass (kS, kR) of the inverse NTT: the same words as RegPass, its stages
 // kS + kR - 1 down to kS as Gentleman-Sande butterflies (x_u + x_v,
 // (x_u - x_v) * w) with the inverse compact table.
-template <int kLogN, int kS, int kR>
-struct RegPassInv : RegPass<kLogN, kS, kR> {
-  using Base = RegPass<kLogN, kS, kR>;
+template <int kLogN, int kS, int kR, typename Wd = Words32>
+struct RegPassInv : RegPass<kLogN, kS, kR, Wd> {
+  using Base = RegPass<kLogN, kS, kR, Wd>;
+  using T = typename Base::T;
+  static constexpr int kW = Base::kW;
 
   template <int kH, int kL>
-  __device__ __forceinline__ static void stage(uint32_t (&a)[kRegWords],
-                                               int blk,
-                                               const uint32_t* __restrict__ tw,
-                                               const uint32_t* __restrict__ twp,
-                                               uint32_t q) {
+  __device__ __forceinline__ static void stage(T (&a)[kW], int blk,
+                                               const T* __restrict__ tw,
+                                               const T* __restrict__ twp, T q) {
     constexpr int kHalf = 1 << (kR - 1 - kL);
     const int k0 = (1 << (kS + kL)) + (blk << kL);
 #pragma unroll
     for (int g = 0; g < (1 << kL); ++g) {
-      const uint32_t w = ldg(tw + k0 + g);
-      const uint32_t wp = ldg(twp + k0 + g);
+      const T w = ldg(tw + k0 + g);
+      const T wp = ldg(twp + k0 + g);
 #pragma unroll
       for (int i = 0; i < kHalf; ++i) {
         const int u = (kH << kR) + 2 * kHalf * g + i;
-        const uint32_t xu = a[u];
-        const uint32_t xv = a[u + kHalf];
+        const T xu = a[u];
+        const T xv = a[u + kHalf];
         a[u] = add_mod(xu, xv, q);
         a[u + kHalf] = harvey(sub_mod(xu, xv, q), w, wp, q);
       }
@@ -170,59 +188,69 @@ struct RegPassInv : RegPass<kLogN, kS, kR> {
 
   // the stages of group kH, kL = kR - 1 first
   template <int kH, int... kI>
-  __device__ __forceinline__ static void group(
-      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kI...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
+  __device__ __forceinline__ static void group(T (&a)[kW], int t,
+                                               std::integer_sequence<int, kI...>,
+                                               const T* __restrict__ tw,
+                                               const T* __restrict__ twp, T q) {
     const int blk = Base::gid(t, kH) >> Base::kLogOff;
     (stage<kH, kR - 1 - kI>(a, blk, tw, twp, q), ...);
   }
 
   template <int... kH>
-  __device__ __forceinline__ static void groups(
-      uint32_t (&a)[kRegWords], int t, std::integer_sequence<int, kH...>,
-      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ twp,
-      uint32_t q) {
+  __device__ __forceinline__ static void groups(T (&a)[kW], int t,
+                                                std::integer_sequence<int, kH...>,
+                                                const T* __restrict__ tw,
+                                                const T* __restrict__ twp, T q) {
     (group<kH>(a, t, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
   }
 
-  __device__ __forceinline__ static void run(uint32_t (&a)[kRegWords], int t,
-                                             const uint32_t* __restrict__ tw,
-                                             const uint32_t* __restrict__ twp,
-                                             uint32_t q) {
+  __device__ __forceinline__ static void run(T (&a)[kW], int t, const T* __restrict__ tw,
+                                             const T* __restrict__ twp, T q) {
     groups(a, t, std::make_integer_sequence<int, Base::kGroups>{}, tw, twp, q);
   }
 };
 
 // The last forward pass of the plan (the first inverse one): its groups
 // are the runs of 2^kR adjacent words at gid(t, h) << kR.
-template <int kLogN>
+template <int kLogN, typename Wd = Words32>
 using RegLast = RegPass<kLogN,
-                        (RegPlan<kLogN>::kR2 > 0 ? kLogRegWords + RegPlan<kLogN>::kR1
-                                                 : kLogRegWords),
-                        (RegPlan<kLogN>::kR2 > 0 ? RegPlan<kLogN>::kR2
-                                                 : RegPlan<kLogN>::kR1)>;
+                        (RegPlan<kLogN, Wd>::kR2 > 0 ? Wd::kLog + RegPlan<kLogN, Wd>::kR1
+                                                     : Wd::kLog),
+                        (RegPlan<kLogN, Wd>::kR2 > 0 ? RegPlan<kLogN, Wd>::kR2
+                                                     : RegPlan<kLogN, Wd>::kR1),
+                        Wd>;
 
 // Global words in the last forward pass's layout, the inverse's first:
 // group h of thread t is the run of 2^kR adjacent plane words at gid(t, h)
 // << kR, read into a[h * 2^kR ..] as 16-byte vectors (src 16-byte
 // aligned).
 template <typename Last>
-__device__ __forceinline__ void load_runs(const uint32_t* __restrict__ src,
-                                          uint32_t (&a)[kRegWords], int t) {
+__device__ __forceinline__ void load_runs(const typename Last::T* __restrict__ src,
+                                          typename Last::T (&a)[Last::kW], int t) {
   static_assert(Last::kLogOff == 0, "runs of adjacent words: the last pass");
-  constexpr int kRun = kRegWords / Last::kGroups;
+  constexpr int kRun = Last::kW / Last::kGroups;
 #pragma unroll
   for (int h = 0; h < Last::kGroups; ++h) {
-    const uint4* p = reinterpret_cast<const uint4*>(src + Last::gid(t, h) * kRun);
+    if constexpr (sizeof(typename Last::T) == 4) {
+      const uint4* p = reinterpret_cast<const uint4*>(src + Last::gid(t, h) * kRun);
 #pragma unroll
-    for (int i = 0; i < kRun / 4; ++i) {
-      const uint4 v = __ldg(p + i);
-      uint32_t* r = a + h * kRun + 4 * i;
-      r[0] = v.x;
-      r[1] = v.y;
-      r[2] = v.z;
-      r[3] = v.w;
+      for (int i = 0; i < kRun / 4; ++i) {
+        const uint4 v = __ldg(p + i);
+        uint32_t* r = a + h * kRun + 4 * i;
+        r[0] = v.x;
+        r[1] = v.y;
+        r[2] = v.z;
+        r[3] = v.w;
+      }
+    } else {
+      const ulonglong2* p =
+          reinterpret_cast<const ulonglong2*>(src + Last::gid(t, h) * kRun);
+#pragma unroll
+      for (int i = 0; i < kRun / 2; ++i) {
+        const ulonglong2 v = __ldg(p + i);
+        a[h * kRun + 2 * i] = v.x;
+        a[h * kRun + 2 * i + 1] = v.y;
+      }
     }
   }
 }

@@ -211,8 +211,8 @@ def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
 def gadget_accumulate_wide(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
                            degree: int, digit_size: int = 1, d_ntt=None):
     """K6: ``gadget_accumulate`` on int64 planes of a wide chain (any
-    q < 2^63, R = 2^64, N <= 2^16; a cluster of 2 / 4 blocks per plane at
-    2^15 / 2^16)."""
+    q < 2^63, R = 2^64, N <= 2^16; at 2^15 and 2^16 a cluster of 16
+    blocks of register passes per plane, ``csrc/ntt_cluster.cuh``)."""
     outs, parts = _accumulate(y_plain, key_a, key_b, base_moduli,
                               ext_moduli, degree, digit_size, d_ntt,
                               wide=True)

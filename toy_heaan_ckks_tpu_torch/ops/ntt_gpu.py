@@ -11,9 +11,10 @@ uint64 words (K5, K5' at N >= 2^15, and K7 when a folded final constant
 is given); the twin is ``ops/ntt.py``'s int64 transform. Every kernel
 holds a plane on chip: one block up to 128 KiB, a thread-block cluster
 above, where ``plane_split`` says a plane needs one (each wrapper counts
-those launches in ``launches_cluster``): of its P blocks, except K4 on
-uint32 planes at N = 2^16, which spreads a plane over the cluster of
-``csrc/ntt_cluster.cuh`` (16 blocks of register passes). ``ntt_planes`` takes int32 planes (small chains, Shoup
+those launches in ``launches_cluster``): the cluster of
+``csrc/ntt_cluster.cuh``, 16 blocks of register passes a plane, for K4 on
+uint32 planes at N = 2^16 and for K5' / K7 on uint64 planes at N = 2^15
+and 2^16. ``ntt_planes`` takes int32 planes (small chains, Shoup
 radix 2^32), ``ntt_planes_wide`` int64 planes (wide chains, radix 2^64).
 Each sends a CPU tensor to the twin and launches its kernel for a CUDA
 tensor — there is no fallback from one to the other. One entry point
@@ -93,8 +94,9 @@ def final_consts(moduli: tuple, final: tuple, device: torch.device,
 def vector_aligned(x3: torch.Tensor) -> torch.Tensor:
     """``x3`` (items, channels, N), or a contiguous copy where its first
     word or its item stride would break the 16-byte vector loads of the
-    one-block uint32 inverse (``csrc/ntt_reg.cuh`` ``load_runs``)."""
-    if x3.data_ptr() % 16 or x3.stride(0) % 4:
+    register-pass inverses (``csrc/ntt_reg.cuh`` ``load_runs``: the uint32
+    one-block and cluster forms, the uint64 cluster forms)."""
+    if x3.data_ptr() % 16 or x3.stride(0) * x3.element_size() % 16:
         return x3.clone(memory_format=torch.contiguous_format)
     return x3
 
@@ -129,7 +131,7 @@ def _ntt(x: torch.Tensor, moduli, degree: int, inverse: bool,
     L = len(moduli)
     x3 = _build.planes(x, L, degree)
     _build.require_cuda("ntt_planes", dtype, x3)
-    if inverse and not wide:
+    if inverse and (not wide or parts > 1):
         x3 = vector_aligned(x3)
     lib = _build.library()
     kt = kernel_tables(moduli, degree, x.device, rbits)
@@ -173,9 +175,10 @@ def ntt_planes(x: torch.Tensor, moduli, degree: int, inverse: bool,
 
 def ntt_planes_wide(x: torch.Tensor, moduli, degree: int, inverse: bool,
                     final: tuple | None = None) -> torch.Tensor:
-    """K5 (forward, inverse; K5' at N >= 2^15 on a cluster of 2 or 4 blocks
-    per plane) and K7 (inverse with a folded ``final``): NTT of int64
-    (..., L, N) planes of a wide chain (any q < 2^63), N <= 2^16."""
+    """K5 (forward, inverse; K5' at N >= 2^15 on a cluster of 16 blocks of
+    register passes per plane) and K7 (inverse with a folded ``final``):
+    NTT of int64 (..., L, N) planes of a wide chain (any q < 2^63),
+    N <= 2^16."""
     out, parts = _ntt(x, moduli, degree, inverse, final, wide=True)
     count_launch(ntt_planes_wide, parts)
     return out
