@@ -18,10 +18,9 @@ place of the K1 folds):
   thread-block cluster of 16 blocks of register passes,
   csrc/ntt_cluster.cuh, K2 one cluster NTT a digit);
 - big-wide: N = 2^15, 3 x 61-bit primes, digit_size 1, batch 4
-  (tools/ab_check.py's wide-2^15-61b-ds1: K5'/K7 and K6 on the same
-  cluster plan on uint64 words, 16 blocks a plane, K8 / K8' on clusters
-  of 2 blocks); its rotation phase runs ``batched_rotate`` and
-  ``rotate_ciphertext`` only.
+  (tools/ab_check.py's wide-2^15-61b-ds1: K5'/K7, K6 and K8 / K8' on the
+  same cluster plan on uint64 words, 16 blocks a plane); its rotation
+  phase runs ``batched_rotate`` and ``rotate_ciphertext`` only.
 
 Every kernel of the small and wide paths must run with one block per plane
 and every kernel of the big paths on clusters (``launches_cluster``).
@@ -35,8 +34,8 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    shapes) and without t (key-switch shapes: the whole base kept, the
    specials dropped) — plus the wide kernels once at N = 2^14, 3 x 62-bit,
    ds 1, batch 2 (63-bit special, 128 KiB uint64 plane) and once at
-   N = 2^16, 2 x 61-bit, ds 1, batch 1 (K5'/K7, K6 on clusters of 16
-   blocks, K8 of 4); and K9 small,
+   N = 2^16, 2 x 61-bit, ds 1, batch 1 (K5'/K7, K6, K8 / K8' on
+   clusters of 16 blocks); and K9 small,
    the matrix-product NTT (forward, inverse, inverse with the
    decomposition fold) against its twin and against K1 on the same
    inputs at (32, 8, 2^14), (2, 2, 2^15) and (4, 3, 2^10); and K10/K11
@@ -97,8 +96,8 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    spill bytes, threads and shared memory a block, resident blocks an SM
    and SASS counts (beside the template's uint32 one-block form; K1's
    forward under ``forward``), and the K2 / K6 row of every path its time
-   without d; the big K4, K2, K3 and K3' rows and the big-wide K5'/K7 and
-   K6 rows name their cluster form and carry its registers,
+   without d; the big K4, K2, K3 and K3' rows and the big-wide K5'/K7,
+   K6, K8 and K8' rows name their cluster form and carry its registers,
    spill bytes, threads and shared memory a block, blocks a cluster (C),
    resident clusters and SASS counts (K4's and K5''s forward under
    ``forward``); the uint64 cluster forms are also timed at N = 2^16
@@ -164,8 +163,8 @@ WIDE_62 = PathConfig("wide-62b", 1 << 14, 62, 3, 1, 2, 62, 1e-6)
 BIG = PathConfig("big", 1 << 16, 30, 4, 2, 4, 30, BIG_MUL_ERR)
 # tools/ab_check.py:49 (wide-2^15-61b-ds1)
 BIG_WIDE = PathConfig("big-wide", 1 << 15, 61, 3, 1, 4, 61, BIG_WIDE_MUL_ERR)
-# uint64 planes at N = 2^16 (K5'/K7, K6 on clusters of 16 blocks, K8 of
-# 4): kernel checks and times only
+# uint64 planes at N = 2^16 (K5'/K7, K6, K8 / K8' on clusters of 16
+# blocks): kernel checks and times only
 WIDE_16 = PathConfig("wide-2^16", 1 << 16, 61, 2, 1, 1, 61, 0.0)
 
 
@@ -1287,8 +1286,10 @@ def reg_infos(cfg: PathConfig, rows: list) -> None:
 # kernel id, its printed name and the needle of its mangled name.
 def _wide_cluster_forms(log_n: int) -> dict:
     """The uint64 forms at 2^log_n: ids 4 + 3 (log_n - 15) + (0 forward,
-    1 inverse, 2 key switch)."""
+    1 inverse, 2 key switch), and the mod-down's 10 + (log_n - 15)."""
     first = 4 + 3 * (log_n - 15)
+    mod_down = (10 + log_n - 15, f"moddown_kernel_cluster64<{log_n}>",
+                f"moddown_kernel_cluster64ILi{log_n}EE")
     return {
         "ntt_planes_wide": {
             "": (first + 1, f"ntt_kernel_cluster64<{log_n},true>",
@@ -1297,6 +1298,8 @@ def _wide_cluster_forms(log_n: int) -> dict:
                         f"ntt_kernel_cluster64ILi{log_n}ELb0E")},
         "gadget_accumulate_wide": {"": (first + 2, f"keyswitch_kernel_cluster64<{log_n}>",
                                         f"keyswitch_kernel_cluster64ILi{log_n}EE")},
+        "mod_down_combine_wide": {"": mod_down},
+        "mod_down_combine_wide[no_t]": {"": mod_down},
     }
 
 
@@ -1304,9 +1307,9 @@ CLUSTER_KERNELS = {
     "ntt_planes": {"": (2, "ntt_kernel_cluster<true>", "ntt_kernel_clusterILb1E"),
                    "forward": (1, "ntt_kernel_cluster<false>", "ntt_kernel_clusterILb0E")},
     "gadget_accumulate": {"": (3, "keyswitch_kernel_cluster", "keyswitch_kernel_clusterEPKj")},
-    "mod_down_combine": {"": (0, "moddown_kernel_cluster", "moddown_kernel_cluster")},
+    "mod_down_combine": {"": (0, "moddown_kernel_cluster", "moddown_kernel_clusterEPKj")},
     "mod_down_combine[no_t]": {"": (0, "moddown_kernel_cluster",
-                                    "moddown_kernel_cluster")},
+                                    "moddown_kernel_clusterEPKj")},
     **_wide_cluster_forms(15),
 }
 # the uint64 forms at 2^16 (the wide-2^16 kernel checks and times)
@@ -1447,10 +1450,10 @@ def main() -> int:
     big_cases = kernel_cases(BIG, dev, wide=False)
     big_errs = check_cases("K4/K2/K3/K3' big 2^16 (clusters of 16)", big_cases)
     big_wide_cases = kernel_cases(BIG_WIDE, dev, wide=True)
-    big_wide_errs = check_cases("K5'/K6/K7 (clusters of 16) K8/K8' (of 2) big-wide 2^15",
+    big_wide_errs = check_cases("K5'/K6/K7/K8/K8' big-wide 2^15 (clusters of 16)",
                                 big_wide_cases)
     wide_16_cases = kernel_cases(WIDE_16, dev, wide=True)
-    wide_16_errs = check_cases("K5'/K6/K7 (clusters of 16) K8/K8' (of 4) wide 2^16",
+    wide_16_errs = check_cases("K5'/K6/K7/K8/K8' wide 2^16 (clusters of 16)",
                                wide_16_cases)
     for k, e in wide_16_errs.items():
         big_wide_errs[k] = max(big_wide_errs[k], e)
@@ -1568,11 +1571,12 @@ def main() -> int:
     # the uint64 cluster forms at 2^16: times, and each form as built
     time_cases(WIDE_16, {k: wide_16_cases[k] for k in (
         "forward", "inverse+fold", "inv_ntt_to_yhat", "gadget_accumulate",
-        "gadget_accumulate[no_d]")}, int_ops_per_s, twin_iters=1)
-    for forms in WIDE_16_CLUSTER_KERNELS.values():
-        for kernel, shown, _ in forms.values():
-            print(f"[{WIDE_16.name}] {shown}: registers, spill bytes, threads, shared "
-                  f"bytes, blocks a cluster, resident clusters {cluster_info(kernel)}")
+        "gadget_accumulate[no_d]", "mod_down_combine", "mod_down_no_t")},
+        int_ops_per_s, twin_iters=1)
+    for kernel, shown in sorted({(kernel, shown) for forms in WIDE_16_CLUSTER_KERNELS.values()
+                                 for kernel, shown, _ in forms.values()}):
+        print(f"[{WIDE_16.name}] {shown}: registers, spill bytes, threads, shared "
+              f"bytes, blocks a cluster, resident clusters {cluster_info(kernel)}")
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
                      (BIG_WIDE, big_wide_run)):
         ctx, child, rlk, (a0, a1, b0, b1) = (run["ctx"], run["child"], run["rlk"],

@@ -1,5 +1,5 @@
 """The cluster register-pass plan of K4, K3 / K3' and K2 at N = 2^16 and of
-K5' / K7 and K6 at N = 2^15 and 2^16, in numpy.
+K5' / K7, K6 and K8 / K8' at N = 2^15 and 2^16, in numpy.
 
 ``csrc/ntt_cluster.cuh`` spreads one plane of N words over a thread-block
 cluster of C blocks (rank r holds the slice [r*M, (r+1)*M), M = N/C,
@@ -31,8 +31,9 @@ interpret mode) on the CPU:
   words, the Gentleman-Sande passes down to pass 0, each word sent to its
   cross-pass owner at k * M/C + (j mod M/C) (``scatter_inverse``), the
   cross pass from stage log2 C - 1 down, and the final constant;
-- K3: the Phat sum in the cross pass's loads, the combine in pass 0's
-  layout (without the t term for K3');
+- K3 / K8: the Phat sum in the cross pass's loads, the combine in pass
+  0's layout (without the t term for K3' / K8'), and a Phat weight of the
+  wrong kept channel caught;
 - K2 / K6: the grid's plane map (the special channels' planes first with
   d, every cluster on one plane), each digit's raise in the cross pass's
   loads, one forward plan per digit but the own one, the key products,
@@ -486,41 +487,75 @@ def test_ntt_plan_matches_twin(log_n, log_c, mode):
     assert torch.equal(got, want)
 
 
+def phat_weight(m: int, j: int, kept: int) -> int:
+    """Flat index of dropped channel m's Phat weight for kept channel j in
+    the kernels' (G, L') table c: c[m * kept + j]."""
+    return m * kept + j
+
+
+def emulate_moddown(plan: Plan, yhat, ks, t, child, dropped, t_scale: int):
+    """K3's / K8's cluster plan on int64 yhat (G, N) and ks, t (L', N) of
+    one item (t None: K3' / K8'): per kept channel j the Phat sum
+    sum_m Harvey(yhat_m, c[m, j]) in the cross pass's loads, the forward
+    plan, then the combine Harvey((ks + Harvey(t, P mod q_j)) - ext,
+    P^-1) in pass 0's layout; returns torch (L', N) planes of the plan's
+    word (R = 2^32 / 2^64)."""
+    n = 1 << plan.log_n
+    bits = plan.words.bits
+    kept = len(child)
+    c, cs, pm, pms, pinv, pinvs, _ = moddown_gpu._down_consts(child, dropped, n, t_scale,
+                                                               bits)
+    c, pm, pinv = (v.astype(np.int64) for v in (c, pm, pinv))
+    cs, pms, pinvs = (None if bits == 32 else v.view(np.int64) for v in (cs, pms, pinvs))
+    q = np.array(child, np.int64)[:, None, None, None]
+    fwd, fwdp = _tables(tuple(child), n, bits)[:2]
+
+    def phat(pos):  # the cross pass's words of every kept channel
+        acc = np.zeros((kept,) + pos.shape, np.int64)
+        for j in range(kept):
+            for m in range(len(dropped)):
+                w = phat_weight(m, j, kept)
+                term = _mul(yhat[m][pos], c.reshape(-1)[w],
+                            None if cs is None else cs.reshape(-1)[w], child[j])
+                acc[j] = _add(acc[j], term, child[j])
+        return acc
+
+    ext = emulate_forward(plan, None, (fwd, fwdp), q, prologue=phat)
+    pos = _p0_positions(plan)
+    col = lambda v: None if v is None else v[:, None, None, None]
+    head = ks[:, pos]
+    if t is not None:
+        head = _add(head, _mul(t[:, pos], col(pm), col(pms), q), q)
+    out = _mul(_sub(head, ext, q), col(pinv), col(pinvs), q)
+    dtype = np.int32 if bits == 32 else np.int64
+    return torch.from_numpy(_unflatten(out, pos, n).astype(dtype))
+
+
+def _moddown_case(plan: Plan, bits: int, with_t: bool, kept: int, dropped: int):
+    """(emulated, twin) of one item's mod-down: ``kept`` + ``dropped``
+    seeded primes of ``bits`` bits, the last ``dropped`` of them dropped."""
+    n = 1 << plan.log_n
+    primes = tuple(generate_primes(bits, kept + dropped, n))
+    child, drop = primes[:kept], primes[kept:]
+    t_scale = 987654321 if with_t else 0
+    yhat = _planes(1, drop, n, 1)[0]  # (G, N)
+    ks = _planes(2, child, n, 1)[0]
+    t = _planes(3, child, n, 1)[0] if with_t else None
+    got = emulate_moddown(plan, yhat, ks, t, child, drop, t_scale)
+    dtype = torch.int32 if plan.words.bits == 32 else torch.int64
+    tt = lambda a: None if a is None else torch.from_numpy(a).to(dtype)
+    want = moddown_gpu.mod_down_combine_twin(tt(yhat), tt(ks), tt(t), child, drop, n,
+                                             t_scale)
+    return got, want
+
+
 @pytest.mark.parametrize("log_n,log_c", PLANS)
 @pytest.mark.parametrize("with_t", [True, False])
 def test_moddown_plan_matches_twin(log_n, log_c, with_t):
     """K3 (t) / K3' (no t): the Phat sum of G = 2 yhat planes in the cross
     pass's loads, the forward plan, the combine in pass 0's layout,
     against ``mod_down_combine_twin`` for 2 kept channels, batch 1."""
-    n = 1 << log_n
-    plan = Plan(log_n, log_c)
-    primes = tuple(generate_primes(30, 4, n))
-    child, dropped = primes[:2], primes[2:]
-    t_scale = 987654321 if with_t else 0
-    c, _, pm, _, pinv, _, _ = moddown_gpu._down_consts(child, dropped, n, t_scale)
-    c, pm, pinv = (v.astype(np.int64) for v in (c, pm, pinv))
-    yhat = _planes(1, dropped, n, 1)[0]  # (G, N)
-    ks = _planes(2, child, n, 1)[0]
-    t = _planes(3, child, n, 1)[0]
-    fwd = _tables(child, n)[0]
-    q = np.array(child, np.int64)[:, None, None, None]
-
-    def phat(pos):  # sum_m Harvey(yhat_m[pos], c[m, j]) per kept channel j
-        acc = np.zeros((len(child),) + pos.shape, np.int64)
-        for m in range(len(dropped)):
-            acc = (acc + yhat[m][pos][None] * c[m][:, None, None, None]) % q
-        return acc
-
-    ext = emulate_forward(plan, None, (fwd, None), q, prologue=phat)
-    pos = _p0_positions(plan)
-    head = ks[:, pos]
-    if with_t:
-        head = (head + t[:, pos] * pm[:, None, None, None]) % q
-    out = (head - ext) % q * pinv[:, None, None, None] % q
-    got = torch.from_numpy(_unflatten(out, pos, n).astype(np.int32))
-    i32 = lambda a: torch.from_numpy(a.astype(np.int32))
-    want = moddown_gpu.mod_down_combine_twin(
-        i32(yhat), i32(ks), i32(t) if with_t else None, child, dropped, n, t_scale)
+    got, want = _moddown_case(Plan(log_n, log_c), 30, with_t, 2, 2)
     assert torch.equal(got, want)
 
 
@@ -923,6 +958,38 @@ def test_wide_small_plan_matches_reference():
     _limbs_equal(_ntt(Plan(12, 2, W64), x3, moduli, False)[0], want)
     inv = ntt_gpu.ntt_twin(torch.from_numpy(x3), moduli, n, True)
     assert torch.equal(_ntt(Plan(12, 2, W64), x3, moduli, True), inv)
+
+
+# K8 / K8' on the built uint64 plan, batch 1, 61-bit primes: (log2 N,
+# bits, with t, kept, dropped) at the big-wide path's shapes at 2^15 (K8: 2
+# kept, the last base prime and the special dropped; K8': 3 kept, the
+# special dropped), at 2^16 (1, 1), and at N = 2^12 on C = 4 (3 x 61-bit,
+# 2 kept, 1 dropped). tests/test_torch_wide.py and test_torch_rotate.py
+# hold the twin to the reference's ``mod_down_combine_pallas_wide``.
+WIDE_MD = [(15, 61, True, 2, 2), (15, 61, False, 3, 1), (16, 61, True, 1, 1),
+           (12, 61, True, 2, 1)]
+
+
+@pytest.mark.parametrize("log_n,bits,with_t,kept,dropped", WIDE_MD)
+def test_wide_moddown_plan_matches_twin(log_n, bits, with_t, kept, dropped):
+    """K8 (t) / K8' (no t) on the built uint64 plan (the Phat sum a Harvey64
+    in the cross pass's loads, the combine Harvey64s in pass 0's layout)
+    against ``mod_down_combine_twin`` word for word."""
+    plan = Plan(12, 2, W64) if log_n == 12 else _wide_plan(log_n)
+    got, want = _moddown_case(plan, bits, with_t, kept, dropped)
+    assert torch.equal(got, want)
+
+
+def test_wide_moddown_plan_mutation_fails(monkeypatch):
+    """The emulation catches the Phat weight of the wrong kept channel
+    (c[m * kept + (j + 1) % kept] in place of c[m * kept + j])."""
+    plan = Plan(12, 2, W64)
+    got, want = _moddown_case(plan, 61, True, 2, 1)
+    assert torch.equal(got, want)
+    monkeypatch.setattr(sys.modules[__name__], "phat_weight",
+                        lambda m, j, kept: m * kept + (j + 1) % kept)
+    got, _ = _moddown_case(plan, 61, True, 2, 1)
+    assert not torch.equal(got, want)
 
 
 @pytest.mark.parametrize("with_d", [True, False])

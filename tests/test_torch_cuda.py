@@ -209,31 +209,34 @@ def test_keyswitch_cluster_form_digits(dev, digit_size, batch, with_d):
 
 
 def _moddown_vs_twin(dev, degree, count, digit_size, with_t, batch, keyswitch=False,
-                     offset=0):
-    """K3 / K3' against its twin: one launch, on a cluster at N = 2^16
-    and none below, uint32-equal outputs. The multiply's
+                     offset=0, bits=31):
+    """K3 / K3' (K8 / K8' above 32-bit primes) against its twin: one
+    launch, on a cluster where a plane exceeds one block (uint32 N = 2^16,
+    uint64 2^15 and 2^16) and none below, word-equal outputs. The multiply's
     shapes keep all but the last base prime and drop it with the
     specials; a key switch's (``keyswitch``) keeps the base and drops the
     specials. ks (and t) are channel slices of larger stacks; ``offset``
     words shift ks off its 16-byte alignment."""
-    base, ext = _chain(count, digit_size, degree)
+    wide = bits > 32
+    dtype = torch.int64 if wide else torch.int32
+    fn = moddown_gpu.mod_down_combine_wide if wide else moddown_gpu.mod_down_combine
+    base, ext = _chain(count, digit_size, degree, bits)
     L = len(base)
     child, dropped = (base, ext[L:]) if keyswitch else (base[:-1], ext[L - 1:])
     Lc = len(child)
     t_scale = 123456789 if with_t else 0
-    yhat = _planes(5, dropped, degree, (batch,), dev)
-    ks_full = _planes(6, ext, degree, (batch,), dev)
+    yhat = _planes(5, dropped, degree, (batch,), dev, dtype)
+    ks_full = _planes(6, ext, degree, (batch,), dev, dtype)
     if offset:
         flat = torch.empty(ks_full.numel() + offset, dtype=ks_full.dtype, device=dev)
         flat[offset:] = ks_full.reshape(-1)
         ks_full = flat[offset:].view(ks_full.shape)
     ks = ks_full[..., :Lc, :]
-    t = _planes(7, base, degree, (batch,), dev)[..., :Lc, :] if with_t else None
+    t = _planes(7, base, degree, (batch,), dev, dtype)[..., :Lc, :] if with_t else None
     kw = dict(child_moduli=child, dropped_moduli=dropped, degree=degree,
               t_scale=t_scale)
-    got, counts = _counted(moddown_gpu.mod_down_combine,
-                           lambda: moddown_gpu.mod_down_combine(yhat, ks, t, **kw))
-    assert counts == (1, int(degree == 1 << 16))
+    got, counts = _counted(fn, lambda: fn(yhat, ks, t, **kw))
+    assert counts == (1, int(ntt_gpu.plane_split(degree, wide)[1] > 1))
     want = moddown_gpu.mod_down_combine_twin(yhat, ks, t, child, dropped,
                                              degree, t_scale)
     assert torch.equal(got, want)
@@ -312,8 +315,8 @@ def test_mxu_kernel_reads_channel_slices(dev, inverse):
 
 # wide chains: 61-bit at 2^13 (the wide main path), 62-bit with 63-bit
 # specials at 2^14 (the 128 KiB uint64 plane), 40-bit at 2^10, and 61-bit
-# at 2^15 / 2^16 (K5', K6 on clusters of 16 blocks of register passes,
-# K8 on clusters of 2 / 4 blocks per plane)
+# at 2^15 / 2^16 (K5', K6 and K8 on clusters of 16 blocks of register
+# passes)
 WIDE = [(61, 1 << 13), (62, 1 << 14), (40, 1 << 10), (61, 1 << 15), (61, 1 << 16)]
 
 
@@ -414,6 +417,25 @@ def test_wide_keyswitch_cluster_form_digits(dev, degree, digit_size, count, batc
     want = keyswitch_gpu.gadget_accumulate_twin(y, ka, kb, base, ext, degree,
                                                 digit_size, d)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# N = 2^15 (the big-wide path) and 2^16 at the big-wide chain (3 x 61-bit,
+# ds 1): K8 keeps 2 base primes and drops the last with the special, K8'
+# keeps the base and drops the special
+@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+@pytest.mark.parametrize("batch", [1, 3, 4])
+@pytest.mark.parametrize("keyswitch", [False, True])
+def test_wide_moddown_cluster_form_matches_twin(dev, degree, batch, keyswitch):
+    """K8 (with t) / K8' (without) on the uint64 cluster plan
+    (moddown_kernel_cluster64), ks and t channel slices of larger stacks."""
+    _moddown_vs_twin(dev, degree, 3, 1, not keyswitch, batch, keyswitch, bits=61)
+
+
+@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+@pytest.mark.parametrize("with_t", [True, False])
+def test_wide_moddown_cluster_form_unaligned_input(dev, degree, with_t):
+    """K8 / K8' with ks read in place one word off a 16-byte boundary."""
+    _moddown_vs_twin(dev, degree, 3, 1, with_t, 2, offset=1, bits=61)
 
 
 @pytest.mark.parametrize("bits,degree", WIDE)

@@ -30,8 +30,8 @@ runs torch.profiler and again after one profiler window. Where the
 checkout has the cluster forms of ``csrc/ntt_cluster.cuh``, ``cluster``
 gives each form's registers, spill bytes, threads and shared bytes a
 block, blocks a cluster and resident clusters (uint32 K4, K3, K2 at
-2^16; uint64 K5' / K7 and K6 at 2^15 and 2^16; null for a form the
-checkout's library does not have).
+2^16; uint64 K5' / K7, K6 and K8 / K8' at 2^15 and 2^16; null for a form
+the checkout's library does not have).
 """
 
 from __future__ import annotations

@@ -150,8 +150,8 @@ keyswitch_kernel(const T* __restrict__ y, long long y_stride,
     if (t == own) continue;
     const int k0 = t * digit_size;
     const int k1 = min(k0 + digit_size, base);
-    // no peer reads this slice now: the previous digit's ntt_forward ended
-    // with a cluster barrier after its last cross-block stage
+    // no thread reads the plane now: the previous digit ended with a block
+    // barrier after its epilogue
     for (int i = threadIdx.x; i < m; i += blockDim.x) {
       T acc = 0;
       for (int k = k0; k < k1; ++k) {

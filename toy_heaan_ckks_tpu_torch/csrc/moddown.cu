@@ -6,12 +6,11 @@
 // and ops/keyswitch_pallas_wide.py _md_kernel_wide_t (core _md_core_wide;
 // with t == nullptr _md_kernel_wide_no_t), called through
 // mod_down_combine_pallas_wide, on uint64 words (wide chains, Harvey64 with
-// radix 2^64: ckks_moddown64). One block, or one cluster of blocks for a
-// plane above 128 KiB (ntt.cuh PlanePart: 2 or 4; ntt_cluster.cuh: 16; the
-// factored branch of the reference, moddown_pallas.py:140,
-// keyswitch_pallas_wide.py:575), owns one
-// (kept channel j, item) pair; each block runs the sums and the combine on
-// its own slice of the plane:
+// radix 2^64: ckks_moddown64). One block, or one thread-block cluster of
+// 16 for a plane above 128 KiB (ntt_cluster.cuh; the factored branch of
+// the reference, moddown_pallas.py:140, keyswitch_pallas_wide.py:575),
+// owns one (kept channel j, item) pair; each block runs the sums and the
+// combine on its own slice of the plane:
 //
 //   ext  = sum_m Harvey(yhat_m, c[m,j], cs[m,j])            (mod q_j)
 //   ext  = forward NTT of ext (shared memory, all stages)
@@ -25,8 +24,9 @@
 //
 // uint32 planes that one block holds (N = 2^10 .. 2^15) run another body,
 // moddown_kernel_reg<log2 N>, and uint32 planes of 2^16 a third,
-// moddown_kernel_cluster (below); the uint64 forms run moddown_kernel
-// above. The one-block design is K2's
+// moddown_kernel_cluster (below); uint64 planes up to 2^14 run
+// moddown_kernel above, and those of 2^15 and 2^16 moddown_kernel_cluster64
+// (the cluster plan on uint64 words, below). The one-block design is K2's
 // (csrc/keyswitch.cu) with one digit and the combine as its epilogue:
 //
 // - NTT passes in registers (csrc/ntt_reg.cuh): N / 32 threads of 32
@@ -60,6 +60,20 @@
 // (4, 3 kept, 3 dropped) with t 0.010-0.015 ms against 0.145 for
 // moddown_kernel on clusters of 2; without t (4, 4 kept, 2 dropped) 0.016
 // (0.133); on clusters of 8 blocks 0.016 / 0.020, of 4 0.025 / 0.022.
+//
+// K8 / K8' on uint64 planes of 2^15 and 2^16 (moddown_kernel_cluster64<log2
+// N>) run the same body on the uint64 plan (ntt_cluster.cuh WidePlan: 16
+// blocks of 16 words a thread, 128 threads at 2^15, 256 at 2^16), the Phat
+// sum a Harvey64 in the cross pass's loads and the combine Harvey64s on the
+// slice's words. moddown_kernel on clusters of 2 / 4 gave the big-wide
+// path's 8 (K8) and 12 (K8') planes 16 and 24 blocks of 512 threads, 15
+// one-stage barriers each; this gives 128 and 192 blocks. 122 / 128
+// registers a thread at 2^15 / 2^16, no spill; 28 / 14 clusters
+// resident. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/kernel_ab.py, device time): (4, 2 kept, 2 dropped, 2^15) with t
+// 0.0161-0.0162 ms against 0.1027-0.1034 for moddown_kernel on clusters
+// of 2; without t (4, 3 kept, 1 dropped) 0.0144 (0.0898-0.0903); at
+// (1, 1 kept, 2 dropped, 2^16) 0.018 (0.110).
 #include "ntt.cuh"
 #include "ntt_cluster.cuh"
 #include "ntt_reg.cuh"
@@ -111,34 +125,20 @@ moddown_kernel(const T* __restrict__ yhat, long long y_stride,
   }
 }
 
+// One block a plane: moddown_kernel's one-block form (uint32 planes below
+// 2^10, uint64 planes up to 2^14; the larger planes run the cluster forms
+// below).
 template <typename T>
-int launch_moddown(const T* yhat, long long y_stride, const T* ks,
-                   long long ks_stride, const T* t, long long t_stride,
-                   const T* c, const T* cs, const T* q, const T* pm,
-                   const T* pms, const T* pinv, const T* pinvs, const T* tw,
-                   const T* twp, T* out, int outer, int dropped, int kept,
-                   int log_n, int parts, cudaStream_t stream) {
-  return ckks::launch_planes<T>(
-      moddown_kernel<T, false>, moddown_kernel<T, true>, outer * kept, log_n,
-      parts, stream, yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm,
-      pms, pinv, pinvs, tw, twp, out, dropped, kept, log_n);
-}
-
-// uint32 planes below 2^10: moddown_kernel's one-block form (the uint32
-// planes of 2^16 run moddown_kernel_cluster, so the template runs on
-// clusters only on uint64 words).
-int launch_one_block(const uint32_t* yhat, long long y_stride, const uint32_t* ks,
-                     long long ks_stride, const uint32_t* t, long long t_stride,
-                     const uint32_t* c, const uint32_t* cs, const uint32_t* q,
-                     const uint32_t* pm, const uint32_t* pms, const uint32_t* pinv,
-                     const uint32_t* pinvs, const uint32_t* tw, const uint32_t* twp,
-                     uint32_t* out, int outer, int dropped, int kept, int log_n,
+int launch_one_block(const T* yhat, long long y_stride, const T* ks, long long ks_stride,
+                     const T* t, long long t_stride, const T* c, const T* cs, const T* q,
+                     const T* pm, const T* pms, const T* pinv, const T* pinvs, const T* tw,
+                     const T* twp, T* out, int outer, int dropped, int kept, int log_n,
                      cudaStream_t stream) {
-  const size_t smem = ckks::plane_bytes<uint32_t>(log_n);
+  const size_t smem = ckks::plane_bytes<T>(log_n);
   const cudaError_t err = ckks::reserve_smem(
-      reinterpret_cast<const void*>(moddown_kernel<uint32_t, false>), smem);
+      reinterpret_cast<const void*>(moddown_kernel<T, false>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  moddown_kernel<uint32_t, false><<<outer * kept, ckks::kThreads, smem, stream>>>(
+  moddown_kernel<T, false><<<outer * kept, ckks::kThreads, smem, stream>>>(
       yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv, pinvs, tw,
       twp, out, dropped, kept, log_n);
   return static_cast<int>(cudaGetLastError());
@@ -148,21 +148,21 @@ using ckks::kLogRegWords;
 using ckks::kRegWords;
 using ckks::RegPlan;
 
-// The combine on pass 0's words (position m * N/32 + tid): out =
-// Harvey((ks + Harvey(t, P mod q_j)) - ext, P^-1), without the t term
-// unless kWithT.
-template <int kLogN, bool kWithT>
-__device__ __forceinline__ void combine(const uint32_t (&a)[kRegWords], int tid,
-                                        const uint32_t* __restrict__ ks,
-                                        const uint32_t* __restrict__ t,
-                                        uint32_t* __restrict__ o, uint32_t p,
-                                        uint32_t ps, uint32_t pi, uint32_t pis,
-                                        uint32_t q) {
-  constexpr int kT = RegPlan<kLogN>::kThreads;
+// The combine on pass 0's words of a 2^kLogN-word plane or slice of Wd
+// (position m * T + tid, T threads of W words): out = Harvey((ks +
+// Harvey(t, P mod q_j)) - ext, P^-1), without the t term unless kWithT.
+template <int kLogN, bool kWithT, typename Wd = ckks::Words32,
+          typename T = typename Wd::Word>
+__device__ __forceinline__ void combine(const T (&a)[Wd::kCount], int tid,
+                                        const T* __restrict__ ks,
+                                        const T* __restrict__ t,
+                                        T* __restrict__ o, T p, T ps, T pi, T pis,
+                                        T q) {
+  constexpr int kT = RegPlan<kLogN, Wd>::kThreads;
 #pragma unroll
-  for (int m = 0; m < kRegWords; ++m) {
+  for (int m = 0; m < Wd::kCount; ++m) {
     const int pos = m * kT + tid;
-    uint32_t head = ckks::ldg(ks + pos);
+    T head = ckks::ldg(ks + pos);
     if constexpr (kWithT)
       head = ckks::add_mod(head, ckks::harvey(ckks::ldg(t + pos), p, ps, q), q);
     o[pos] = ckks::harvey(ckks::sub_mod(head, a[m], q), pi, pis, q);
@@ -222,7 +222,8 @@ moddown_kernel_reg(const uint32_t* __restrict__ yhat, long long y_stride,
   if (tj != nullptr) {
     combine<kLogN, true>(a, tid, ksj, tj, o, p, ps, pi, pis, qj);
   } else {
-    combine<kLogN, false>(a, tid, ksj, nullptr, o, p, ps, pi, pis, qj);
+    combine<kLogN, false>(a, tid, ksj, static_cast<const uint32_t*>(nullptr), o, p, ps,
+                          pi, pis, qj);
   }
 }
 
@@ -250,9 +251,74 @@ int launch_reg(const uint32_t* yhat, long long y_stride, const uint32_t* ks,
 }
 
 using ckks::BigPlan;
+using ckks::WidePlan;
 
-// K3 / K3' on uint32 planes of 2^16 words (see the header): one cluster of
-// BigPlan::kC blocks of N/C/32 threads per (item, kept channel j).
+// The cluster form of Plan (see the header): one cluster of Plan::kC
+// blocks of N/C/W threads per (item, kept channel j).
+template <typename Plan, typename T = typename Plan::Word>
+__device__ __forceinline__ void moddown_cluster_body(
+    const T* __restrict__ yhat, long long y_stride, const T* __restrict__ ks,
+    long long ks_stride, const T* __restrict__ t, long long t_stride,
+    const T* __restrict__ c, const T* __restrict__ cs, const T* __restrict__ q,
+    const T* __restrict__ pm, const T* __restrict__ pms, const T* __restrict__ pinv,
+    const T* __restrict__ pinvs, const T* __restrict__ tw, const T* __restrict__ twp,
+    T* __restrict__ out, int dropped, int kept) {
+  using Cross = ckks::CrossPass<Plan, false>;
+  constexpr long long n = 1LL << Plan::kLogN;
+  constexpr int kC = Plan::kC, kM = Plan::kM;
+  ckks::cluster_arrive_relaxed();  // this block has started
+  T* s = ckks::smem_plane<T>();
+  const int tid = threadIdx.x;
+  const int r = static_cast<int>(blockIdx.x) & (kC - 1);  // rank in the cluster
+  const int plane = static_cast<int>(blockIdx.x) >> Plan::kLogC;
+  const int j = plane % kept;
+  const long long item = plane / kept;
+  const T qj = q[j];
+
+  // the Phat sum, into the cross pass's words
+  T a[Plan::kW];
+  const T* yi = yhat + item * y_stride;
+  {
+    const T ck = c[j], cks = cs[j];
+#pragma unroll
+    for (int h = 0; h < Plan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k)
+        a[h * kC + k] = ckks::harvey(ckks::ldg(yi + Cross::first(r, h, tid) + k * kM),
+                                     ck, cks, qj);
+  }
+  for (int m = 1; m < dropped; ++m) {
+    const T ck = c[m * kept + j], cks = cs[m * kept + j];
+    const T* ym = yi + m * n;
+#pragma unroll
+    for (int h = 0; h < Plan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        const int u = h * kC + k;
+        a[u] = ckks::add_mod(
+            a[u], ckks::harvey(ckks::ldg(ym + Cross::first(r, h, tid) + k * kM), ck, cks, qj),
+            qj);
+      }
+  }
+  Cross::run(a, tw + j * n, twp + j * n, qj);
+  ckks::cluster_forward<Plan>(s, a, r, tid, tw + j * n, twp + j * n, qj);
+
+  // the combine on pass 0's coalesced words of the slice
+  using Wd = typename Plan::Words;
+  const long long off = j * n + r * kM;
+  const T* ksj = ks + item * ks_stride + off;
+  T* o = out + (item * kept + j) * n + r * kM;
+  const T p = pm[j], ps = pms[j], pi = pinv[j], pis = pinvs[j];
+  if (t != nullptr) {
+    combine<Plan::kLogM, true, Wd>(a, tid, ksj, t + item * t_stride + off, o, p, ps, pi,
+                                   pis, qj);
+  } else {
+    combine<Plan::kLogM, false, Wd>(a, tid, ksj, static_cast<const T*>(nullptr), o, p, ps,
+                                    pi, pis, qj);
+  }
+}
+
+// K3 / K3' on uint32 planes of 2^16 words (see the header).
 __global__ void __launch_bounds__(BigPlan::kThreads, BigPlan::kMinBlocks)
 moddown_kernel_cluster(const uint32_t* __restrict__ yhat, long long y_stride,
                        const uint32_t* __restrict__ ks, long long ks_stride,
@@ -265,57 +331,43 @@ moddown_kernel_cluster(const uint32_t* __restrict__ yhat, long long y_stride,
                        const uint32_t* __restrict__ tw,
                        const uint32_t* __restrict__ twp, uint32_t* __restrict__ out,
                        int dropped, int kept) {
-  using Cross = ckks::CrossPass<BigPlan, false>;
-  constexpr long long n = 1LL << ckks::kClusterLogN;
-  constexpr int kC = BigPlan::kC, kM = BigPlan::kM;
-  ckks::cluster_arrive_relaxed();  // this block has started
-  uint32_t* s = ckks::smem_plane<uint32_t>();
-  const int tid = threadIdx.x;
-  const int r = static_cast<int>(blockIdx.x) & (kC - 1);  // rank in the cluster
-  const int plane = static_cast<int>(blockIdx.x) >> BigPlan::kLogC;
-  const int j = plane % kept;
-  const long long item = plane / kept;
-  const uint32_t qj = q[j];
+  moddown_cluster_body<BigPlan>(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm,
+                                pms, pinv, pinvs, tw, twp, out, dropped, kept);
+}
 
-  // the Phat sum, into the cross pass's words
-  uint32_t a[kRegWords];
-  const uint32_t* yi = yhat + item * y_stride;
-  {
-    const uint32_t ck = c[j], cks = cs[j];
-#pragma unroll
-    for (int h = 0; h < BigPlan::kGroups; ++h)
-#pragma unroll
-      for (int k = 0; k < kC; ++k)
-        a[h * kC + k] = ckks::harvey(ckks::ldg(yi + Cross::first(r, h, tid) + k * kM),
-                                     ck, cks, qj);
-  }
-  for (int m = 1; m < dropped; ++m) {
-    const uint32_t ck = c[m * kept + j], cks = cs[m * kept + j];
-    const uint32_t* ym = yi + m * n;
-#pragma unroll
-    for (int h = 0; h < BigPlan::kGroups; ++h)
-#pragma unroll
-      for (int k = 0; k < kC; ++k) {
-        const int u = h * kC + k;
-        a[u] = ckks::add_mod(
-            a[u], ckks::harvey(ckks::ldg(ym + Cross::first(r, h, tid) + k * kM), ck, cks, qj),
-            qj);
-      }
-  }
-  Cross::run(a, tw + j * n, twp + j * n, qj);
-  ckks::cluster_forward<BigPlan>(s, a, r, tid, tw + j * n, twp + j * n, qj);
+// K8 / K8' on uint64 planes of 2^kLogN words, 2^15 and 2^16 (see the
+// header).
+template <int kLogN>
+__global__ void __launch_bounds__(WidePlan<kLogN>::kThreads,
+                                  ckks::kWideThreadsPerSm / WidePlan<kLogN>::kThreads)
+moddown_kernel_cluster64(const uint64_t* __restrict__ yhat, long long y_stride,
+                         const uint64_t* __restrict__ ks, long long ks_stride,
+                         const uint64_t* __restrict__ t, long long t_stride,
+                         const uint64_t* __restrict__ c, const uint64_t* __restrict__ cs,
+                         const uint64_t* __restrict__ q, const uint64_t* __restrict__ pm,
+                         const uint64_t* __restrict__ pms,
+                         const uint64_t* __restrict__ pinv,
+                         const uint64_t* __restrict__ pinvs,
+                         const uint64_t* __restrict__ tw,
+                         const uint64_t* __restrict__ twp, uint64_t* __restrict__ out,
+                         int dropped, int kept) {
+  moddown_cluster_body<WidePlan<kLogN>>(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs,
+                                        q, pm, pms, pinv, pinvs, tw, twp, out, dropped,
+                                        kept);
+}
 
-  // the combine on pass 0's coalesced words of the slice
-  const long long off = j * n + r * kM;
-  const uint32_t* ksj = ks + item * ks_stride + off;
-  uint32_t* o = out + (item * kept + j) * n + r * kM;
-  const uint32_t p = pm[j], ps = pms[j], pi = pinv[j], pis = pinvs[j];
-  if (t != nullptr) {
-    combine<BigPlan::kLogM, true>(a, tid, ksj, t + item * t_stride + off, o, p, ps, pi,
-                                  pis, qj);
-  } else {
-    combine<BigPlan::kLogM, false>(a, tid, ksj, nullptr, o, p, ps, pi, pis, qj);
-  }
+template <int kLogN>
+int launch_cluster64(const uint64_t* yhat, long long y_stride, const uint64_t* ks,
+                     long long ks_stride, const uint64_t* t, long long t_stride,
+                     const uint64_t* c, const uint64_t* cs, const uint64_t* q,
+                     const uint64_t* pm, const uint64_t* pms, const uint64_t* pinv,
+                     const uint64_t* pinvs, const uint64_t* tw, const uint64_t* twp,
+                     uint64_t* out, int outer, int dropped, int kept,
+                     cudaStream_t stream) {
+  using Plan = WidePlan<kLogN>;
+  return ckks::launch_cluster<Plan, &moddown_kernel_cluster64<kLogN>>(
+      outer * kept, Plan::kForwardBytes, stream, yhat, y_stride, ks, ks_stride, t,
+      t_stride, c, cs, q, pm, pms, pinv, pinvs, tw, twp, out, dropped, kept);
 }
 
 }  // namespace
@@ -366,8 +418,16 @@ const void* ckks::moddown_cluster_kernel() {
   return reinterpret_cast<const void*>(moddown_kernel_cluster);
 }
 
-// The same on uint64 words (wide chains, radix-2^64 Shoup companions;
-// parts 1, 2 or 4: moddown_kernel).
+const void* ckks::moddown_cluster64_kernel(int log_n) {
+  if (!wide_cluster_shape(log_n)) return nullptr;
+  return log_n == 15 ? reinterpret_cast<const void*>(moddown_kernel_cluster64<15>)
+                     : reinterpret_cast<const void*>(moddown_kernel_cluster64<16>);
+}
+
+// The same on uint64 words (wide chains, radix-2^64 Shoup companions):
+// parts 1 (N <= 2^14, moddown_kernel's one-block form) or, at N = 2^15 and
+// 2^16 only, above 1 (a cluster: moddown_kernel_cluster64 on
+// ckks::WidePlan's C blocks whatever parts says).
 extern "C" int ckks_moddown64(const uint64_t* yhat, long long y_stride,
                               const uint64_t* ks, long long ks_stride,
                               const uint64_t* t, long long t_stride,
@@ -378,7 +438,12 @@ extern "C" int ckks_moddown64(const uint64_t* yhat, long long y_stride,
                               const uint64_t* twp, uint64_t* out, int outer,
                               int dropped, int kept, int log_n, int parts,
                               cudaStream_t stream) {
-  return launch_moddown(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q,
-                        pm, pms, pinv, pinvs, tw, twp, out, outer, dropped,
-                        kept, log_n, parts, stream);
+  if (parts > 1 && ckks::wide_cluster_shape(log_n)) {
+    return (log_n == 15 ? launch_cluster64<15> : launch_cluster64<16>)(
+        yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv, pinvs, tw,
+        twp, out, outer, dropped, kept, stream);
+  }
+  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_one_block(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms,
+                          pinv, pinvs, tw, twp, out, outer, dropped, kept, log_n, stream);
 }

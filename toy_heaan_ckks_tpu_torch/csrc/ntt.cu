@@ -400,7 +400,8 @@ const void* ckks::ntt_cluster_kernel(bool inverse) {
 
 // The cluster kernel `kernel` (ckks::ClusterKernel: 0 K3, 1 K4 forward, 2 K4
 // inverse, 3 K2; uint64 4 K5' forward, 5 K5'/K7 inverse, 6 K6 at 2^15, 7, 8,
-// 9 the same at 2^16) as built and as it fits the current device
+// 9 the same at 2^16, 10 K8 at 2^15, 11 K8 at 2^16) as built and as it fits
+// the current device
 // (ckks::cluster_info: registers, spill bytes, threads, shared bytes, blocks
 // a cluster, resident clusters). Returns cudaErrorInvalidValue for another
 // id.
@@ -422,6 +423,12 @@ extern "C" int ckks_cluster_info(int kernel, int* info) {
     default:
       break;
   }
+  if (kernel == ckks::kClusterModDownWide)
+    return ckks::cluster_info<WidePlan<15>>(ckks::moddown_cluster64_kernel(15),
+                                            WidePlan<15>::kForwardBytes, info);
+  if (kernel == ckks::kClusterModDownWide + 1)
+    return ckks::cluster_info<WidePlan<16>>(ckks::moddown_cluster64_kernel(16),
+                                            WidePlan<16>::kForwardBytes, info);
   const int wide = kernel - ckks::kClusterWide;
   if (wide < 0 || wide >= 2 * ckks::kClusterWideIds)
     return static_cast<int>(cudaErrorInvalidValue);

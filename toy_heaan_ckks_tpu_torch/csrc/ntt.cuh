@@ -18,21 +18,16 @@
 // butterflies are non-lazy: the reference's [0, 4q) lazy form would
 // overflow 64 bits for the 63-bit special primes of a 62-bit chain.
 //
-// A plane is held on chip for the whole transform. Up to 128 KiB (uint32
-// N <= 2^15, uint64 N <= 2^14) one block holds it; a larger plane of the
-// uint64 mod-down K8 (2^15: P = 2; 2^16: P = 4) is spread over a
-// thread-block cluster of P blocks (PlanePart), 128 KiB each (the other
-// kernels' larger planes run ntt_cluster.cuh's plan): the stages
-// with d < N/P stay in each block's shared memory, and only the first
-// log2 P forward (last inverse) stages cross blocks, through distributed
-// shared memory between cluster barriers. This replaces the reference's
+// A plane is held on chip for the whole transform. The templates here
+// hold it in one block, up to 128 KiB (uint32 N <= 2^15, uint64 N <= 2^14);
+// a larger plane runs ntt_cluster.cuh's plan, spread over a thread-block
+// cluster of 16 blocks of register passes. This replaces the reference's
 // factored row x lane twiddles (ntt_pallas.py _ntt_kernel_fac, K4;
 // ntt_pallas_wide.py _ntt_kernel_fac_wide, K5'), which exist because the
 // TPU expands each stage's twiddles to a full plane: the compact tables
 // here already fit, so what a large ring needs is more than one SM.
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -109,15 +104,12 @@ __device__ __forceinline__ T* smem_plane() {
 }
 
 // Where one block's slice lies in its (item, channel) plane of
-// N = 2^log_n words. Without kCluster the block holds the whole plane
-// (P = 1). With kCluster the plane is spread over the block's thread-block
-// cluster of P blocks (the launch's cluster dimension, 2 or 4): block rank
-// r holds positions [r*M, (r+1)*M), M = N / P, in its own shared memory
-// (smem_plane), and reaches the others' slices through distributed shared
-// memory. Consecutive blocks form a cluster, so the cluster's plane index
-// is blockIdx.x / P.
+// N = 2^log_n words: the block holds the whole plane (rank 0 of P = 1, the
+// slice at offset 0), the plane blockIdx.x. The kernels that take it keep
+// kCluster in their names; it is false in every one of them.
 template <bool kCluster>
 struct PlanePart {
+  static_assert(!kCluster, "a plane above one block runs ntt_cluster.cuh's plan");
   int rank;       // block rank in the cluster
   int log_parts;  // log2 P
   int log_m;      // log2 M
@@ -125,29 +117,14 @@ struct PlanePart {
   unsigned int plane;
 
   __device__ __forceinline__ explicit PlanePart(int log_n) {
-    if constexpr (kCluster) {
-      cooperative_groups::cluster_group cluster =
-          cooperative_groups::this_cluster();
-      rank = static_cast<int>(cluster.block_rank());
-      log_parts = __ffs(static_cast<int>(cluster.num_blocks())) - 1;
-    } else {
-      rank = 0;
-      log_parts = 0;
-    }
+    rank = 0;
+    log_parts = 0;
     log_m = log_n - log_parts;
     off = static_cast<long long>(rank) << log_m;
     plane = blockIdx.x >> log_parts;
   }
 
   __device__ __forceinline__ int size() const { return 1 << log_m; }
-
-  // Plane position p in the shared memory of the block that holds it; s is
-  // this block's slice.
-  template <typename T>
-  __device__ __forceinline__ T* at(T* s, int p) const {
-    return cooperative_groups::this_cluster().map_shared_rank(
-        s + (p & ((1 << log_m) - 1)), p >> log_m);
-  }
 };
 
 // Forward stages [first, log_n) on one block's slice s of M = 2^log_m
@@ -207,77 +184,23 @@ __device__ __forceinline__ void inverse_local(T* s, int log_n, int log_m,
   }
 }
 
-// One stage st whose distance d >= M pairs positions of two slices. Its
-// N/2 butterflies are split evenly over the P ranks (rank r takes
-// b in [r*N/(2P), (r+1)*N/(2P))), so each pair belongs to exactly one
-// thread of the cluster, which reads both words before writing either.
-template <typename T, bool kCluster>
-__device__ __forceinline__ void cross_stage(T* s, const PlanePart<kCluster>& pp,
-                                            int log_n, int st, bool inverse,
-                                            const T* __restrict__ tw,
-                                            const T* __restrict__ twp, T q) {
-  const int log_d = log_n - 1 - st;
-  const int d = 1 << log_d;
-  const int per = 1 << (log_n - 1 - pp.log_parts);
-  for (int j = threadIdx.x; j < per; j += blockDim.x) {
-    const int b = pp.rank * per + j;
-    const int g = b >> log_d;
-    const int u = (g << (log_d + 1)) | (b & (d - 1));
-    const int k = (1 << st) + g;
-    T* pu = pp.at(s, u);
-    T* pv = pp.at(s, u + d);
-    const T xu = *pu;
-    const T yv = *pv;
-    if (inverse) {
-      *pu = add_mod(xu, yv, q);
-      *pv = harvey(sub_mod(xu, yv, q), ldg(tw + k), ldg(twp + k), q);
-    } else {
-      const T xv = harvey(yv, ldg(tw + k), ldg(twp + k), q);
-      *pu = add_mod(xu, xv, q);
-      *pv = sub_mod(xu, xv, q);
-    }
-  }
-}
-
 // All forward stages of the plane. The caller has written its slice and
-// synchronised its block; returns with the block synchronised. On a
-// cluster, the log2 P cross stages come first, each between two
-// cluster-wide barriers: the first barrier waits for every slice to be
-// loaded, the one after the last cross stage for every remote access to
-// end, so no peer touches this slice after the call (a block may then
-// rewrite its slice or exit).
+// synchronised its block; returns with the block synchronised.
 template <typename T, bool kCluster>
 __device__ __forceinline__ void ntt_forward(T* s, const PlanePart<kCluster>& pp,
                                             int log_n,
                                             const T* __restrict__ tw,
                                             const T* __restrict__ twp, T q) {
-  if constexpr (kCluster) {
-    cooperative_groups::this_cluster().sync();
-    for (int st = 0; st < pp.log_parts; ++st) {
-      cross_stage(s, pp, log_n, st, false, tw, twp, q);
-      cooperative_groups::this_cluster().sync();
-    }
-  }
   forward_local(s, log_n, pp.log_m, pp.rank, pp.log_parts, tw, twp, q);
 }
 
-// All inverse stages (without the final N^-1 factor), same contract. On a
-// cluster the local stages come first, then the cross stages, each after a
-// cluster-wide barrier, and a last barrier before the block reads its
-// slice again.
+// All inverse stages (without the final N^-1 factor), same contract.
 template <typename T, bool kCluster>
 __device__ __forceinline__ void ntt_inverse(T* s, const PlanePart<kCluster>& pp,
                                             int log_n,
                                             const T* __restrict__ tw,
                                             const T* __restrict__ twp, T q) {
   inverse_local(s, log_n, pp.log_m, pp.rank, pp.log_parts, tw, twp, q);
-  if constexpr (kCluster) {
-    for (int st = pp.log_parts - 1; st >= 0; --st) {
-      cooperative_groups::this_cluster().sync();
-      cross_stage(s, pp, log_n, st, true, tw, twp, q);
-    }
-    cooperative_groups::this_cluster().sync();
-  }
 }
 
 // Dynamic shared memory of one plane of T; above 48 KiB the kernel must
@@ -296,55 +219,5 @@ inline cudaError_t reserve_smem(const void* kernel, size_t bytes) {
 // Returned when no cluster of the requested size, with its shared memory,
 // can be resident on the device (cudaOccupancyMaxActiveClusters == 0).
 constexpr int kErrClusterDoesNotFit = 100001;
-
-// Launch `planes` planes of 2^log_n words of T, `parts` blocks of kThreads
-// each: `flat` (one block holds a plane) when parts == 1, else `clustered`
-// as clusters of `parts` blocks (cudaLaunchKernelEx with a runtime cluster
-// dimension), each block reserving 1/parts of the plane. Returns the
-// launch's error code, kErrClusterDoesNotFit, or cudaGetLastError(); never
-// launches another shape than the one asked for.
-template <typename T, typename... Params, typename... Args>
-int launch_planes(void (*flat)(Params...), void (*clustered)(Params...),
-                  int planes, int log_n, int parts, cudaStream_t stream,
-                  Args... args) {
-  if (parts != 1 && parts != 2 && parts != 4) return cudaErrorInvalidValue;
-  const size_t smem = plane_bytes<T>(log_n) / parts;
-  if (parts == 1) {
-    const cudaError_t err =
-        reserve_smem(reinterpret_cast<const void*>(flat), smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flat<<<planes, kThreads, smem, stream>>>(args...);
-    return static_cast<int>(cudaGetLastError());
-  }
-  cudaError_t err =
-      reserve_smem(reinterpret_cast<const void*>(clustered), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = parts;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(planes * parts, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // one query per (kernel, shape): this instantiation serves one kernel
-  static int fits[2 + 1][32] = {};
-  int& fit = fits[parts >> 1][log_n];
-  if (fit == 0) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(
-        &clusters, reinterpret_cast<const void*>(clustered), &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fit = clusters >= 1 ? 1 : -1;
-  }
-  if (fit < 0) return kErrClusterDoesNotFit;
-  err = cudaLaunchKernelEx(&cfg, clustered, args...);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace ckks

@@ -2,7 +2,8 @@
 // of C blocks, shared by the cluster forms of K4 (csrc/ntt.cu,
 // ntt_kernel_cluster, uint32 N = 2^16), K5' / K7 (ntt_kernel_cluster64,
 // uint64 N = 2^15, 2^16), K3 / K3' (csrc/moddown.cu,
-// moddown_kernel_cluster, uint32 2^16), K2 and K6 (csrc/keyswitch.cu,
+// moddown_kernel_cluster, uint32 2^16), K8 / K8' (moddown_kernel_cluster64,
+// uint64 2^15, 2^16), K2 and K6 (csrc/keyswitch.cu,
 // keyswitch_kernel_cluster / keyswitch_kernel_cluster64, one forward a
 // digit). The stage, group and twiddle conventions are those of ntt.cuh
 // (tree order, the compact table of the whole plane), so the words equal
@@ -44,8 +45,7 @@
 //   it. A kernel that runs the forward again on the same slice (K2 / K6,
 //   once a digit) arrives between the two, after its last read of the
 //   slice. Block barriers: 3 in the forward's local passes, 2 in the
-//   inverse's (15 one-stage barriers and 2 cluster barriers of the
-//   ntt.cuh template's forward on clusters of 2).
+//   inverse's.
 // - Shared-memory banks: a uint64 word spans two 4-byte banks and a warp's
 //   8-byte accesses go as two half-warps of 16, so the pad of one 8-byte
 //   word after every 16 keeps the uint64 passes' exchanges (strides 1, and
@@ -343,13 +343,14 @@ __device__ __forceinline__ void cluster_inverse(T* s, T (&a)[Plan::kW], int r, i
 
 // The cluster kernels, by the id ckks_cluster_info takes: the uint32 forms
 // at 2^16 (0 .. 3), then the uint64 forms, three a ring (forward, inverse,
-// key switch) at 2^15 (4 .. 6) and 2^16 (7 .. 9); each source defines its
-// own.
+// key switch) at 2^15 (4 .. 6) and 2^16 (7 .. 9), then the uint64 mod-down
+// at 2^15 (10) and 2^16 (11); each source defines its own.
 enum ClusterKernel { kClusterModDown = 0, kClusterNttForward = 1,
                      kClusterNttInverse = 2, kClusterKeySwitch = 3,
-                     kClusterWide = 4 };
+                     kClusterWide = 4, kClusterModDownWide = 10 };
 constexpr int kClusterWideIds = 3;  // uint64 forms a ring
 const void* moddown_cluster_kernel();               // csrc/moddown.cu
+const void* moddown_cluster64_kernel(int log_n);    // csrc/moddown.cu
 const void* ntt_cluster_kernel(bool inverse);       // csrc/ntt.cu
 const void* keyswitch_cluster_kernel();             // csrc/keyswitch.cu
 const void* keyswitch_cluster64_kernel(int log_n);  // csrc/keyswitch.cu

@@ -3,7 +3,7 @@
 // keyswitch_kernel_reg) and K3 (csrc/moddown.cu, moddown_kernel_reg) at
 // N = 2^10 .. 2^15, and by the slices of the cluster forms
 // (csrc/ntt_cluster.cuh). The stage, group and twiddle conventions are
-// those of ntt.cuh; the uint64 one-block forms and K8 keep its
+// those of ntt.cuh; the uint64 one-block forms keep its
 // one-stage-per-barrier templates.
 //
 // The passes are generic over the word (RegWords: its type, the words W a

@@ -232,8 +232,9 @@ def mod_down_combine(yhat, ks, t=None, *, child_moduli, dropped_moduli,
 def mod_down_combine_wide(yhat, ks, t=None, *, child_moduli, dropped_moduli,
                           degree: int, t_scale: int = 0):
     """K8 (with t) / K8' (t None): ``mod_down_combine`` on int64 planes of a
-    wide chain (any q < 2^63, R = 2^64, N <= 2^16; a cluster of 2 / 4
-    blocks per plane at 2^15 / 2^16)."""
+    wide chain (any q < 2^63, R = 2^64, N <= 2^16; at 2^15 and 2^16 a
+    cluster of 16 blocks of register passes per plane,
+    ``csrc/ntt_cluster.cuh``)."""
     out, parts = _combine(yhat, ks, t, child_moduli, dropped_moduli,
                           degree, t_scale, wide=True)
     count_launch(mod_down_combine_wide, parts)

@@ -40,10 +40,12 @@ SLICE_BYTES = 128 << 10  # the most of a plane one block holds
 
 
 def plane_split(degree: int, wide: bool) -> tuple[int, int]:
-    """(log2 N, P) for the kernels on a ring of ``degree``: P blocks hold
-    one plane, 1 up to 128 KiB (uint32 N <= 2^15, uint64 N <= 2^14), else
-    a cluster of plane bytes / 128 KiB (2 or 4). Raises unless N is a
-    power of two in [4, 2^16], on every device."""
+    """(log2 N, P) for the kernels on a ring of ``degree``: P = 1 where one
+    block holds a plane (up to 128 KiB: uint32 N <= 2^15, uint64 N <=
+    2^14), else plane bytes / 128 KiB (2 or 4), and the kernels then run
+    the cluster of ``csrc/ntt_cluster.cuh`` (16 blocks a plane) whatever P
+    says. Raises unless N is a power of two in [4, 2^16], on every
+    device."""
     log_n = degree.bit_length() - 1
     if degree != 1 << log_n or not 2 <= log_n <= MAX_LOG_N:
         raise ValueError(
