@@ -23,7 +23,8 @@ place of the K1 folds):
   phase runs ``batched_rotate`` and ``rotate_ciphertext`` only.
 
 Every kernel of the small and wide paths must run with one block per plane
-and every kernel of the big paths on clusters (``launches_cluster``).
+but K6 on the wide path (uint64 planes of 2^13 on a cluster), and
+every kernel of the big paths on clusters (``launches_cluster``).
 
 1. the card (``nvidia-smi`` name and power limit), torch / CUDA / nvcc
    versions and the kernel build time (one nvcc per source, in parallel);
@@ -43,7 +44,10 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    against its twin on the same slabs and the whole-plane kernel: K1 at
    (32, 8, 2^14) with P in {1, 2, 8} (P = 1: K10 alone), K4 at (4, 4, 2^16)
    with P in {4, 8}, K5' at (4, 3, 2^15) uint64 with P = 4, one K10 and
-   log2 P K11 launches per call; word equality required;
+   log2 P K11 launches per call, K10's on a cluster where
+   ``coeff_ntt_gpu.slab_form`` picks one; and K10 (forward, inverse), K11
+   and the sharded NTT against their twins at the three coeff case shapes
+   that phase 4 times (``COEFF_CASES``); word equality required;
 3. each multiply path through the user entry points, with every launch
    count set to 0 just before it and read just after: generate_primes ->
    CkksEngine -> sk / pk / relin key (seed 42) -> encode + encrypt 2 x B
@@ -76,7 +80,9 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    1), small on P = 8 (multiply); each output equal to the unsharded
    path's word for word, the multiply's decode within the path's bound,
    K10 and K11 launched in every call (counts set to 0 just before, read
-   just after) and no cluster launched;
+   just after), K10 on clusters on the big and big-wide paths (64 uint32
+   slabs of 2^14 and 48 uint64 slabs of 2^13 a launch) and on none on the
+   small one (2,048 slabs of 2^11), and no other kernel on a cluster;
 4. the multiply composite (mults/s at the path's batch, latency at
    batch 1), timed first, before the process first runs torch.profiler;
    CUDA-event timings of each kernel (its device time from torch.profiler
@@ -90,7 +96,10 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    and K11 against their twins and the whole sharded NTT against the
    whole-plane kernel at the big, small and big-wide coeff paths' planes
    (device time from the profiler: their wrappers' host work can outlast
-   the kernels, so a loop of calls times the host), and the big coeff
+   the kernels, so a loop of calls times the host), with K10's form at
+   each (block or cluster, blocks a slab, registers, resident slabs; the
+   K10 row's ``shapes``),
+   and the big coeff
    multiply beside the unsharded one, with its profile. The small K1,
    K2, K3 and K3' rows also carry their register-pass kernel's registers,
    spill bytes, threads and shared memory a block, resident blocks an SM
@@ -100,8 +109,9 @@ and every kernel of the big paths on clusters (``launches_cluster``).
    K6, K8 and K8' rows name their cluster form and carry its registers,
    spill bytes, threads and shared memory a block, blocks a cluster (C),
    resident clusters and SASS counts (K4's and K5''s forward under
-   ``forward``); the uint64 cluster forms are also timed at N = 2^16
-   (1, 2, 2^16), each with its form's registers and resident clusters.
+   ``forward``), as does the wide K6 row (its uint64 cluster form at
+   2^13); the uint64 cluster forms are also timed at N = 2^16 (1, 2,
+   2^16), each with its form's registers and resident clusters.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -128,6 +138,7 @@ BIG_WIDE_MUL_ERR = 1.1e-12
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (Hopper white paper)
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores (NVIDIA data sheet)
+PROFILE_CALLS = 50  # calls per profiler window of a kernel case's device time
 
 # Integer operations per modular primitive, counted from csrc/ntt.cuh as
 # 32-bit integer instructions (a lower bound: a 64-bit add, subtract,
@@ -236,21 +247,40 @@ def clustered(cfg: PathConfig, wide: bool) -> bool:
     return plane_split(cfg.degree, wide)[1] > 1
 
 
+# uint64 rings whose K6 planes run on a cluster though one block holds
+# them (csrc/keyswitch.cu keyswitch_kernel_cluster64)
+K6_CLUSTER_LOG_N = (13, 14)
+
+
+def cluster_counters(cfg: PathConfig, wide: bool) -> set:
+    """The counters whose kernels run on clusters on the path: every one
+    where its planes span a cluster, else K6 where its uint64 planes of
+    2^13 / 2^14 run on one (``K6_CLUSTER_LOG_N``)."""
+    if clustered(cfg, wide):
+        return {"ntt_planes", "gadget_accumulate", "mod_down_combine", "ntt_planes_wide",
+                "gadget_accumulate_wide", "mod_down_combine_wide"}
+    if wide and cfg.degree.bit_length() - 1 in K6_CLUSTER_LOG_N:
+        return {"gadget_accumulate_wide"}
+    return set()
+
+
 def zero_counts(counters) -> None:
     for f in counters:
         f.launches = f.launches_cluster = 0
 
 
 def read_counts(cfg: PathConfig, counters, wide: bool) -> dict:
-    """Each counter's launches, and on a clustered path its cluster
-    launches as ``name[cluster]``; raises if a launch ran on clusters on a
-    path whose planes fit one block."""
+    """Each counter's launches, and for a kernel that runs on clusters on
+    the path (``cluster_counters``) its cluster launches as
+    ``name[cluster]``; raises if another kernel ran on a cluster."""
+    on_clusters = cluster_counters(cfg, wide)
     counts = {f.__name__: f.launches for f in counters}
-    cluster = {f"{f.__name__}[cluster]": f.launches_cluster for f in counters}
-    if clustered(cfg, wide):
-        counts.update(cluster)
-    elif any(cluster.values()):
-        raise AssertionError(f"[{cfg.name}] cluster launches at one block per plane: {cluster}")
+    for f in counters:
+        if f.__name__ in on_clusters:
+            counts[f"{f.__name__}[cluster]"] = f.launches_cluster
+        elif f.launches_cluster:
+            raise AssertionError(f"[{cfg.name}] {f.__name__}: {f.launches_cluster} cluster "
+                                 "launches where its planes run one block each")
     return counts
 
 
@@ -839,8 +869,14 @@ COEFF_SHAPES = (
     ("K4", 4, 4, 1 << 16, 30, (4, 8)),
     ("K5'", 4, 3, 1 << 15, 61, (4,)),
 )
-# phase 3d: (path, shards, with the rotation)
-COEFF_PATHS = ((BIG, 4, True), (BIG_WIDE, 4, True), (SMALL, 8, False))
+# phase 3d: (path, shards, with the rotation, K10 on clusters)
+COEFF_PATHS = ((BIG, 4, True, True), (BIG_WIDE, 4, True, True), (SMALL, 8, False, False))
+# K10 / K11 case shapes (``coeff_cases``), checked in phase 2 and timed in
+# phase 4: each coeff path's batch and chain on its shards; the first is
+# the yardstick of the K10 / K11 rows
+COEFF_CASES = (("K10/K11 (4, 4, 2^16) P 4", BIG, 4),
+               ("K10/K11 (32, 8, 2^14) P 8", SMALL, 8),
+               ("K10/K11 (4, 3, 2^15) uint64 P 4", BIG_WIDE, 4))
 
 
 def coeff_twin(slabs, moduli, degree: int, inverse: bool) -> tuple:
@@ -882,10 +918,10 @@ def check_coeff(dev) -> int:
     """Phase 2, K10/K11 coeff: the sharded NTT (forward, inverse) on CUDA
     slabs at each of COEFF_SHAPES, word-equal to its twin on the same slabs
     and to the whole-plane kernel; one K10 and log2 P K11 launches per
-    call, none on a cluster."""
+    call, K10's on a cluster where ``slab_form`` picks one, K11's never."""
     import torch
 
-    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import coeff_cross, coeff_tail
+    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import coeff_cross, coeff_tail, slab_form
     from toy_heaan_ckks_tpu_torch.ops.ntt_gpu import ntt_planes, ntt_planes_wide
     from toy_heaan_ckks_tpu_torch.parallel.coeff_ntt import coeff_ntt
     from toy_heaan_ckks_tpu_torch.parallel.mesh import unshard_planes
@@ -896,13 +932,16 @@ def check_coeff(dev) -> int:
         for shards in shard_counts:
             moduli, x, slabs = coeff_input(dev, B, L, n, bits, shards)
             label = f"K10/K11 coeff ({B}, {L}, 2^{n.bit_length() - 1}) P {shards}"
+            cluster = slab_form(bits > 31, (n // shards).bit_length() - 1,
+                                B * L * shards) == "cluster"
             for inverse in (False, True):
                 zero_counts((coeff_tail, coeff_cross))
                 out = coeff_ntt(slabs, moduli, n, inverse)
                 torch.cuda.synchronize()
                 counts = [(f.launches, f.launches_cluster) for f in (coeff_tail, coeff_cross)]
-                if counts != [(1, 0), (shards.bit_length() - 1, 0)]:
-                    raise AssertionError(f"{label}: (K10, K11) launches {counts}")
+                if counts != [(1, int(cluster)), (shards.bit_length() - 1, 0)]:
+                    raise AssertionError(f"{label}: (K10, K11) launches {counts}, K10 "
+                                         f"on a cluster: {cluster}")
                 what = "inverse" if inverse else "forward"
                 twin = coeff_twin(slabs, moduli, n, inverse)
                 for p, (g, w) in enumerate(zip(out, twin)):
@@ -957,15 +996,39 @@ def coeff_cases(dev, B: int, L: int, n: int, bits: int, shards: int) -> dict:
     return cases
 
 
-def run_coeff(cfg: PathConfig, shards: int, rotate: bool, dev, run: dict,
-              rot_run: dict, counters) -> dict:
+def tail_form(cfg: PathConfig, shards: int) -> dict:
+    """K10's form at a coeff case shape (the path's batch, chain and
+    shards): ``slab_form``'s pick and, for a register form, registers and
+    spill bytes a thread, threads and shared bytes a block, blocks a slab
+    and slabs resident at once (``ckks_coeff_tail_info``)."""
+    import ctypes
+
+    from toy_heaan_ckks_tpu_torch.ops import _build
+    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import slab_form
+
+    wide, log_s = cfg.bits > 31, (cfg.degree // shards).bit_length() - 1
+    form = slab_form(wide, log_s, cfg.batch * cfg.count * shards)
+    info = {"log2_slab": log_s, "form": form}
+    if form != "template":
+        buf = (ctypes.c_int * 6)()
+        _build.check(_build.library().ckks_coeff_tail_info(
+            int(wide), log_s, int(form == "cluster"), 0, buf), "ckks_coeff_tail_info")
+        info.update(zip(("regs_per_thread", "local_bytes_per_thread", "threads_per_block",
+                         "smem_bytes_per_block", "blocks_a_slab", "resident_slabs"), buf))
+    return info
+
+
+def run_coeff(cfg: PathConfig, shards: int, rotate: bool, tail_clusters: bool, dev,
+              run: dict, rot_run: dict, counters) -> dict:
     """Phase 3d on one path: phase 3's batch and relin key (and phase 3b's
     rotation batch and key) sharded over a coefficient mesh of ``shards``
     shards of the card, through ``build_mul_relin_rescale_coeff`` (and
     ``build_rotate_coeff`` by the key's offset). Each output must equal the
     unsharded path's word for word, the multiply's decode stay within the
     path's bound; every count is set to 0 just before each call and read
-    just after: K10 and K11 launched in each, no cluster launched."""
+    just after: K10 and K11 launched in each, K10 on clusters where
+    ``tail_clusters`` says and nowhere else, no other kernel on a
+    cluster."""
     import numpy as np
     import torch
 
@@ -1004,10 +1067,15 @@ def run_coeff(cfg: PathConfig, shards: int, rotate: bool, dev, run: dict,
         wall = time.perf_counter() - t0
         counts = {f.__name__: f.launches for f in all_counters}
         cluster = {f.__name__: f.launches_cluster for f in all_counters if f.launches_cluster}
+        counts["coeff_tail[cluster]"] = cluster.pop("coeff_tail", 0)
         per_call[name] = counts
         print(f"{label} {name}: {wall:.3f} s (first call); launches {counts}")
         if cluster:
             raise AssertionError(f"{label} {name}: cluster launches {cluster}")
+        if (counts["coeff_tail[cluster]"] > 0) != tail_clusters:
+            raise AssertionError(f"{label} {name}: K10 cluster launches "
+                                 f"{counts['coeff_tail[cluster]']}, expected "
+                                 f"{'some' if tail_clusters else 'none'}")
         if counts["coeff_tail"] < 1 or counts["coeff_cross"] < 1:
             raise AssertionError(f"{label} {name} ran no K10 or no K11: {counts}")
         for i, (g, w) in enumerate(zip(got, want)):
@@ -1033,7 +1101,7 @@ def run_coeff(cfg: PathConfig, shards: int, rotate: bool, dev, run: dict,
         raise AssertionError(f"{label} decode error {max_err} > {cfg.max_decode_err}")
     return dict(per_call=per_call, mul=lambda: mul(*mul_args),
                 launches={k: sum(c[k] for c in per_call.values())
-                          for k in ("coeff_tail", "coeff_cross")})
+                          for k in ("coeff_tail", "coeff_cross", "coeff_tail[cluster]")})
 
 
 def time_coeff(run: dict, coeff_run: dict, shards: int) -> None:
@@ -1075,7 +1143,7 @@ class Timing(NamedTuple):
     """One case's times: ``ms`` per wrapper call (CUDA events over 100
     calls after 10 warm-up calls: the host's pace where the kernel is
     shorter than the wrapper's host work), ``device_ms`` per call
-    (torch.profiler over 20 calls), the twin's ms, and the bound of the
+    (``device_split`` over PROFILE_CALLS calls), the twin's ms, and the bound of the
     work with what sets it."""
 
     ms: float
@@ -1091,7 +1159,7 @@ def time_cases(cfg: PathConfig, cases: dict, int_ops_per_s: float,
     times = {}
     for name, case in cases.items():
         ms = _cuda_ms(case.kernel, 100, warmup=10)
-        split, _ = device_split(case.kernel, 20)
+        split, _ = device_split(case.kernel, PROFILE_CALLS)
         device_ms = sum(split.values())
         plain_ms = _cuda_ms(case.twin, twin_iters, warmup=1)
         bytes_ms = case.bytes / HBM_BYTES_PER_S * 1e3
@@ -1123,7 +1191,7 @@ def time_path(cfg: PathConfig, cases: dict, errs: dict, run: dict,
           f"planes): {fwd_ms * 1000 / (cfg.batch * cfg.count):.3f} us")
 
     rows = []
-    cluster = any(k.endswith("[cluster]") for k in run["launches"])
+    cluster = clustered(cfg, cfg.bits > 31)
     for case_name, (fn, src, rep) in names.items():
         t = times[case_name]
         launches = run["launches"] if fn in run["launches"] else rot_launches
@@ -1314,6 +1382,12 @@ CLUSTER_KERNELS = {
 }
 # the uint64 forms at 2^16 (the wide-2^16 kernel checks and times)
 WIDE_16_CLUSTER_KERNELS = _wide_cluster_forms(16)
+# K6's uint64 forms at 2^13 (the wide path) and 2^14 (wide-62b): ids 12, 13
+WIDE_CLUSTER_KERNELS = {
+    log_n: {"gadget_accumulate_wide": {"": (12 + log_n - 13,
+                                            f"keyswitch_kernel_cluster64<{log_n}>",
+                                            f"keyswitch_kernel_cluster64ILi{log_n}EE")}}
+    for log_n in (13, 14)}
 
 
 def cluster_info(kernel: int) -> list:
@@ -1330,16 +1404,17 @@ def cluster_info(kernel: int) -> list:
     return list(buf)
 
 
-def cluster_infos(cfg: PathConfig, rows: list) -> None:
-    """Adds to each row of a clustered path that CLUSTER_KERNELS names the
-    cluster form that ran (``cluster_info``), with its SASS counts."""
+def cluster_infos(cfg: PathConfig, rows: list, table: dict = CLUSTER_KERNELS) -> None:
+    """Adds to each row of the path that ``table`` names (CLUSTER_KERNELS:
+    the big and big-wide paths) the cluster form that ran
+    (``cluster_info``), with its SASS counts."""
     from toy_heaan_ckks_tpu_torch.ops import _build
 
     sass = sass_counts(_build.library_path(), {
-        shown: needle for forms in CLUSTER_KERNELS.values()
+        shown: needle for forms in table.values()
         for _, shown, needle in forms.values()})
     for row in rows:
-        forms = CLUSTER_KERNELS.get(row["name"].split("@")[0])
+        forms = table.get(row["name"].split("@")[0])
         if forms is None:
             continue
         for key, (kernel, shown, _) in forms.items():
@@ -1355,39 +1430,108 @@ def cluster_infos(cfg: PathConfig, rows: list) -> None:
                 row.update(info)
 
 
-def device_split(fn, iters: int, windows: int = 3) -> tuple:
-    """Device ms per call of ``fn`` split into the port's kernels and the
-    rest (torch elementwise glue), from torch.profiler over ``iters`` calls
-    after one warm-up call, and the wall ms per call under the profiler. A
-    profiler window now and then records no device event at all; such a
-    window is taken again, up to ``windows`` in all, and then raises."""
+_SPIN_KEYS: set = set()  # device event keys of torch.cuda._sleep's kernel
+# spin kernels that open and close a profiler window: a window loses its
+# first records (up to 11, 3 spins and 8 kernels, late in a chip_smoke.py
+# run on an NVIDIA H100 80GB HBM3), so the spins before the calls take them
+LEAD_SPINS, TRAIL_SPINS = 64, 4
+
+
+def _spin_keys() -> set:
+    """The profiler's device event keys of ``torch.cuda._sleep``'s kernel,
+    from a window of 8 such kernels alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if not _SPIN_KEYS:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+        _SPIN_KEYS.update(ev.key for ev in prof.key_averages()
+                          if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        if not _SPIN_KEYS:
+            raise AssertionError("torch.profiler recorded no torch.cuda._sleep kernel")
+    return _SPIN_KEYS
+
+
+def _spin(count: int) -> None:
+    import torch
+
+    for _ in range(count):
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+
+def _device_work(key: str) -> bool:
+    """Whether a device event key of torch.profiler is work on the card (a
+    kernel, named with its signature, or a copy or fill), not a record of
+    the tracer's own overhead."""
+    return "(" in key or key.startswith(("Memcpy", "Memset"))
+
+
+def device_split(fn, iters: int, windows: int = 12) -> tuple:
+    """Device ms per call of ``fn`` split into the port's kernels and the
+    rest (torch elementwise glue), from torch.profiler over ``iters`` calls,
+    and the wall ms per call under the profiler. torch.profiler loses
+    device records, the first of a window above all, so that a window
+    reads low or records nothing. So each window is the active
+    step of a profiler schedule whose warm-up step (traced, not kept) runs
+    one call, and it opens and closes with spin kernels
+    (``torch.cuda._sleep``, not counted). A window is whole where every
+    other kernel's event count is a whole multiple of ``iters``; the
+    split is taken once two whole windows show the same counts, and after
+    ``windows`` windows without that this raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    spin = _spin_keys()
     fn()
     torch.cuda.synchronize()
+    seen = set()
     for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            _spin(LEAD_SPINS)
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / iters
+            _spin(TRAIL_SPINS)
+            prof.step()
         split = {"ntt_kernel": 0.0, "ntt_mxu_kernel": 0.0, "keyswitch_kernel": 0.0,
                  "moddown_kernel": 0.0, "tail_kernel": 0.0, "cross_kernel": 0.0,
                  "other": 0.0}
+        counts, spins = {}, 0
         for ev in prof.key_averages():
             us = getattr(ev, "device_time_total", None)
             if us is None:
                 us = getattr(ev, "cuda_time_total", 0.0)
             if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA or not us:
                 continue
+            if ev.key in spin:
+                spins += ev.count
+            if ev.key in spin or not _device_work(ev.key):
+                continue
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
             key = next((k for k in split if k in ev.key), "other")
             split[key] += us / 1e3 / iters
-        if sum(split.values()) > 0:
-            return split, wall
-        print(f"profile: no device event recorded in a window of {iters} calls")
-    raise AssertionError(f"torch.profiler recorded no device time in {windows} windows")
+        signature = tuple(sorted(counts.items()))
+        if counts and all(c % iters == 0 for c in counts.values()):
+            if signature in seen:
+                return split, wall
+            seen.add(signature)
+        else:
+            short = {k[:48]: c for k, c in counts.items() if c % iters}
+            print(f"profile: a window of {iters} calls lost device records "
+                  f"({sum(counts.values())} events of {len(counts)} kernels, {spins} of "
+                  f"{LEAD_SPINS} + {TRAIL_SPINS} spins; {short})")
+    raise AssertionError(f"torch.profiler: no two of {windows} windows recorded every device "
+                         f"event of {iters} calls alike")
 
 
 def profile_composite(label: str, fn, iters: int = 5) -> None:
@@ -1459,6 +1603,11 @@ def main() -> int:
         big_wide_errs[k] = max(big_wide_errs[k], e)
     mxu_cases_small, mxu_errs = check_mxu(dev)
     coeff_err = check_coeff(dev)
+    coeff_shape_cases = {label: coeff_cases(dev, cfg.batch, cfg.count, cfg.degree, cfg.bits,
+                                            shards)
+                         for label, cfg, shards in COEFF_CASES}
+    for label, cases in coeff_shape_cases.items():
+        coeff_err = max(coeff_err, *check_cases(label, cases).values())
 
     # ── phase 3: each main path through the user entry points ───────────
     small_run = run_path(SMALL, dev, small_counters, wide=False)
@@ -1484,9 +1633,9 @@ def main() -> int:
     # ── phase 3d: the coefficient-sharded composites (K10, K11) ─────────
     runs = {SMALL.name: (small_run, small_rot), BIG.name: (big_run, big_rot),
             BIG_WIDE.name: (big_wide_run, big_wide_rot)}
-    coeff_runs = {cfg.name: run_coeff(cfg, shards, rotate, dev, *runs[cfg.name],
-                                      small_counters + wide_counters)
-                  for cfg, shards, rotate in COEFF_PATHS}
+    coeff_runs = {cfg.name: run_coeff(cfg, shards, rotate, tail_clusters, dev,
+                                      *runs[cfg.name], small_counters + wide_counters)
+                  for cfg, shards, rotate, tail_clusters in COEFF_PATHS}
 
     # ── phase 4: timings (CUDA events, after warm-up) ───────────────────
     small_names = {
@@ -1556,6 +1705,7 @@ def main() -> int:
     wide_rows = time_path(WIDE, wide_cases, wide_errs, wide_run, wide_rot["launches"],
                           wide_names, int_ops_per_s, twin_iters=2)
     time_no_d(WIDE, wide_rows, wide_no_d, int_ops_per_s, twin_iters=1)
+    cluster_infos(WIDE, wide_rows, WIDE_CLUSTER_KERNELS[13])
     rows += wide_rows
     big_rows = time_path(BIG, big_cases, big_errs, big_run, big_rot["launches"],
                          big_names, int_ops_per_s, twin_iters=3)
@@ -1577,6 +1727,10 @@ def main() -> int:
                                  for kernel, shown, _ in forms.values()}):
         print(f"[{WIDE_16.name}] {shown}: registers, spill bytes, threads, shared "
               f"bytes, blocks a cluster, resident clusters {cluster_info(kernel)}")
+    for kernel, shown, _ in (form for table in WIDE_CLUSTER_KERNELS.values()
+                             for form in table["gadget_accumulate_wide"].values()):
+        print(f"[{WIDE.name}, {WIDE_62.name}] {shown}: registers, spill bytes, threads, "
+              f"shared bytes, blocks a cluster, resident clusters {cluster_info(kernel)}")
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
                      (BIG_WIDE, big_wide_run)):
         ctx, child, rlk, (a0, a1, b0, b1) = (run["ctx"], run["child"], run["rlk"],
@@ -1613,33 +1767,42 @@ def main() -> int:
         time_rotation(mxu_cfg, small_run, small_rot, iters=5)
 
     # K10 / K11 at the big coeff path's planes (the yardstick shape), then at
-    # the small and big-wide paths' planes; the big coeff composite
-    coeff_times = time_cases(
-        dataclasses.replace(BIG, name="K10/K11 (4, 4, 2^16) P 4"),
-        coeff_cases(dev, 4, 4, BIG.degree, BIG.bits, 4), int_ops_per_s, twin_iters=3)
-    time_cases(dataclasses.replace(SMALL, name="K10/K11 (32, 8, 2^14) P 8"),
-                      coeff_cases(dev, 32, 8, SMALL.degree, SMALL.bits, 8),
-                      int_ops_per_s, twin_iters=2)
-    time_cases(
-        dataclasses.replace(BIG_WIDE, name="K10/K11 (4, 3, 2^15) uint64 P 4"),
-        coeff_cases(dev, 4, 3, BIG_WIDE.degree, BIG_WIDE.bits, 4), int_ops_per_s,
-        twin_iters=1)
+    # the small and big-wide paths' planes, each with K10's form; the big
+    # coeff composite
+    shape_times, forms = {}, {}
+    for label, cfg, shards in COEFF_CASES:
+        shape_times[label] = time_cases(dataclasses.replace(cfg, name=label),
+                                        coeff_shape_cases[label], int_ops_per_s,
+                                        twin_iters=1 if cfg.bits > 31 else 2)
+        forms[label] = tail_form(cfg, shards)
+        print(f"[{label}] K10 form: {json.dumps(forms[label])}")
+    coeff_times = shape_times[COEFF_CASES[0][0]]
     for fn, case_name, line in (("coeff_tail", "coeff_tail forward", 53),
                                 ("coeff_cross", "coeff_cross forward", 155)):
         t = coeff_times[case_name]
-        rows.append({
+        row = {
             "name": fn, "route": "cuda",
-            "source": "toy_heaan_ckks_tpu_torch/csrc/coeff_ntt.cu",
+            "source": "toy_heaan_ckks_tpu_torch/csrc/coeff_ntt.cuh",
             "replaces": f"toy_heaan_ckks_tpu/parallel/coeff_ntt.py:{line}",
             "launches": sum(r["launches"][fn] for r in coeff_runs.values()),
             "launches_per_mul": coeff_runs[BIG.name]["per_call"][
                 "build_mul_relin_rescale_coeff"][fn],
-            "cluster_launches": 0, "max_abs_err": coeff_err,
+            "cluster_launches": sum(r["launches"].get(f"{fn}[cluster]", 0)
+                                    for r in coeff_runs.values()),
+            "max_abs_err": coeff_err,
             "ms": t.device_ms, "plain_ms": t.plain_ms, "bound_ms": t.bound_ms,
             "bound_by": t.bound_by, "library_ms": None,
             "shape": "(4, 4, 2^16) uint32, P 4, forward",
             "ms_is": "profiler device time per call", "call_ms": t.ms,
-        })
+        }
+        if fn == "coeff_tail":
+            row["shapes"] = {label: {
+                **forms[label],
+                **{f"{d}_ms": times[f"coeff_tail {d}"].device_ms for d in ("forward", "inverse")},
+                **{f"{d}_bound_ms": times[f"coeff_tail {d}"].bound_ms
+                   for d in ("forward", "inverse")}}
+                for label, times in shape_times.items()}
+        rows.append(row)
     time_coeff(big_run, coeff_runs[BIG.name], 4)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     print(f"wall time: {time.perf_counter() - start:.1f} s")

@@ -1,5 +1,6 @@
-"""The cluster register-pass plan of K4, K3 / K3' and K2 at N = 2^16 and of
-K5' / K7, K6 and K8 / K8' at N = 2^15 and 2^16, in numpy.
+"""The cluster register-pass plan of K4, K3 / K3' and K2 at N = 2^16, of
+K5' / K7, K6 and K8 / K8' at N = 2^15 and 2^16 and of K6 at 2^13 and
+2^14, and K10's forms on a coefficient slab with its lead, in numpy.
 
 ``csrc/ntt_cluster.cuh`` spreads one plane of N words over a thread-block
 cluster of C blocks (rank r holds the slice [r*M, (r+1)*M), M = N/C,
@@ -39,6 +40,11 @@ interpret mode) on the CPU:
   loads, one forward plan per digit but the own one, the key products,
   the own-digit term and the digit sum in pass 0's layout; and a model of
   the cluster-barrier phases across the digits (``check_schedule``).
+- K10: slab p of P as a plane of S = N/P words with lead P + p (the
+  cross pass's entries (lead << l) + g, the slices' lead * C + r), on
+  one block (log2 C = 0) or a cluster, word-equal to
+  ``coeff_ntt_gpu.coeff_tail_twin``; the form ``slab_form`` picks, its
+  bank conflicts, and a dropped lead caught.
 
 The emulator lives here, not in the port; the card holds the CUDA kernels
 to the same twins (tests/test_torch_cuda.py, chip_smoke.py).
@@ -61,6 +67,7 @@ from toy_heaan_ckks_tpu.ops import ntt as ref_ntt
 
 from toy_heaan_ckks_tpu_torch import CkksContext, convert, generate_primes
 from toy_heaan_ckks_tpu_torch.keys import default_special_primes
+from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
 from toy_heaan_ckks_tpu_torch.ops import keyswitch_gpu, moddown_gpu, ntt_gpu
 from toy_heaan_ckks_tpu_torch.ops.modular import shoup
 from toy_heaan_ckks_tpu_torch.ops.ntt import compact_twiddles
@@ -85,24 +92,31 @@ class Words:
 W32 = Words(32, 5)  # the uint32 forms: 32 words a thread
 
 
-def _header_constant(name: str) -> int:
-    """An int constant of ``csrc/ntt_cluster.cuh``, the plan as built."""
-    text = (Path(ntt_gpu.__file__).parent.parent / "csrc" / "ntt_cluster.cuh").read_text()
-    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+def _header_constant(name: str, header: str = "ntt_cluster.cuh") -> int | None:
+    """An int constant of a header in ``csrc/`` (the plan as built), or
+    None where the header has no such constant."""
+    text = (Path(ntt_gpu.__file__).parent.parent / "csrc" / header).read_text()
+    found = re.search(rf"constexpr int {name} = (\d+);", text)
+    return None if found is None else int(found.group(1))
 
 
 # the uint64 cluster forms (ntt_cluster.cuh WideWords, WidePlan): words a
-# thread and log2 C at N = 2^15 and 2^16
+# thread and log2 C at N = 2^13 .. 2^16
 W64 = Words(64, _header_constant("kLogWideWords"))
-WIDE_LOG_C = {15: _header_constant("kWideLogCluster15"),
-              16: _header_constant("kWideLogCluster16")}
+WIDE_LOG_C = {n: _header_constant(f"kWideLogCluster{n}") for n in (13, 14, 15, 16)}
 
 
 class Plan:
-    """The index maps of one plane of 2^log_n words on C = 2^log_c blocks."""
+    """The index maps of one plane of 2^log_n words on C = 2^log_c blocks
+    (log_c = 0: one block, whose "cross pass" runs no stage and whose
+    scatter places pass 0's words at their own slots). ``lead``: 1 on a
+    whole plane; P + p on slab p of P (K10), the plane's stages log2 P and
+    up, its groups p * 2^s' + g' (``RegPass::run``)."""
 
-    def __init__(self, log_n: int, log_c: int, words: Words = W32):
-        self.log_n, self.log_c, self.words = log_n, log_c, words
+    def __init__(self, log_n: int, log_c: int, words: Words = W32, lead: int = 1):
+        self.log_n, self.log_c, self.words, self.lead = log_n, log_c, words, lead
+        self.log_p = lead.bit_length() - 1  # a slab of P = 2^log_p
+        self.p = lead - (1 << self.log_p)
         self.pad = words.pad
         log_w, self.W = words.log_w, words.W
         self.C = 1 << log_c
@@ -136,7 +150,7 @@ class Plan:
 
     def cross_twiddle(self, l: int, g: int) -> int:
         """Table entry of cross stage l, group g (the same for every thread)."""
-        return (1 << l) + g
+        return (self.lead << l) + g
 
     # ── the local passes: RegPass<log_m, kS, kR> ────────────────────────
     def gid(self, h: int, kR: int):
@@ -158,7 +172,7 @@ class Plan:
         """Table entry of local stage kS + kL, group g of group h: (C, T)."""
         log_off = self.log_m - kS - kR
         blk = self.gid(h, kR) >> log_off
-        return ((self.C + self.r) << (kS + kL)) + (blk << kL) + g
+        return ((self.lead * self.C + self.r) << (kS + kL)) + (blk << kL) + g
 
 
 _M32 = np.uint64(0xFFFFFFFF)
@@ -336,8 +350,8 @@ def emulate_forward(plan: Plan, x, tabs, q, prologue=None):
 
 def emulate_inverse(plan: Plan, x, tabs, q, fin):
     """Inverse NTT of x (planes, N), final per-plane constant fin = (f,
-    fp) (planes, 1, 1, 1), fp its Shoup companion (None for uint32);
-    returns (planes, N)."""
+    fp) (planes, 1, 1, 1), fp its Shoup companion (None for uint32), or
+    no final factor (fin None); returns (planes, N)."""
     kS_last, kR_last = plan.passes[-1]
     # load_runs: group h of thread t, the run of 2^kR words at gid << kR
     run = np.empty((plan.C, plan.T, plan.W), np.int64)
@@ -367,7 +381,9 @@ def emulate_inverse(plan: Plan, x, tabs, q, fin):
             b[:, :, :, h * plan.C + k] = xs[:, :, k * plan.MC + h * plan.T + plan.t[0]]
     _stages(b, tabs, q, plan.log_c, lambda kL, h, g: plan.cross_twiddle(kL, g),
             inverse=True)
-    return _unflatten(_mul(b, *fin, q), plan.cross_positions(), 1 << plan.log_n)
+    if fin is not None:
+        b = _mul(b, *fin, q)
+    return _unflatten(b, plan.cross_positions(), 1 << plan.log_n)
 
 
 def _companions(w, moduli, words: Words):
@@ -437,12 +453,16 @@ def _check_scatters(plan: Plan):
 
 
 def _check_local_twiddles(plan: Plan):
-    """(C + r) * 2^s' + blk * 2^kL + g is the whole plane's entry 2^s + g
-    of global stage s = log2 C + s' for the butterfly's global group."""
+    """(lead * C + r) * 2^s' + blk * 2^kL + g is the whole plane's entry
+    2^s + g of global stage s = log2 P + log2 C + s' for the butterfly's
+    global group (slab p of P at plane offset p * 2^log_n; P = 1 on a
+    plane); and the cross pass's (lead << l) + g that of stage log2 P +
+    l."""
+    log_total = plan.log_p + plan.log_n  # the whole plane's log2 N
     for kS, kR in plan.passes:
         log_off = plan.log_m - kS - kR
         for kL in range(kR):
-            s = plan.log_c + kS + kL
+            s = plan.log_p + plan.log_c + kS + kL
             for h in range(plan.W >> kR):
                 gid = plan.gid(h, kR)
                 blk = gid >> log_off
@@ -450,9 +470,19 @@ def _check_local_twiddles(plan: Plan):
                     # the butterfly's u word: local position of (blk, g, i=0)
                     local = ((blk << (plan.log_m - kS))
                              + (g << (plan.log_m - kS - kL)) + (gid & ((1 << log_off) - 1)))
-                    glob = plan.r * plan.M + local
-                    want = (1 << s) + (glob >> (plan.log_n - s))
+                    glob = (plan.p << plan.log_n) + plan.r * plan.M + local
+                    want = (1 << s) + (glob >> (log_total - s))
                     assert np.array_equal(plan.local_twiddle(kS, kR, kL, h, g), want)
+    for l in range(plan.log_c):
+        s = plan.log_p + l
+        for g in range(1 << l):
+            # group j's u word of butterfly group g: position j + k_u * M
+            k_u = g << (plan.log_c - l)
+            for h in range(plan.GX):
+                glob = (plan.p << plan.log_n) + plan.cross_j(h) + k_u * plan.M
+                want = (1 << s) + (glob >> (log_total - s))
+                assert np.array_equal(np.broadcast_to(plan.cross_twiddle(l, g), want.shape),
+                                      want)
 
 
 @pytest.mark.parametrize("log_n,log_c", PLANS)
@@ -858,7 +888,7 @@ def _accesses(plan: Plan):
                                                           (plan.C, plan.T))
 
 
-@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("log_n", [13, 14, 15, 16])
 def test_wide_plan_shapes(log_n):
     """The built plan's scatters and slice twiddles (``_check_scatters``,
     ``_check_local_twiddles``)."""
@@ -867,7 +897,7 @@ def test_wide_plan_shapes(log_n):
     _check_local_twiddles(plan)
 
 
-@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("log_n", [13, 14, 15, 16])
 def test_wide_plan_is_conflict_free(log_n):
     """Every shared-memory access of the built uint64 plan takes the least
     wavefronts a warp can (two half-warps of 8-byte words): the pad of one
@@ -916,10 +946,13 @@ def test_wide_ntt_plan_matches_twin(log_n, mode):
 
 # (log2 N, digit_size, base primes, with d), batch 1: at 2^15 D = 2 with
 # d and D = 1 with d (the base plane runs no NTT), at 2^16 D = 1 without d
-# (both planes run one); D = 2 without d at 2^12 below. 36-bit primes
+# (both planes run one); at 2^13 (the wide path's ring) D = 2 with and
+# without d, at 2^14 D = 1 with and without d; D = 2 without d at 2^12
+# below. 36-bit primes
 # (uint64 words, R = 2^64), as the twin's bit-serial products cost time by
 # the bit (61-bit words in the NTT cases and the 2^12 key switch)
-WIDE_KS = [(15, 1, 2, True), (15, 1, 1, True), (16, 1, 1, False)]
+WIDE_KS = [(15, 1, 2, True), (15, 1, 1, True), (16, 1, 1, False), (13, 1, 2, True),
+           (13, 1, 2, False), (14, 1, 1, True), (14, 1, 1, False)]
 
 
 @pytest.mark.parametrize("log_n,ds,count,with_d", WIDE_KS)
@@ -1035,3 +1068,204 @@ def test_wide_ks_barrier_schedule(log_n, digits, own):
     if digits - (own >= 0) > 1:
         with pytest.raises(AssertionError, match="overwrite"):
             check_schedule([ks_schedule(digits, own, arrive_before_read=True)] * C)
+
+
+# ── K10: a coefficient slab as a plane whose twiddles start at a lead ──
+
+
+def emulate_tail(log_c: int, words: Words, slabs, moduli, degree: int, inverse: bool,
+                 final=None):
+    """K10's register forms on P int64 slabs (B, L, S): slab p on the plan
+    of 2^log2 S words on C = 2^log_c blocks (0: one block) with lead P + p
+    and the whole plane's tables (N = ``degree``), forward or inverse, then
+    the optional per-channel ``final`` factors (on pass 0's words forward,
+    on the cross pass's inverse); returns torch slabs of the plan's word."""
+    P = len(slabs)
+    B, L, S = slabs[0].shape
+    fwd, fwdp, inv, invp = _tables(tuple(moduli), degree, words.bits)
+    tabs = (_tile(inv, B), _tile(invp, B)) if inverse else (_tile(fwd, B), _tile(fwdp, B))
+    q = np.tile(np.array(moduli, np.int64), B)[:, None, None, None]
+    fin = None
+    if final is not None:
+        f = np.array([v % m for v, m in zip(final, moduli)], np.int64)
+        col = lambda v: None if v is None else np.tile(v, B)[:, None, None, None]
+        fin = (col(f), col(_companions(f, moduli, words)))
+    dtype = np.int32 if words.bits == 32 else np.int64
+    out = []
+    for p, x in enumerate(slabs):
+        plan = tail_plan(S.bit_length() - 1, log_c, words, P + p)
+        x2 = x.reshape(B * L, S)
+        if inverse:
+            y = emulate_inverse(plan, x2, tabs, q, fin)
+        else:
+            a = emulate_forward(plan, x2, tabs, q)
+            y = _unflatten(a if fin is None else _mul(a, *fin, q), _p0_positions(plan), S)
+        out.append(torch.from_numpy(y.reshape(B, L, S).astype(dtype)))
+    return tuple(out)
+
+
+def tail_plan(log_s: int, log_c: int, words: Words, lead: int) -> Plan:
+    """The plan of one K10 slab (a patchable seam for the mutation test)."""
+    return Plan(log_s, log_c, words, lead)
+
+
+def _tail_case(bits: int, shards: int, log_s: int, inverse: bool, final: bool, seed: int = 0):
+    """One chain's P slabs of 2^log_s words (batch 1, one channel of a
+    ``bits``-bit prime) as int64 numpy slabs, the torch slabs, the chain,
+    N and the final factors (N^-1) or None."""
+    degree = shards << log_s
+    moduli = tuple(generate_primes(bits, 1, degree))
+    x = _planes(seed + log_s + shards, moduli, degree, 1)
+    S = 1 << log_s
+    slabs = [x[..., p * S:(p + 1) * S].copy() for p in range(shards)]
+    dtype = torch.int32 if bits < 32 else torch.int64
+    fin = tuple(pow(degree, -1, q) for q in moduli) if final else None
+    return slabs, tuple(torch.from_numpy(a).to(dtype) for a in slabs), moduli, degree, fin
+
+
+# log2 C of K10's cluster form by log2 S, uint32 and uint64, as built
+# (csrc/coeff_ntt.cuh kSlabLogCluster*; None where the size has none)
+SLAB_LOG_C = {wide: {log_s: _header_constant(
+    f"kSlabLogCluster{'Wide' if wide else ''}{log_s}", "coeff_ntt.cuh")
+    for log_s in range(10, 16)} for wide in (False, True)}
+
+# (word, log2 S, log2 C): one block on slabs of 2^10 (uint32 passes 5+5,
+# uint64 4+3+3) and the built cluster on slabs of 2^12 (C = 4: slices of
+# 2^10), for P = 1, 2, 4, 8: the slab's lead P + p in the cross pass and
+# the slices
+TAIL_FORMS = [(W32, 10, 0), (W32, 12, SLAB_LOG_C[False][12]), (W64, 10, 0),
+              (W64, 12, SLAB_LOG_C[True][12])]
+
+
+# (P, inverse, final): every direction with and without the final factor
+# at P = 1 and 2, the coeff paths' forward without it and inverse with it
+# at P = 4 and 8
+TAIL_RUNS = [(shards, inverse, final) for shards in (1, 2, 4, 8)
+             for inverse, final in ((False, False), (True, True), (True, False), (False, True))
+             if shards <= 2 or inverse == final]
+
+
+@pytest.mark.parametrize("words,log_s,log_c", TAIL_FORMS, ids=["u32-block", "u32-cluster4",
+                                                               "u64-block", "u64-cluster4"])
+@pytest.mark.parametrize("shards,inverse,final", TAIL_RUNS)
+def test_tail_forms_match_twin(words, log_s, log_c, shards, inverse, final):
+    """K10's one-block and cluster forms with each slab's lead against
+    ``coeff_tail_twin`` word for word, forward and inverse, with and
+    without the final factor (uint64 on 36-bit primes: the twin's
+    bit-serial products cost time by the bit)."""
+    slabs, tslabs, moduli, degree, fin = _tail_case(31 if words.bits == 32 else 36, shards,
+                                                     log_s, inverse, final)
+    got = emulate_tail(log_c, words, slabs, moduli, degree, inverse, fin)
+    want = cg.coeff_tail_twin(tslabs, moduli, degree, inverse, fin)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_tail_lead_mutations_fail(monkeypatch):
+    """The emulation catches a slice lead of C + r in place of (P + p) * C
+    + r, and the cross pass's 2^l + g in place of ((P + p) << l) + g, at P
+    = 4 on a cluster of 4 (uint64)."""
+    slabs, tslabs, moduli, degree, _ = _tail_case(36, 4, 12, False, False)
+    want = cg.coeff_tail_twin(tslabs, moduli, degree, False)
+    assert all(torch.equal(g, w) for g, w in
+               zip(emulate_tail(2, W64, slabs, moduli, degree, False), want))
+
+    def slice_lead_dropped(log_s, log_c, words, lead):
+        plan = Plan(log_s, log_c, words, lead)
+        plan.local_twiddle = lambda kS, kR, kL, h, g: (
+            ((plan.C + plan.r) << (kS + kL)) + ((plan.gid(h, kR) >> (plan.log_m - kS - kR))
+                                                << kL) + g)
+        return plan
+
+    def cross_lead_dropped(log_s, log_c, words, lead):
+        plan = Plan(log_s, log_c, words, lead)
+        plan.cross_twiddle = lambda l, g: (1 << l) + g
+        return plan
+
+    for bad in (slice_lead_dropped, cross_lead_dropped):
+        monkeypatch.setattr(sys.modules[__name__], "tail_plan", bad)
+        got = emulate_tail(2, W64, slabs, moduli, degree, False)
+        assert not all(torch.equal(g, w) for g, w in zip(got, want)), bad.__name__
+
+
+# K10's form (``coeff_ntt_gpu.slab_form``) at the coeff paths' launches:
+# (wide, log2 S, slabs in the launch, form, log2 C as built): (4, 4,
+# 2^16) P 4 on clusters of 4, (4, 3, 2^15) uint64 P 4 on clusters of 8,
+# (32, 8, 2^14) P 8 one block a slab; P 8 of the big chain and P 1 of the
+# small one one block a slab (128 and 256 slabs); uint64 slabs of 2^14 on
+# 8; below 2^10 the template
+SLAB_FORMS = [(False, 14, 64, "cluster", 2), (True, 13, 48, "cluster", 3),
+              (False, 11, 2048, "block", 0), (False, 13, 128, "block", 0),
+              (False, 14, 256, "block", 0), (True, 14, 24, "cluster", 3),
+              (False, 9, 8, "template", 0)]
+
+
+@pytest.mark.parametrize("wide,log_s,slabs,form,log_c", SLAB_FORMS)
+def test_slab_form_at_coeff_shapes(wide, log_s, slabs, form, log_c):
+    assert cg.slab_form(wide, log_s, slabs) == form
+    if form == "cluster":
+        assert SLAB_LOG_C[wide][log_s] == log_c
+
+
+def test_slab_form_mirror():
+    """The rule in plain terms for every slab size and a range of launch
+    sizes: the template below 2^10 words; a cluster for every uint64 slab
+    of 2^13 or 2^14 (three passes of 16 words hold 12 stages) and for a
+    slab of 2^12 words or more in a launch of fewer slabs than half of
+    the card's 132 SMs; else one block a slab. Each form picked is built:
+    a slab of at most 128 KiB; one block: at most what three passes hold;
+    a cluster: the header's C (4 .. 16, at most the words a thread) for
+    exactly the slabs of 2^12 words and up, slices of 2^10 words or more
+    that three passes hold."""
+    for wide in (False, True):
+        words = W64 if wide else W32
+        max_log_s = 14 if wide else 15
+        for log_s in range(1, max_log_s + 1):
+            log_c = SLAB_LOG_C[wide].get(log_s)
+            assert (log_c is not None) == (log_s >= 12), (wide, log_s)
+            for slabs in (1, 24, 48, 64, 65, 66, 67, 128, 132, 2048):
+                if log_s < 10:
+                    want = "template"
+                elif log_s >= 12 and ((wide and log_s >= 13) or slabs < 132 // 2):
+                    want = "cluster"
+                else:
+                    want = "block"
+                got = cg.slab_form(wide, log_s, slabs)
+                assert got == want, (wide, log_s, slabs)
+                assert (words.bits // 8) << log_s <= 128 << 10
+                if got == "block":
+                    assert log_s <= 3 * words.log_w
+                if got == "cluster":
+                    assert 10 <= log_s - log_c <= 3 * words.log_w
+                    assert 2 <= log_c and (1 << log_c) <= min(16, words.W)
+
+
+def _conflicts(plan: Plan) -> dict:
+    """{access kind: times the least wavefronts} of the plan's shared-memory
+    accesses that take more than the least (``_wavefronts``); on one
+    block (log2 C = 0) the passes alone: no scatter, no buffer."""
+    phases = 32 * plan.words.bytes // 128
+    worst = {}
+    for name, slots in _accesses(plan):
+        if plan.log_c == 0 and not name.startswith("pass"):
+            continue
+        kind = re.sub(r" (word|group|store|load) .*| \d+(, \d+)?$", "", name)
+        for row in np.asarray(slots).reshape(plan.C, plan.T):
+            for w in range(0, plan.T, 32):
+                worst[kind] = max(worst.get(kind, 1), _wavefronts(row[w:w + 32], plan.words)
+                                  // phases)
+    return {k: v for k, v in worst.items() if v > 1}
+
+
+# K10's forms at the coeff shapes and every uint64 form slab_form picks:
+# (words, log2 S, log2 C, the accesses with bank conflicts and their ways).
+# The uint32 middle passes keep ntt_reg.cuh's 2- to 4-way conflicts; a
+# uint64 slice of 2^10 (passes 4 + 3 + 3) 2-way ones in its middle pass
+TAIL_CONFLICTS = [(W32, 14, 2, {"pass (5, 4)": 2}), (W32, 11, 0, {"pass (5, 3)": 4}),
+                  (W64, 13, 3, {"pass (4, 3)": 2}), (W64, 14, 3, {}),
+                  (W64, 12, 2, {"pass (4, 3)": 2}), (W64, 12, 0, {}), (W64, 11, 0, {}),
+                  (W64, 10, 0, {"pass (4, 3)": 2})]
+
+
+@pytest.mark.parametrize("words,log_s,log_c,want", TAIL_CONFLICTS)
+def test_tail_plan_bank_conflicts(words, log_s, log_c, want):
+    assert _conflicts(Plan(log_s, log_c, words, lead=5)) == want

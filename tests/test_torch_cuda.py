@@ -396,13 +396,14 @@ def test_wide_ntt_cluster_form_unaligned_input(dev, degree, mode):
 # (digit_size, base primes): D = 3 (a special plane runs 3 cluster NTTs in
 # a row), D = 2 with a short last digit group, D = 1 (with d the base
 # planes run no NTT and touch no peer)
-@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+@pytest.mark.parametrize("degree", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
 @pytest.mark.parametrize("digit_size,count", [(1, 3), (2, 3), (2, 2)])
 @pytest.mark.parametrize("batch", [1, 4])
 @pytest.mark.parametrize("with_d", [True, False])
 def test_wide_keyswitch_cluster_form_digits(dev, degree, digit_size, count, batch, with_d):
-    """K6 at N = 2^15 and 2^16 (keyswitch_kernel_cluster64) against its
-    twin: one cluster launch, uint64-equal outputs."""
+    """K6 at N = 2^13 .. 2^16 (keyswitch_kernel_cluster64: WidePlan's C
+    blocks at 2^13 and 2^14, where one block holds the plane, 16 above)
+    against its twin: one cluster launch, uint64-equal outputs."""
     base, ext = _chain(count, digit_size, degree, 61)
     digits = -(-count // digit_size)
     y = _planes(1, base, degree, (batch,), dev, torch.int64)
@@ -630,7 +631,8 @@ def test_coeff_kernels_match_twins_and_whole_plane(dev, degree, shards, wide,
                                                    inverse):
     """K11 per cross stage and K10 each against its twin on the same CUDA
     slabs; the sharded NTT word-equal to K1 / K4 / K5 / K5' on the whole
-    plane, with one K10 and log2 P K11 launches and no cluster."""
+    plane, with one K10 and log2 P K11 launches, K10's on a cluster where
+    ``slab_form`` picks one (K11 never)."""
     from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
     from toy_heaan_ckks_tpu_torch.parallel.coeff_ntt import coeff_ntt
     from toy_heaan_ckks_tpu_torch.parallel.mesh import (
@@ -664,12 +666,79 @@ def test_coeff_kernels_match_twins_and_whole_plane(dev, degree, shards, wide,
     before = [(f.launches, f.launches_cluster) for f in (cg.coeff_tail, cg.coeff_cross)]
     out = coeff_ntt(slabs, moduli, degree, inverse)
     after = [(f.launches, f.launches_cluster) for f in (cg.coeff_tail, cg.coeff_cross)]
+    log_s = (degree // shards).bit_length() - 1
+    cluster = cg.slab_form(wide, log_s, 2 * len(moduli) * shards) == "cluster"
     assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == [
-        (1, 0), (cross, 0)]
+        (1, int(cluster)), (cross, 0)]
     whole = (ntt_gpu.ntt_planes_wide if wide else ntt_gpu.ntt_planes)(
         x, moduli, degree, inverse)
     assert torch.equal(unshard_planes(out), whole)
     assert torch.equal(unshard_planes(s), whole)
+
+
+# every register form of K10 that csrc/coeff_ntt.cuh builds: (wide, log2
+# S, form), one block (uint32 slabs of 2^10 .. 2^15, uint64 of 2^10 ..
+# 2^12) or the slab's cluster (2^12 words and up)
+TAIL_FORMS = [(wide, log_s, form) for wide in (False, True)
+              for log_s in range(10, 15 if wide else 16)
+              for form in ("block", "cluster")
+              if (form == "block" and log_s <= (12 if wide else 15))
+              or (form == "cluster" and log_s >= 12)]
+
+
+@pytest.mark.parametrize("wide,log_s,form", TAIL_FORMS)
+def test_coeff_tail_every_form_matches_twin(dev, monkeypatch, wide, log_s, form):
+    """Each built form of K10 (``slab_form`` patched to pick it) on the
+    slabs of P = 2 (N = 2S) and of P = 4, forward and inverse with the
+    final factor, word-equal to its twin, and the inverse on a slab one
+    word off a 16-byte boundary (the wrapper copies it for the 16-byte
+    runs)."""
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import make_coeff_mesh, shard_planes
+
+    monkeypatch.setattr(cg, "slab_form", lambda w, s, slabs: form)
+    for shards in (2, 4):
+        degree = shards << log_s
+        if degree > 1 << 16:
+            continue
+        moduli, dtype = _coeff_chain(degree, wide)
+        x = _planes(log_s + shards, moduli, degree, (2,), dev, dtype)
+        slabs = shard_planes(x, make_coeff_mesh(shards, dev))
+        fin = tuple(pow(degree, -1, q) for q in moduli)
+        for inverse, final in ((False, None), (True, fin), (False, fin)):
+            got, counts = _counted(cg.coeff_tail, lambda: cg.coeff_tail(
+                slabs, moduli, degree, inverse, final))
+            assert counts == (1, int(form == "cluster"))
+            want = cg.coeff_tail_twin(slabs, moduli, degree, inverse, final)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        off = []
+        for t in slabs:
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            flat[1:] = t.reshape(-1)
+            off.append(flat[1:].view(t.shape))
+        got = cg.coeff_tail(tuple(off), moduli, degree, True, fin)
+        want = cg.coeff_tail_twin(slabs, moduli, degree, True, fin)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("wide,log_s,form", [(True, 13, "block"), (False, 11, "cluster"),
+                                             (False, 9, "cluster")])
+def test_coeff_tail_unbuilt_form_raises(dev, monkeypatch, wide, log_s, form):
+    """A form that csrc/coeff_ntt.cuh does not build (one block for a
+    uint64 slab of 2^13, a cluster for a slab below 2^12) raises and
+    launches nothing: no form gives way to another."""
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import make_coeff_mesh, shard_planes
+
+    monkeypatch.setattr(cg, "slab_form", lambda w, s, slabs: form)
+    degree = 2 << log_s
+    moduli, dtype = _coeff_chain(degree, wide)
+    x = _planes(log_s, moduli, degree, (2,), dev, dtype)
+    slabs = shard_planes(x, make_coeff_mesh(2, dev))
+    before = cg.coeff_tail.launches, cg.coeff_tail.launches_cluster
+    with pytest.raises(RuntimeError):
+        cg.coeff_tail(slabs, moduli, degree, False)
+    assert (cg.coeff_tail.launches, cg.coeff_tail.launches_cluster) == before
 
 
 @pytest.mark.parametrize("degree,shards,wide", [(1 << 16, 1, False),

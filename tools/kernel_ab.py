@@ -2,21 +2,27 @@
 """Kernel times of one checkout of the port on the card, for an A/B in turns.
 
     python tools/kernel_ab.py --root PATH [--label NAME] [--sass] [--composite]
+                              [--paths NAME,...] [--k10-forms]
 
 Imports ``chip_smoke.py`` and ``toy_heaan_ckks_tpu_torch`` from the
 checkout at PATH (its kernels are built there at first use), makes the
-kernel cases of each of its paths small, wide, big, big-wide and
-wide-2^16 that it has (``chip_smoke.kernel_cases``: the same seeded
-inputs and shapes in every checkout that has the path; copy one
-``chip_smoke.py`` into both trees for the same cases, e.g. K2 / K6 with
-and without d on every path), and K10 / K11 at the big coeff path's
-planes where it has them (``chip_smoke.coeff_cases``, (4, 4, 2^16) on
-P = 4, under ``K10/K11 big``), and
+kernel cases of each of its paths small, wide, wide-62b (N = 2^14, batch
+2), big, big-wide and wide-2^16 that it has, or of those ``--paths``
+names (``chip_smoke.kernel_cases``: the same seeded inputs and shapes in
+every checkout that has the path; copy one ``chip_smoke.py`` into both
+trees for the same cases, e.g. K2 / K6 with and without d on every
+path), and K10 / K11 at the coeff paths' planes where it has them
+(``chip_smoke.coeff_cases``: (4, 4, 2^16) on P = 4 under ``K10/K11
+big``, (4, 3, 2^15) uint64 on P = 4 under ``K10/K11 big-wide``, (32, 8,
+2^14) on P = 8 under ``K10/K11 small``; with ``--paths``, those of the
+paths named), and
 prints one JSON line: the card's name and power limit and, per case, the
 mean ms of 100 launches after 10 warm-up launches (``ms``, CUDA events:
 the pace of the wrapper calls, which the host sets where the kernel is
 shorter than the wrapper's host work) and the device ms per call
-(``device_ms``, torch.profiler over 50 calls: the kernels alone). Run it
+(``device_ms``, torch.profiler over 50 calls: the kernels alone, by this
+tool's own checkout's ``chip_smoke.device_split``, which takes windows
+until two record every launch alike, whichever checkout is timed). Run it
 once per checkout in one command on one card, in turns (parent, change,
 change, parent), to compare two commits; no twin is timed. ``--sass``
 adds, per kernel of the built library (each instantiation under its own
@@ -30,13 +36,21 @@ runs torch.profiler and again after one profiler window. Where the
 checkout has the cluster forms of ``csrc/ntt_cluster.cuh``, ``cluster``
 gives each form's registers, spill bytes, threads and shared bytes a
 block, blocks a cluster and resident clusters (uint32 K4, K3, K2 at
-2^16; uint64 K5' / K7, K6 and K8 / K8' at 2^15 and 2^16; null for a form
-the checkout's library does not have).
+2^16; uint64 K5' / K7, K6 and K8 / K8' at 2^15 and 2^16, K6 at 2^13 and
+2^14; null for a form the checkout's library does not have). ``--k10-forms`` times, in place
+of all that, K10's two register forms (``coeff_ntt_gpu.slab_form``
+patched to pick each: ``block``, one block a slab, and ``cluster``, the
+slab's cluster of ``csrc/coeff_ntt.cuh`` ``kSlabLogCluster*`` blocks)
+forward and inverse at each of ``K10_SHAPES`` where the slab has the
+form, device ms under ``k10_forms``, with each form's registers and
+resident slabs (``ckks_coeff_tail_info``): the times that set
+``SLAB_FILL``. To time another C, build a copy with the constant changed.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import os
@@ -45,11 +59,43 @@ import sys
 
 
 MEMORY_OPS = ("LDS", "STS", "LD", "ST", "LDG", "STG", "BAR")
+# (label, batch, channels, degree, prime bits, shards) of the coeff
+# paths' K10 launches (chip_smoke.py phases 2 and 3d), two more slab
+# sizes (P = 1 and 2 of the small chain, P = 2 of the big-wide one:
+# uint64 slabs of 2^14), and 48 .. 128 slabs of 2^12 .. 2^14 around
+# SLAB_FILL
+K10_SHAPES = (
+    ("small", 32, 8, 1 << 14, 31, 8), ("small P 1", 32, 8, 1 << 14, 31, 1),
+    ("small P 2", 32, 8, 1 << 14, 31, 2), ("big", 4, 4, 1 << 16, 30, 4),
+    ("big B 6", 6, 4, 1 << 16, 30, 4), ("big B 8", 8, 4, 1 << 16, 30, 4),
+    ("big B 2 P 8", 2, 4, 1 << 16, 30, 8), ("big B 3 P 8", 3, 4, 1 << 16, 30, 8),
+    ("big P 8", 4, 4, 1 << 16, 30, 8), ("big-wide", 4, 3, 1 << 15, 61, 4),
+    ("big-wide P 2", 4, 3, 1 << 15, 61, 2), ("big-wide P 8", 4, 3, 1 << 15, 61, 8),
+    ("big-wide B 2 P 8", 2, 3, 1 << 15, 61, 8),
+)
+COEFF_PATHS = {"small": "SMALL", "big": "BIG", "big-wide": "BIG_WIDE"}
 PROFILE_CALLS = 50  # calls per profiler window of a case's device time
+_TIMER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "chip_smoke.py")
 COMPOSITE_WINDOWS = 10  # windows of 10 calls, before and after the profiler
 _NAMES = ((r"\(anonymous namespace\)::|<unnamed>::", ""), (r"\(bool\)1", "true"),
           (r"\(bool\)0", "false"), (r"\((?:unsigned )?\w+\)(?=-?\d)", ""),
           (r"unsigned long(?: long)?", "u64"), (r"unsigned int", "u32"), (r", ", ","))
+
+
+def device_split(fn, iters: int) -> tuple:
+    """``chip_smoke.device_split`` of this tool's checkout (not of the
+    checkout timed), so that every checkout's device times are read alike;
+    its notes of windows that lost records go to standard error."""
+    import contextlib
+    import importlib.util
+
+    if "chip_smoke_timer" not in sys.modules:
+        spec = importlib.util.spec_from_file_location("chip_smoke_timer", _TIMER)
+        module = sys.modules["chip_smoke_timer"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    with contextlib.redirect_stdout(sys.stderr):
+        return sys.modules["chip_smoke_timer"].device_split(fn, iters)
 
 
 def kernel_names(mangled: list) -> list:
@@ -130,7 +176,7 @@ def composite_times(smoke, dev) -> dict:
     mul = lambda: batched_mul_relin_rescale((a0, a1), (b0, b1), run["rlk"], run["ctx"],
                                             run["child"])
     before = [smoke._cuda_ms(mul, 10) for _ in range(COMPOSITE_WINDOWS)]
-    smoke.device_split(mul, 5)
+    device_split(mul, 5)
     after = [smoke._cuda_ms(mul, 10) for _ in range(COMPOSITE_WINDOWS)]
     return {"before_profiler": before, "after_profiler": after}
 
@@ -144,7 +190,8 @@ def cluster_forms(smoke) -> dict | None:
     if not hasattr(smoke, "cluster_info"):
         return None
     forms = {}
-    tables = (smoke.CLUSTER_KERNELS, getattr(smoke, "WIDE_16_CLUSTER_KERNELS", {}))
+    tables = (smoke.CLUSTER_KERNELS, getattr(smoke, "WIDE_16_CLUSTER_KERNELS", {}),
+              *getattr(smoke, "WIDE_CLUSTER_KERNELS", {}).values())
     for entry in (e for table in tables for e in table.values()):
         for kernel, shown, _ in entry.values():
             try:
@@ -154,6 +201,41 @@ def cluster_forms(smoke) -> dict | None:
     return forms
 
 
+def k10_forms(smoke, dev) -> dict:
+    """{shape: {"picked": form, form: {"forward": ms, "inverse": ms,
+    "info": [...]}}}: the device ms of K10's ``block`` and ``cluster``
+    forms at K10_SHAPES where the slab has each (the inverse with the
+    final factor where P = 1), ``slab_form`` patched to pick it."""
+    from toy_heaan_ckks_tpu_torch.ops import _build
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+
+    lib = _build.library()
+    picked = cg.slab_form
+    out = {}
+    try:
+        for label, B, L, n, bits, shards in K10_SHAPES:
+            moduli, _, slabs = smoke.coeff_input(dev, B, L, n, bits, shards)
+            wide, log_s = bits > 31, (n // shards).bit_length() - 1
+            fin = tuple(pow(n, -1, q) for q in moduli) if shards == 1 else None
+            row = out[f"{label} ({B}, {L}, 2^{n.bit_length() - 1}) P {shards}"] = {
+                "slabs": B * L * shards, "picked": picked(wide, log_s, B * L * shards)}
+            for form in ("block", "cluster"):
+                buf = (ctypes.c_int * 6)()
+                if lib.ckks_coeff_tail_info(int(wide), log_s, int(form == "cluster"), 0, buf):
+                    continue  # the slab has no such form
+                cg.slab_form = lambda w, s, count, form=form: form
+                times = {}
+                for name, inverse, final in (("forward", False, None), ("inverse", True, fin)):
+                    split, _ = device_split(
+                        lambda: cg.coeff_tail(slabs, moduli, n, inverse, final), PROFILE_CALLS)
+                    times[name] = sum(split.values())
+                times["info"] = list(buf)
+                row[form] = times
+    finally:
+        cg.slab_form = picked
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True)
@@ -161,6 +243,9 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--composite", action="store_true")
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated chip_smoke.py path names (e.g. wide,wide-62b)")
+    ap.add_argument("--k10-forms", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -173,25 +258,36 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    card = smoke._smi("name,power.limit")
+    if args.k10_forms:
+        print(json.dumps({"label": args.label or root, "card": card,
+                          "k10_forms": k10_forms(smoke, dev)}))
+        return 0
     sass = _sass_counts() if args.sass else None
     composite = composite_times(smoke, dev) if args.composite else None
     times, device = {}, {}
-    paths = (("SMALL", False), ("WIDE", True), ("BIG", False), ("BIG_WIDE", True),
-             ("WIDE_16", True))
+    paths = (("SMALL", False), ("WIDE", True), ("WIDE_62", True), ("BIG", False),
+             ("BIG_WIDE", True), ("WIDE_16", True))
+    chosen = [getattr(smoke, p) for p, _ in paths if hasattr(smoke, p)]
+    if args.paths:
+        names = args.paths.split(",")
+        chosen = [cfg for cfg in chosen if cfg.name in names]
     cases = [(f"{cfg.name} {name}", case)
-             for cfg, wide in ((getattr(smoke, p), wide) for p, wide in paths
-                               if hasattr(smoke, p))
+             for cfg, wide in ((cfg, cfg.bits > 31) for cfg in chosen)
              for name, case in smoke.kernel_cases(cfg, dev, wide=wide).items()]
     if hasattr(smoke, "coeff_cases"):
-        big = smoke.BIG
-        cases += [(f"K10/K11 big {name}", case) for name, case in
-                  smoke.coeff_cases(dev, 4, 4, big.degree, big.bits, 4).items()]
+        for path, shards in (("big", 4), ("big-wide", 4), ("small", 8)):
+            cfg = getattr(smoke, COEFF_PATHS[path])
+            if args.paths and path not in args.paths.split(","):
+                continue
+            cases += [(f"K10/K11 {path} {name}", case) for name, case in smoke.coeff_cases(
+                dev, cfg.batch, cfg.count, cfg.degree, cfg.bits, shards).items()]
     for name, case in cases:
         times[name] = smoke._cuda_ms(case.kernel, args.iters, warmup=10)
-        split, _ = smoke.device_split(case.kernel, PROFILE_CALLS)
+        split, _ = device_split(case.kernel, PROFILE_CALLS)
         device[name] = sum(split.values())
     cluster = cluster_forms(smoke)
-    print(json.dumps({"label": args.label or root, "card": smoke._smi("name,power.limit"),
+    print(json.dumps({"label": args.label or root, "card": card,
                       "ms": times, "device_ms": device,
                       **({"cluster": cluster} if cluster else {}),
                       **({"sass": sass} if sass else {}),

@@ -32,8 +32,9 @@
 //
 // uint32 planes that one block holds (N = 2^10 .. 2^15) run another body,
 // keyswitch_kernel_reg<log2 N>, and uint32 planes of 2^16 a third,
-// keyswitch_kernel_cluster (below); the uint64 forms run keyswitch_kernel
-// above. The one-block design:
+// keyswitch_kernel_cluster (below); uint64 planes of 2^13 .. 2^16 run
+// keyswitch_kernel_cluster64<log2 N> (below) and uint64 planes up to 2^12
+// keyswitch_kernel above. The one-block design:
 //
 // - NTT passes in registers (csrc/ntt_reg.cuh, shared with K1 and K3):
 //   N / 32 threads of 32 words, 5+5+4 stages at 2^14 with one
@@ -89,10 +90,14 @@
 // at 64 registers (58 clusters resident); without d 0.0537-0.0542
 // (0.3002-0.3070; 64 registers 0.0550-0.0563).
 //
-// K6 on uint64 planes of 2^15 and 2^16 (keyswitch_kernel_cluster64<log2
+// K6 on uint64 planes of 2^13 .. 2^16 (keyswitch_kernel_cluster64<log2
 // N>) runs the same body on the uint64 plan (ntt_cluster.cuh WidePlan: 16
-// blocks of 16 words a thread), the raise a Harvey64 in the cross pass's
-// loads and the key products REDC64s on the slice's words. 126-128
+// words a thread; 16 blocks a plane at 2^15 and 2^16, kWideLogCluster13 /
+// 14 at 2^13 and 2^14, where one block holds the plane but three passes
+// of 16 words do not hold its stages, and the template ran one barrier a
+// stage on 40 blocks at the wide path's shape), the raise a Harvey64 in
+// the cross pass's loads and the key products REDC64s on the slice's
+// words. 126-128
 // registers a thread, no spill; 28 clusters resident at 2^15 (the
 // big-wide path's 16 planes at batch 4 at once), 14 at 2^16. Measured on
 // an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_ab.py, device time;
@@ -100,7 +105,11 @@
 // 0.2912-0.2929 for keyswitch_kernel on clusters of 2, without d
 // 0.0673-0.0677 (0.2897-0.2929); at (1, 2 base, 2^16) 0.046 (0.209); on
 // clusters of 8 at 2^15 0.064 / 0.085; with 32 words a thread (232
-// registers) 0.140-0.148.
+// registers) 0.140-0.148. At the wide path's (8, 5, 2^13), ds 1: with d
+// 0.0526 ms on clusters of 4 against 0.1828-0.1833 for keyswitch_kernel
+// (0.0635-0.0641 on 8), without d 0.0577-0.0578 (0.1791-0.1848); at
+// (2, 4, 2^14), 62-bit, 0.0447 on 8 against 0.2688-0.2700 (0.0531-0.0541
+// on 4); 126-128 registers, no spill, 124 / 62 clusters resident.
 #include "ntt.cuh"
 #include "ntt_cluster.cuh"
 #include "ntt_reg.cuh"
@@ -177,8 +186,8 @@ keyswitch_kernel(const T* __restrict__ y, long long y_stride,
 }
 
 // One block a plane: keyswitch_kernel's one-block form (uint32 planes
-// below 2^10, uint64 planes up to 2^14; the larger planes run the cluster
-// forms below).
+// below 2^10, uint64 planes up to 2^12; the larger planes run the forms
+// below).
 template <typename T>
 int launch_one_block(const T* y, long long y_stride, const T* d, long long d_stride,
                      const T* key_a, const T* key_b, const T* c, const T* cs, const T* q,
@@ -475,7 +484,7 @@ keyswitch_kernel_cluster(const uint32_t* __restrict__ y, long long y_stride,
                                   digit_size);
 }
 
-// K6 on uint64 planes of 2^kLogN words, 2^15 and 2^16 (see the header).
+// K6 on uint64 planes of 2^kLogN words, 2^13 .. 2^16 (see the header).
 template <int kLogN>
 __global__ void __launch_bounds__(WidePlan<kLogN>::kThreads,
                                   ckks::kWideThreadsPerSm / WidePlan<kLogN>::kThreads)
@@ -509,7 +518,39 @@ int launch_cluster64(const uint64_t* y, long long y_stride, const uint64_t* d,
       cs, q, qinv, tw, twp, out0, out1, outer, base, ext, digits, digit_size);
 }
 
+// f(std::integral_constant<int, log_n>{}) for a ring of K6's cluster form.
+template <typename F>
+auto wide_ks_dispatch(int log_n, F f) -> decltype(f(std::integral_constant<int, 16>{})) {
+  switch (log_n) {
+    case 13: return f(std::integral_constant<int, 13>{});
+    case 14: return f(std::integral_constant<int, 14>{});
+    case 15: return f(std::integral_constant<int, 15>{});
+    default: return f(std::integral_constant<int, 16>{});
+  }
+}
+
+// Blocks a plane of the form that ckks_keyswitch (wide 0) or
+// ckks_keyswitch64 (wide 1) launches at log_n for `parts`
+// (ntt_gpu.plane_split): K6's cluster of WidePlan's C at 2^13 .. 2^16
+// whatever parts says, K2's cluster of BigPlan's C at 2^16 (parts above
+// 1), else 1 (one block a plane) at parts 1 and 0 (refused) otherwise.
+int ks_blocks(bool wide, int log_n, int parts) {
+  if (wide && ckks::wide_ks_cluster_shape(log_n))
+    return wide_ks_dispatch(log_n, [](auto log_n_c) {
+      return ckks::WidePlan<decltype(log_n_c)::value>::kC;
+    });
+  if (!wide && parts > 1 && log_n == ckks::kClusterLogN) return BigPlan::kC;
+  return parts == 1 ? 1 : 0;
+}
+
 }  // namespace
+
+// ks_blocks for the wrappers' launch counts: the blocks a plane that the
+// entry launches with these arguments (above 1: a cluster), 0 where it
+// refuses them.
+extern "C" int ckks_keyswitch_blocks(int wide, int log_n, int parts) {
+  return ks_blocks(wide != 0, log_n, parts);
+}
 
 // y: (outer, base, N) plain digit values, item stride y_stride; d: NTT-domain
 // input (outer, base, N) with stride d_stride, or nullptr (no skip-own);
@@ -527,20 +568,21 @@ extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
                               uint32_t* out0, uint32_t* out1, int outer,
                               int base, int ext, int digits, int digit_size,
                               int log_n, int parts, cudaStream_t stream) {
-  if (parts == 1 && ckks::reg_shape(log_n)) {
+  const int blocks = ks_blocks(false, log_n, parts);
+  if (blocks > 1) {
+    return ckks::launch_cluster<BigPlan, &keyswitch_kernel_cluster>(
+        outer * ext, BigPlan::kForwardBytes, stream, y, y_stride, d, d_stride, key_a,
+        key_b, c, cs, q, qinv, tw, twp, out0, out1, outer, base, ext, digits,
+        digit_size);
+  }
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ckks::reg_shape(log_n)) {
     return ckks::reg_dispatch(log_n, [&](auto log_n_c) {
       return launch_reg<decltype(log_n_c)::value>(
           y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp,
           out0, out1, outer, base, ext, digits, digit_size, stream);
     });
   }
-  if (parts > 1 && log_n == ckks::kClusterLogN) {
-    return ckks::launch_cluster<BigPlan, &keyswitch_kernel_cluster>(
-        outer * ext, BigPlan::kForwardBytes, stream, y, y_stride, d, d_stride, key_a,
-        key_b, c, cs, q, qinv, tw, twp, out0, out1, outer, base, ext, digits,
-        digit_size);
-  }
-  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_one_block(y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw,
                           twp, out0, out1, outer, base, ext, digits, digit_size, log_n,
                           stream);
@@ -551,9 +593,10 @@ const void* ckks::keyswitch_cluster_kernel() {
 }
 
 const void* ckks::keyswitch_cluster64_kernel(int log_n) {
-  if (!wide_cluster_shape(log_n)) return nullptr;
-  return log_n == 15 ? reinterpret_cast<const void*>(keyswitch_kernel_cluster64<15>)
-                     : reinterpret_cast<const void*>(keyswitch_kernel_cluster64<16>);
+  if (!wide_ks_cluster_shape(log_n)) return nullptr;
+  return wide_ks_dispatch(log_n, [](auto log_n_c) {
+    return reinterpret_cast<const void*>(keyswitch_kernel_cluster64<decltype(log_n_c)::value>);
+  });
 }
 
 const void* ckks::keyswitch_reg_kernel(int log_n) {
@@ -579,10 +622,10 @@ extern "C" int ckks_reg_info(int kernel, int log_n, int* info) {
   return ckks::reg_info(fn, log_n, info);
 }
 
-// The same on uint64 words (wide chains; qinv = -q^-1 mod 2^64): parts 1
-// (N <= 2^14, keyswitch_kernel's one-block form) or, at N = 2^15 and 2^16
-// only, above 1 (a cluster: keyswitch_kernel_cluster64 on
-// ckks::WidePlan's C blocks whatever parts says).
+// The same on uint64 words (wide chains; qinv = -q^-1 mod 2^64): at N =
+// 2^13 .. 2^16 a cluster (keyswitch_kernel_cluster64 on ckks::WidePlan's
+// C blocks) whatever parts says; below, parts 1 (keyswitch_kernel's
+// one-block form).
 extern "C" int ckks_keyswitch64(const uint64_t* y, long long y_stride,
                                 const uint64_t* d, long long d_stride,
                                 const uint64_t* key_a, const uint64_t* key_b,
@@ -592,12 +635,15 @@ extern "C" int ckks_keyswitch64(const uint64_t* y, long long y_stride,
                                 uint64_t* out0, uint64_t* out1, int outer,
                                 int base, int ext, int digits, int digit_size,
                                 int log_n, int parts, cudaStream_t stream) {
-  if (parts > 1 && ckks::wide_cluster_shape(log_n)) {
-    return (log_n == 15 ? launch_cluster64<15> : launch_cluster64<16>)(
-        y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp, out0, out1, outer,
-        base, ext, digits, digit_size, stream);
+  const int blocks = ks_blocks(true, log_n, parts);
+  if (blocks > 1) {
+    return wide_ks_dispatch(log_n, [&](auto log_n_c) {
+      return launch_cluster64<decltype(log_n_c)::value>(
+          y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp, out0, out1,
+          outer, base, ext, digits, digit_size, stream);
+    });
   }
-  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_one_block(y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp,
                           out0, out1, outer, base, ext, digits, digit_size, log_n, stream);
 }

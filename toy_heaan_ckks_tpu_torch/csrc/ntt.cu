@@ -133,25 +133,7 @@ int launch_one_block(const T* x, long long x_stride, T* out, const T* tw, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-using ckks::kLogRegWords;
-using ckks::kRegWords;
 using ckks::RegPlan;
-
-// dst[m * N/W + tid] = a[m] * fin (Harvey), or a[m] without fin.
-template <int kLogN, typename Wd = ckks::Words32, typename T = typename Wd::Word>
-__device__ __forceinline__ void store_words(T* __restrict__ dst, const T (&a)[Wd::kCount],
-                                            int tid, const T* __restrict__ f,
-                                            const T* __restrict__ fp, T q) {
-  constexpr int kT = RegPlan<kLogN, Wd>::kThreads;
-  if (f != nullptr) {
-    const T fv = *f, fpv = *fp;
-#pragma unroll
-    for (int m = 0; m < Wd::kCount; ++m) dst[m * kT + tid] = ckks::harvey(a[m], fv, fpv, q);
-  } else {
-#pragma unroll
-    for (int m = 0; m < Wd::kCount; ++m) dst[m * kT + tid] = a[m];
-  }
-}
 
 // K1 on uint32 planes that one block holds (see the header): one block of
 // N / 32 threads per (item, channel) plane.
@@ -163,35 +145,13 @@ ntt_kernel_reg(const uint32_t* __restrict__ x, long long x_stride,
                const uint32_t* __restrict__ twp, const uint32_t* __restrict__ q,
                const uint32_t* __restrict__ fin, const uint32_t* __restrict__ finp,
                int channels) {
-  using Last = ckks::RegLast<kLogN>;
-  using P0 = ckks::RegPass<kLogN, 0, kLogRegWords>;
   constexpr long long n = 1LL << kLogN;
-  constexpr int kT = RegPlan<kLogN>::kThreads;
-  uint32_t* s = ckks::smem_plane<uint32_t>();
-  const int tid = threadIdx.x;
   const int ch = blockIdx.x % channels;
   const long long item = blockIdx.x / channels;
-  const uint32_t qc = q[ch];
-  const uint32_t* src = x + item * x_stride + ch * n;
-  uint32_t* dst = out + (item * channels + ch) * n;
-  const uint32_t* w = tw + ch * n;
-  const uint32_t* wp = twp + ch * n;
-  const uint32_t* f = fin == nullptr ? nullptr : fin + ch;
-  const uint32_t* fp = fin == nullptr ? nullptr : finp + ch;
-
-  uint32_t a[kRegWords];
-  if constexpr (!kInverse) {
-#pragma unroll
-    for (int m = 0; m < kRegWords; ++m) a[m] = ckks::ldg(src + m * kT + tid);
-    ckks::reg_forward<kLogN>(s, a, tid, w, wp, qc);
-    Last::store(s, a, tid);
-    __syncthreads();
-    P0::load(s, a, tid);
-  } else {
-    ckks::load_runs<Last>(src, a, tid);
-    ckks::reg_inverse<kLogN>(s, a, tid, w, wp, qc);
-  }
-  store_words<kLogN>(dst, a, tid, f, fp, qc);
+  ckks::reg_ntt<kLogN, kInverse>(ckks::smem_plane<uint32_t>(), x + item * x_stride + ch * n,
+                                 out + (item * channels + ch) * n, threadIdx.x, tw + ch * n,
+                                 twp + ch * n, q[ch], fin == nullptr ? nullptr : fin + ch,
+                                 fin == nullptr ? nullptr : finp + ch);
 }
 
 template <int kLogN, bool kInverse>
@@ -226,47 +186,15 @@ __device__ __forceinline__ void ntt_cluster_body(const T* __restrict__ x, long l
                                                  const T* __restrict__ q,
                                                  const T* __restrict__ fin,
                                                  const T* __restrict__ finp, int channels) {
-  using Cross = ckks::CrossPass<Plan, kInverse>;
   constexpr long long n = 1LL << Plan::kLogN;
-  constexpr int kC = Plan::kC, kM = Plan::kM, kW = Plan::kW;
   ckks::cluster_arrive_relaxed();  // this block has started
-  T* s = ckks::smem_plane<T>();
-  const int tid = threadIdx.x;
-  const int r = static_cast<int>(blockIdx.x) & (kC - 1);  // rank in the cluster
+  const int r = static_cast<int>(blockIdx.x) & (Plan::kC - 1);  // rank in the cluster
   const int plane = static_cast<int>(blockIdx.x) >> Plan::kLogC;
   const int ch = plane % channels;
   const long long item = plane / channels;
-  const T qc = q[ch];
-  const T* src = x + item * x_stride + ch * n;
-  T* dst = out + (item * channels + ch) * n;
-  const T* w = tw + ch * n;
-  const T* wp = twp + ch * n;
-
-  T a[kW];
-  if constexpr (!kInverse) {
-#pragma unroll
-    for (int h = 0; h < Plan::kGroups; ++h)
-#pragma unroll
-      for (int k = 0; k < kC; ++k)
-        a[h * kC + k] = ckks::ldg(src + Cross::first(r, h, tid) + k * kM);
-    Cross::run(a, w, wp, qc);
-    ckks::cluster_forward<Plan>(s, a, r, tid, w, wp, qc);
-    store_words<Plan::kLogM, typename Plan::Words>(
-        dst + r * kM, a, tid, fin == nullptr ? nullptr : fin + ch,
-        fin == nullptr ? nullptr : finp + ch, qc);
-  } else {
-    ckks::load_runs<ckks::RegLast<Plan::kLogM, typename Plan::Words>>(src + r * kM, a, tid);
-    ckks::cluster_inverse<Plan>(s, a, r, tid, w, wp, qc);
-    if (fin != nullptr) {
-      const T fv = fin[ch], fpv = finp[ch];
-#pragma unroll
-      for (int m = 0; m < kW; ++m) a[m] = ckks::harvey(a[m], fv, fpv, qc);
-    }
-#pragma unroll
-    for (int h = 0; h < Plan::kGroups; ++h)
-#pragma unroll
-      for (int k = 0; k < kC; ++k) dst[Cross::first(r, h, tid) + k * kM] = a[h * kC + k];
-  }
+  ckks::cluster_ntt<Plan, kInverse>(ckks::smem_plane<T>(), x + item * x_stride + ch * n,
+                                    out + (item * channels + ch) * n, r, threadIdx.x,
+                                    tw + ch * n, twp + ch * n, q[ch], fin, finp, ch);
 }
 
 // K4 on uint32 planes of 2^16 words (see the header).
@@ -400,8 +328,8 @@ const void* ckks::ntt_cluster_kernel(bool inverse) {
 
 // The cluster kernel `kernel` (ckks::ClusterKernel: 0 K3, 1 K4 forward, 2 K4
 // inverse, 3 K2; uint64 4 K5' forward, 5 K5'/K7 inverse, 6 K6 at 2^15, 7, 8,
-// 9 the same at 2^16, 10 K8 at 2^15, 11 K8 at 2^16) as built and as it fits
-// the current device
+// 9 the same at 2^16, 10 K8 at 2^15, 11 K8 at 2^16, 12 K6 at 2^13, 13 K6
+// at 2^14) as built and as it fits the current device
 // (ckks::cluster_info: registers, spill bytes, threads, shared bytes, blocks
 // a cluster, resident clusters). Returns cudaErrorInvalidValue for another
 // id.
@@ -429,6 +357,12 @@ extern "C" int ckks_cluster_info(int kernel, int* info) {
   if (kernel == ckks::kClusterModDownWide + 1)
     return ckks::cluster_info<WidePlan<16>>(ckks::moddown_cluster64_kernel(16),
                                             WidePlan<16>::kForwardBytes, info);
+  if (kernel == ckks::kClusterKeySwitchWide13)
+    return ckks::cluster_info<WidePlan<13>>(ckks::keyswitch_cluster64_kernel(13),
+                                            WidePlan<13>::kForwardBytes, info);
+  if (kernel == ckks::kClusterKeySwitchWide13 + 1)
+    return ckks::cluster_info<WidePlan<14>>(ckks::keyswitch_cluster64_kernel(14),
+                                            WidePlan<14>::kForwardBytes, info);
   const int wide = kernel - ckks::kClusterWide;
   if (wide < 0 || wide >= 2 * ckks::kClusterWideIds)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -19,9 +19,13 @@
 // overflow 64 bits for the 63-bit special primes of a 62-bit chain.
 //
 // A plane is held on chip for the whole transform. The templates here
-// hold it in one block, up to 128 KiB (uint32 N <= 2^15, uint64 N <= 2^14);
-// a larger plane runs ntt_cluster.cuh's plan, spread over a thread-block
-// cluster of 16 blocks of register passes. This replaces the reference's
+// hold it in one block, up to 128 KiB, one barrier a stage; they run the
+// uint64 one-block forms of K5 / K7 and K8 (N <= 2^14) and of K6 (N <=
+// 2^12), uint32 planes below 2^10, and K10 on slabs below 2^10. The other
+// planes run register passes (ntt_reg.cuh: uint32 one-block planes of
+// 2^10 .. 2^15, K10's slabs of 2^10 words and up), and a plane above 128
+// KiB, or K6's uint64 plane of 2^13 / 2^14, ntt_cluster.cuh's plan over a
+// thread-block cluster of register passes. This replaces the reference's
 // factored row x lane twiddles (ntt_pallas.py _ntt_kernel_fac, K4;
 // ntt_pallas_wide.py _ntt_kernel_fac_wide, K5'), which exist because the
 // TPU expands each stage's twiddles to a full plane: the compact tables

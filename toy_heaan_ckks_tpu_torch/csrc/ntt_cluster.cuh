@@ -4,12 +4,16 @@
 // uint64 N = 2^15, 2^16), K3 / K3' (csrc/moddown.cu,
 // moddown_kernel_cluster, uint32 2^16), K8 / K8' (moddown_kernel_cluster64,
 // uint64 2^15, 2^16), K2 and K6 (csrc/keyswitch.cu,
-// keyswitch_kernel_cluster / keyswitch_kernel_cluster64, one forward a
-// digit). The stage, group and twiddle conventions are those of ntt.cuh
-// (tree order, the compact table of the whole plane), so the words equal
-// the twins' and the one-block forms'. The plan is generic over the word
-// (ntt_reg.cuh RegWords): W words a thread, uint32 planes W = 32
-// (BigPlan), uint64 planes W = 16 (WidePlan).
+// keyswitch_kernel_cluster at uint32 2^16, keyswitch_kernel_cluster64 at
+// uint64 2^13 .. 2^16, one forward a digit) and K10 (csrc/coeff_ntt.cuh,
+// tail_kernel_cluster: a coefficient slab as a plane whose twiddles start
+// at its lead, uint32 slabs of 2^12 .. 2^15 and uint64 slabs of 2^12 ..
+// 2^14 where coeff_ntt_gpu.slab_form picks it). The stage, group and
+// twiddle conventions are those of ntt.cuh (tree order, the compact table
+// of the whole plane), so the words equal the twins' and the one-block
+// forms'. The plan is generic over the word (ntt_reg.cuh RegWords): W
+// words a thread, uint32 planes W = 32 (BigPlan), uint64 planes W = 16
+// (WidePlan).
 //
 // Rank r of the cluster holds the slice [r*M, (r+1)*M), M = N/C, in its
 // shared memory; its M/W threads hold W words each (uint32 2^16 on C = 16:
@@ -19,8 +23,9 @@
 //   rank r holds W/C groups; group h is the C words j + k*M, k < C, at
 //   a[h*C + k], j = r*M/C + h*T + t (T threads a block), so its loads are
 //   coalesced over t and the groups are spread evenly over the ranks. The
-//   stage-l butterflies take the table entries 2^l + g, the same C - 1
-//   words for every thread (CrossPass).
+//   stage-l butterflies take the table entries (lead << l) + g, the same
+//   C - 1 words for every thread: lead = 1 on a plane, P + p on slab p
+//   of P (CrossPass).
 // - Forward: after the cross pass, word k of group j goes to rank k's
 //   shared memory at pad(j) through distributed shared memory, one store
 //   of the word's size each (st.shared::cluster.u32 / .u64: the pad word
@@ -29,9 +34,10 @@
 //   a 2^(log2 N - log2 C)-word plane (ntt_reg.cuh RegPlan: 5+4+3 at
 //   uint32 C = 16, 4+4+4 at uint64 2^16 and 4+4+3 at 2^15 on C = 16) on
 //   its slice alone, the twiddle of local stage s' and slice group g' at
-//   (C + r) * 2^s' + g' (SlicePass: global stage log2 C + s', global
-//   group r * 2^s' + g'), and goes back to pass 0's layout for a coalesced
-//   store.
+//   ((lead * C + r) << s') + g' (RegPass::run: on a plane, lead = 1,
+//   global stage log2 C + s' and global group r * 2^s' + g'; on slab p,
+//   lead = P + p, stage log2 P + log2 C + s', group (p*C + r) * 2^s' + g'),
+//   and goes back to pass 0's layout for a coalesced store.
 // - Inverse: the local Gentleman-Sande passes on the slice, from its runs
 //   of adjacent words (16-byte loads, as ntt_kernel_reg), then each word of
 //   pass 0 goes to its cross-pass owner through distributed shared memory
@@ -88,19 +94,29 @@ struct ClusterPlan {
 
 using BigPlan = ClusterPlan<kClusterLogN, kLogCluster>;
 
-// The uint64 cluster forms (N = 2^15 and 2^16, planes above 128 KiB): 16
-// words a thread, 16 blocks a plane at both rings
-// (tests/test_torch_cluster_plan.py reads these three constants).
+// The uint64 cluster forms: 16 words a thread; 16 blocks a plane at
+// N = 2^15 and 2^16 (planes above 128 KiB: K5' / K7, K6, K8 / K8'), and
+// the C below at 2^13 and 2^14 (K6 alone, whose one-block template runs
+// one barrier a stage; three passes of 16 words hold 12 stages, so one
+// block cannot hold these planes in registers). tests/test_torch_cluster_plan.py
+// reads these five constants.
 constexpr int kLogWideWords = 4;
+constexpr int kWideLogCluster13 = 2;
+constexpr int kWideLogCluster14 = 3;
 constexpr int kWideLogCluster15 = 4;
 constexpr int kWideLogCluster16 = 4;
 using WideWords = RegWords<uint64_t, kLogWideWords>;
 template <int kLogN>
-constexpr int kWideLogCluster = kLogN == 15 ? kWideLogCluster15 : kWideLogCluster16;
+constexpr int kWideLogCluster = kLogN == 13   ? kWideLogCluster13
+                                : kLogN == 14 ? kWideLogCluster14
+                                : kLogN == 15 ? kWideLogCluster15
+                                              : kWideLogCluster16;
 template <int kLogN>
 using WidePlan = ClusterPlan<kLogN, kWideLogCluster<kLogN>, WideWords>;
-// the rings of the uint64 cluster forms
+// the rings of the uint64 cluster forms of K5' / K7 and K8 / K8'
 constexpr bool wide_cluster_shape(int log_n) { return log_n == 15 || log_n == 16; }
+// the rings of K6's uint64 cluster form
+constexpr bool wide_ks_cluster_shape(int log_n) { return log_n >= 13 && log_n <= 16; }
 // resident threads an SM that the uint64 cluster kernels promise ptxas
 // (__launch_bounds__): 512, up to 128 registers a thread
 constexpr int kWideThreadsPerSm = 512;
@@ -136,77 +152,10 @@ __device__ __forceinline__ void cluster_store(uint32_t addr, uint64_t v) {
   asm volatile("st.shared::cluster.u64 [%0], %1;\n" ::"r"(addr), "l"(v));
 }
 
-// Stage kL of a pass of 2^kR-word groups on group kH of a[] (RegPass::stage
-// / RegPassInv::stage): group g's twiddle is table entry k0 + g.
-template <int kR, int kH, int kL, bool kInverse, typename T, int kW>
-__device__ __forceinline__ void pass_stage(T (&a)[kW], int k0, const T* __restrict__ tw,
-                                           const T* __restrict__ twp, T q) {
-  constexpr int kHalf = 1 << (kR - 1 - kL);
-#pragma unroll
-  for (int g = 0; g < (1 << kL); ++g) {
-    const T w = ldg(tw + k0 + g);
-    const T wp = ldg(twp + k0 + g);
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      const int u = (kH << kR) + 2 * kHalf * g + i;
-      const T xu = a[u];
-      if constexpr (kInverse) {
-        const T xv = a[u + kHalf];
-        a[u] = add_mod(xu, xv, q);
-        a[u + kHalf] = harvey(sub_mod(xu, xv, q), w, wp, q);
-      } else {
-        const T xv = harvey(a[u + kHalf], w, wp, q);
-        a[u] = add_mod(xu, xv, q);
-        a[u + kHalf] = sub_mod(xu, xv, q);
-      }
-    }
-  }
-}
-
-// The stage of a pass's step kI: forward kL = kI, inverse kL = kR - 1 - kI.
-template <bool kInverse, int kR, int kI>
-constexpr int kStageOf = kInverse ? kR - 1 - kI : kI;
-
-// Local pass (kS, kR) of a rank's slice of 2^kLogM words: RegPass's words
-// and butterflies, the twiddle of local stage kS + kL at (lead << (kS +
-// kL)) + (blk << kL) + g, lead = C + rank (1: RegPass's own rule).
-template <int kLogM, int kS, int kR, bool kInverse, typename Wd = Words32>
-struct SlicePass : RegPass<kLogM, kS, kR, Wd> {
-  using Base = RegPass<kLogM, kS, kR, Wd>;
-  using T = typename Base::T;
-  static constexpr int kW = Base::kW;
-
-  template <int kH, int... kI>
-  __device__ __forceinline__ static void group(T (&a)[kW], int t, int lead,
-                                               std::integer_sequence<int, kI...>,
-                                               const T* __restrict__ tw,
-                                               const T* __restrict__ twp, T q) {
-    const int blk = Base::gid(t, kH) >> Base::kLogOff;
-    (pass_stage<kR, kH, kStageOf<kInverse, kR, kI>, kInverse>(
-         a, (lead << (kS + kStageOf<kInverse, kR, kI>)) +
-                (blk << kStageOf<kInverse, kR, kI>),
-         tw, twp, q),
-     ...);
-  }
-
-  template <int... kH>
-  __device__ __forceinline__ static void groups(T (&a)[kW], int t, int lead,
-                                                std::integer_sequence<int, kH...>,
-                                                const T* __restrict__ tw,
-                                                const T* __restrict__ twp, T q) {
-    (group<kH>(a, t, lead, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
-  }
-
-  __device__ __forceinline__ static void run(T (&a)[kW], int t, int lead,
-                                             const T* __restrict__ tw,
-                                             const T* __restrict__ twp, T q) {
-    groups(a, t, lead, std::make_integer_sequence<int, Base::kGroups>{}, tw, twp, q);
-  }
-};
-
 // The cross pass of a plan: W/C groups of C words a thread, stages
 // 0 .. log2 C - 1 (the inverse from log2 C - 1 down), table entries
-// 2^l + g.
+// (lead << l) + g: lead = 1 on a whole plane (2^l + g, the same C - 1
+// words for every thread), P + p on slab p of P (RegPass::run).
 template <typename Plan, bool kInverse>
 struct CrossPass {
   using T = typename Plan::Word;
@@ -218,26 +167,26 @@ struct CrossPass {
   }
 
   template <int kH, int... kI>
-  __device__ __forceinline__ static void group(T (&a)[Plan::kW],
+  __device__ __forceinline__ static void group(T (&a)[Plan::kW], int lead,
                                                std::integer_sequence<int, kI...>,
                                                const T* __restrict__ tw,
                                                const T* __restrict__ twp, T q) {
     (pass_stage<kLogC, kH, kStageOf<kInverse, kLogC, kI>, kInverse>(
-         a, 1 << kStageOf<kInverse, kLogC, kI>, tw, twp, q),
+         a, lead << kStageOf<kInverse, kLogC, kI>, tw, twp, q),
      ...);
   }
 
   template <int... kH>
-  __device__ __forceinline__ static void groups(T (&a)[Plan::kW],
+  __device__ __forceinline__ static void groups(T (&a)[Plan::kW], int lead,
                                                 std::integer_sequence<int, kH...>,
                                                 const T* __restrict__ tw,
                                                 const T* __restrict__ twp, T q) {
-    (group<kH>(a, std::make_integer_sequence<int, kLogC>{}, tw, twp, q), ...);
+    (group<kH>(a, lead, std::make_integer_sequence<int, kLogC>{}, tw, twp, q), ...);
   }
 
   __device__ __forceinline__ static void run(T (&a)[Plan::kW], const T* __restrict__ tw,
-                                             const T* __restrict__ twp, T q) {
-    groups(a, std::make_integer_sequence<int, Plan::kGroups>{}, tw, twp, q);
+                                             const T* __restrict__ twp, T q, int lead = 1) {
+    groups(a, lead, std::make_integer_sequence<int, Plan::kGroups>{}, tw, twp, q);
   }
 };
 
@@ -247,11 +196,13 @@ struct CrossPass {
 // returns with a[] in pass 0's layout (word m at slice position m*T + t)
 // and no peer touching s. Every thread arrived on the cluster barrier
 // when its block started, or after its last read of s in an earlier
-// forward.
+// forward. lead: the cross pass's (CrossPass); the slice of rank r takes
+// lead * C + r.
 template <typename Plan, typename T = typename Plan::Word>
 __device__ __forceinline__ void cluster_forward(T* s, T (&a)[Plan::kW], int r, int t,
                                                 const T* __restrict__ tw,
-                                                const T* __restrict__ twp, T q) {
+                                                const T* __restrict__ twp, T q,
+                                                int lead = 1) {
   using Wd = typename Plan::Words;
   constexpr int kLogM = Plan::kLogM;
   using Local = RegPlan<kLogM, Wd>;
@@ -268,21 +219,21 @@ __device__ __forceinline__ void cluster_forward(T* s, T (&a)[Plan::kW], int r, i
   cluster_arrive();
   cluster_wait();  // the slice is whole; no peer writes to s again
 
-  const int lead = Plan::kC + r;
-  using P0 = SlicePass<kLogM, 0, Wd::kLog, false, Wd>;
-  using P1 = SlicePass<kLogM, Wd::kLog, Local::kR1, false, Wd>;
+  const int slice = lead * Plan::kC + r;
+  using P0 = RegPass<kLogM, 0, Wd::kLog, Wd>;
+  using P1 = RegPass<kLogM, Wd::kLog, Local::kR1, Wd>;
   P0::load(s, a, t);
-  P0::run(a, t, lead, tw, twp, q);
+  P0::run(a, t, tw, twp, q, slice);
   P0::store(s, a, t);
   __syncthreads();
   P1::load(s, a, t);
-  P1::run(a, t, lead, tw, twp, q);
+  P1::run(a, t, tw, twp, q, slice);
   if constexpr (Local::kR2 > 0) {
-    using P2 = SlicePass<kLogM, Wd::kLog + Local::kR1, Local::kR2, false, Wd>;
+    using P2 = RegPass<kLogM, Wd::kLog + Local::kR1, Local::kR2, Wd>;
     P1::store(s, a, t);
     __syncthreads();
     P2::load(s, a, t);
-    P2::run(a, t, lead, tw, twp, q);
+    P2::run(a, t, tw, twp, q, slice);
   }
   // the last pass's runs back to pass 0's layout
   RegLast<kLogM, Wd>::store(s, a, t);
@@ -296,28 +247,30 @@ __device__ __forceinline__ void cluster_forward(T* s, T (&a)[Plan::kW], int r, i
 // after the padded slice), the cluster barrier, and the cross pass;
 // returns with a[] in CrossPass's layout (word k of group h at
 // first(r, h, t) + k*N/C) and no peer touching this block's shared memory.
+// lead as in cluster_forward.
 template <typename Plan, typename T = typename Plan::Word>
 __device__ __forceinline__ void cluster_inverse(T* s, T (&a)[Plan::kW], int r, int t,
                                                 const T* __restrict__ tw,
-                                                const T* __restrict__ twp, T q) {
+                                                const T* __restrict__ twp, T q,
+                                                int lead = 1) {
   using Wd = typename Plan::Words;
   constexpr int kLogM = Plan::kLogM;
   using Local = RegPlan<kLogM, Wd>;
-  const int lead = Plan::kC + r;
-  using P0 = SlicePass<kLogM, 0, Wd::kLog, true, Wd>;
-  using P1 = SlicePass<kLogM, Wd::kLog, Local::kR1, true, Wd>;
+  const int slice = lead * Plan::kC + r;
+  using P0 = RegPassInv<kLogM, 0, Wd::kLog, Wd>;
+  using P1 = RegPassInv<kLogM, Wd::kLog, Local::kR1, Wd>;
   if constexpr (Local::kR2 > 0) {
-    using P2 = SlicePass<kLogM, Wd::kLog + Local::kR1, Local::kR2, true, Wd>;
-    P2::run(a, t, lead, tw, twp, q);
+    using P2 = RegPassInv<kLogM, Wd::kLog + Local::kR1, Local::kR2, Wd>;
+    P2::run(a, t, tw, twp, q, slice);
     P2::store(s, a, t);
     __syncthreads();
     P1::load(s, a, t);
   }
-  P1::run(a, t, lead, tw, twp, q);
+  P1::run(a, t, tw, twp, q, slice);
   P1::store(s, a, t);
   __syncthreads();
   P0::load(s, a, t);
-  P0::run(a, t, lead, tw, twp, q);
+  P0::run(a, t, tw, twp, q, slice);
 
   // word m at slice position p = m*T + t belongs to group p of the cross
   // pass: owner p / (M/C) = m / (W/C), word r of its group
@@ -338,16 +291,61 @@ __device__ __forceinline__ void cluster_inverse(T* s, T (&a)[Plan::kW], int r, i
 #pragma unroll
     for (int k = 0; k < Plan::kC; ++k)
       a[h * Plan::kC + k] = xs[k * Plan::kPerRank + h * Plan::kThreads + t];
-  CrossPass<Plan, true>::run(a, tw, twp, q);
+  CrossPass<Plan, true>::run(a, tw, twp, q, lead);
+}
+
+// The whole NTT of one plane (or, with its lead, one coefficient slab) on
+// the cluster of Plan, rank r (K4 / K5' / K7's ntt_kernel_cluster{,64},
+// K10's cluster form): the forward from the cross pass's coalesced loads
+// of src, stored coalesced from pass 0's words of the slice; the inverse
+// from the slice's runs (16-byte aligned), stored from the cross pass's
+// words; then the optional final factor fin[ch] (fin null: none). Every
+// thread arrived on the cluster barrier when its block started.
+template <typename Plan, bool kInverse, typename T = typename Plan::Word>
+__device__ __forceinline__ void cluster_ntt(T* s, const T* __restrict__ src,
+                                            T* __restrict__ dst, int r, int tid,
+                                            const T* __restrict__ tw,
+                                            const T* __restrict__ twp, T q,
+                                            const T* __restrict__ fin,
+                                            const T* __restrict__ finp, int ch,
+                                            int lead = 1) {
+  using Cross = CrossPass<Plan, kInverse>;
+  constexpr int kC = Plan::kC, kM = Plan::kM, kW = Plan::kW;
+  T a[kW];
+  if constexpr (!kInverse) {
+#pragma unroll
+    for (int h = 0; h < Plan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k) a[h * kC + k] = ldg(src + Cross::first(r, h, tid) + k * kM);
+    Cross::run(a, tw, twp, q, lead);
+    cluster_forward<Plan>(s, a, r, tid, tw, twp, q, lead);
+    store_words<Plan::kLogM, typename Plan::Words>(dst + r * kM, a, tid,
+                                                   fin == nullptr ? nullptr : fin + ch,
+                                                   fin == nullptr ? nullptr : finp + ch, q);
+  } else {
+    load_runs<RegLast<Plan::kLogM, typename Plan::Words>>(src + r * kM, a, tid);
+    cluster_inverse<Plan>(s, a, r, tid, tw, twp, q, lead);
+    if (fin != nullptr) {
+      const T fv = fin[ch], fpv = finp[ch];
+#pragma unroll
+      for (int m = 0; m < kW; ++m) a[m] = harvey(a[m], fv, fpv, q);
+    }
+#pragma unroll
+    for (int h = 0; h < Plan::kGroups; ++h)
+#pragma unroll
+      for (int k = 0; k < kC; ++k) dst[Cross::first(r, h, tid) + k * kM] = a[h * kC + k];
+  }
 }
 
 // The cluster kernels, by the id ckks_cluster_info takes: the uint32 forms
 // at 2^16 (0 .. 3), then the uint64 forms, three a ring (forward, inverse,
 // key switch) at 2^15 (4 .. 6) and 2^16 (7 .. 9), then the uint64 mod-down
-// at 2^15 (10) and 2^16 (11); each source defines its own.
+// at 2^15 (10) and 2^16 (11), then the uint64 key switch at 2^13 (12) and
+// 2^14 (13); each source defines its own.
 enum ClusterKernel { kClusterModDown = 0, kClusterNttForward = 1,
                      kClusterNttInverse = 2, kClusterKeySwitch = 3,
-                     kClusterWide = 4, kClusterModDownWide = 10 };
+                     kClusterWide = 4, kClusterModDownWide = 10,
+                     kClusterKeySwitchWide13 = 12 };
 constexpr int kClusterWideIds = 3;  // uint64 forms a ring
 const void* moddown_cluster_kernel();               // csrc/moddown.cu
 const void* moddown_cluster64_kernel(int log_n);    // csrc/moddown.cu

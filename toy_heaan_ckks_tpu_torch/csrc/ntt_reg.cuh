@@ -1,14 +1,17 @@
 // The register-pass NTT of one plane, shared by the one-block uint32 forms
 // of K1 (csrc/ntt.cu, ntt_kernel_reg), K2 (csrc/keyswitch.cu,
 // keyswitch_kernel_reg) and K3 (csrc/moddown.cu, moddown_kernel_reg) at
-// N = 2^10 .. 2^15, and by the slices of the cluster forms
+// N = 2^10 .. 2^15, by K10's one-block forms (csrc/coeff_ntt.cuh,
+// tail_kernel_reg: a coefficient slab of 2^10 .. 2^15 uint32 words or
+// 2^10 .. 2^12 uint64 words, its twiddles from the slab's lead, see
+// RegPass::run), and by the slices of the cluster forms
 // (csrc/ntt_cluster.cuh). The stage, group and twiddle conventions are
-// those of ntt.cuh; the uint64 one-block forms keep its
-// one-stage-per-barrier templates.
+// those of ntt.cuh; the uint64 one-block forms of K5 / K7 and K8 keep its
+// one-stage-per-barrier templates, as does K10 on slabs below 2^10.
 //
 // The passes are generic over the word (RegWords: its type, the words W a
 // thread holds, the pad); uint32 planes take Words32, 32 words a thread,
-// and the uint64 cluster forms 16 (ntt_cluster.cuh WideWords). A block has
+// and the uint64 forms 16 (ntt_cluster.cuh WideWords). A block has
 // N / W threads and each thread holds W words of the plane. A pass runs
 // r <= log2 W consecutive stages on them without leaving registers:
 // for pass (s, r) a thread's group is the 2^r positions blk * N/2^s +
@@ -72,9 +75,45 @@ struct RegPlan {
   static_assert(kR1 <= Wd::kLog && kR2 <= Wd::kLog, "three passes at most");
 };
 
-// Pass (kS, kR) of the forward NTT on the W words a thread holds: word
-// (h, m) of a[h * 2^kR + m] is plane position pos(t, h, m).
-template <int kLogN, int kS, int kR, typename Wd = Words32>
+// Stage kL of a pass of 2^kR-word groups on group kH of a[]: group g's
+// twiddle is table entry k0 + g; forward Cooley-Tukey (x_u + w*x_v,
+// x_u - w*x_v), inverse Gentleman-Sande (x_u + x_v, (x_u - x_v)*w). Every
+// loop bound is a constant, so a[] stays in registers.
+template <int kR, int kH, int kL, bool kInverse, typename T, int kW>
+__device__ __forceinline__ void pass_stage(T (&a)[kW], int k0, const T* __restrict__ tw,
+                                           const T* __restrict__ twp, T q) {
+  constexpr int kHalf = 1 << (kR - 1 - kL);
+#pragma unroll
+  for (int g = 0; g < (1 << kL); ++g) {
+    const T w = ldg(tw + k0 + g);
+    const T wp = ldg(twp + k0 + g);
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const int u = (kH << kR) + 2 * kHalf * g + i;
+      const T xu = a[u];
+      if constexpr (kInverse) {
+        const T xv = a[u + kHalf];
+        a[u] = add_mod(xu, xv, q);
+        a[u + kHalf] = harvey(sub_mod(xu, xv, q), w, wp, q);
+      } else {
+        const T xv = harvey(a[u + kHalf], w, wp, q);
+        a[u] = add_mod(xu, xv, q);
+        a[u + kHalf] = sub_mod(xu, xv, q);
+      }
+    }
+  }
+}
+
+// The stage of a pass's step kI: forward kL = kI, inverse kL = kR - 1 - kI.
+template <bool kInverse, int kR, int kI>
+constexpr int kStageOf = kInverse ? kR - 1 - kI : kI;
+
+// Pass (kS, kR) of the NTT on the W words a thread holds: word (h, m) of
+// a[h * 2^kR + m] is plane position pos(t, h, m). The forward runs stages
+// kS .. kS + kR - 1, the inverse (kInverse) the same stages from kS + kR
+// - 1 down to kS. The twiddle of stage kS + kL and group g of the pass's
+// group blk is entry (lead << (kS + kL)) + (blk << kL) + g (see run).
+template <int kLogN, int kS, int kR, typename Wd = Words32, bool kInverse = false>
 struct RegPass {
   using T = typename Wd::Word;
   static constexpr int kW = Wd::kCount;
@@ -110,105 +149,40 @@ struct RegPass {
     }
   }
 
-  // Stage kS + kL on group kH: every loop bound is a constant, so a[]
-  // stays in registers.
-  template <int kH, int kL>
-  __device__ __forceinline__ static void stage(T (&a)[kW], int blk,
-                                               const T* __restrict__ tw,
-                                               const T* __restrict__ twp, T q) {
-    constexpr int kHalf = 1 << (kR - 1 - kL);
-    const int k0 = (1 << (kS + kL)) + (blk << kL);
-#pragma unroll
-    for (int g = 0; g < (1 << kL); ++g) {
-      const T w = ldg(tw + k0 + g);
-      const T wp = ldg(twp + k0 + g);
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const int u = (kH << kR) + 2 * kHalf * g + i;
-        const T xu = a[u];
-        const T xv = harvey(a[u + kHalf], w, wp, q);
-        a[u] = add_mod(xu, xv, q);
-        a[u + kHalf] = sub_mod(xu, xv, q);
-      }
-    }
-  }
-
-  template <int kH, int... kL>
-  __device__ __forceinline__ static void group(T (&a)[kW], int t,
-                                               std::integer_sequence<int, kL...>,
-                                               const T* __restrict__ tw,
-                                               const T* __restrict__ twp, T q) {
-    const int blk = gid(t, kH) >> kLogOff;
-    (stage<kH, kL>(a, blk, tw, twp, q), ...);
-  }
-
-  template <int... kH>
-  __device__ __forceinline__ static void groups(T (&a)[kW], int t,
-                                                std::integer_sequence<int, kH...>,
-                                                const T* __restrict__ tw,
-                                                const T* __restrict__ twp, T q) {
-    (group<kH>(a, t, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
-  }
-
-  __device__ __forceinline__ static void run(T (&a)[kW], int t, const T* __restrict__ tw,
-                                             const T* __restrict__ twp, T q) {
-    groups(a, t, std::make_integer_sequence<int, kGroups>{}, tw, twp, q);
-  }
-};
-
-// Pass (kS, kR) of the inverse NTT: the same words as RegPass, its stages
-// kS + kR - 1 down to kS as Gentleman-Sande butterflies (x_u + x_v,
-// (x_u - x_v) * w) with the inverse compact table.
-template <int kLogN, int kS, int kR, typename Wd = Words32>
-struct RegPassInv : RegPass<kLogN, kS, kR, Wd> {
-  using Base = RegPass<kLogN, kS, kR, Wd>;
-  using T = typename Base::T;
-  static constexpr int kW = Base::kW;
-
-  template <int kH, int kL>
-  __device__ __forceinline__ static void stage(T (&a)[kW], int blk,
-                                               const T* __restrict__ tw,
-                                               const T* __restrict__ twp, T q) {
-    constexpr int kHalf = 1 << (kR - 1 - kL);
-    const int k0 = (1 << (kS + kL)) + (blk << kL);
-#pragma unroll
-    for (int g = 0; g < (1 << kL); ++g) {
-      const T w = ldg(tw + k0 + g);
-      const T wp = ldg(twp + k0 + g);
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const int u = (kH << kR) + 2 * kHalf * g + i;
-        const T xu = a[u];
-        const T xv = a[u + kHalf];
-        a[u] = add_mod(xu, xv, q);
-        a[u + kHalf] = harvey(sub_mod(xu, xv, q), w, wp, q);
-      }
-    }
-  }
-
-  // the stages of group kH, kL = kR - 1 first
   template <int kH, int... kI>
-  __device__ __forceinline__ static void group(T (&a)[kW], int t,
+  __device__ __forceinline__ static void group(T (&a)[kW], int t, int lead,
                                                std::integer_sequence<int, kI...>,
                                                const T* __restrict__ tw,
                                                const T* __restrict__ twp, T q) {
-    const int blk = Base::gid(t, kH) >> Base::kLogOff;
-    (stage<kH, kR - 1 - kI>(a, blk, tw, twp, q), ...);
+    const int blk = gid(t, kH) >> kLogOff;
+    (pass_stage<kR, kH, kStageOf<kInverse, kR, kI>, kInverse>(
+         a, (lead << (kS + kStageOf<kInverse, kR, kI>)) + (blk << kStageOf<kInverse, kR, kI>),
+         tw, twp, q),
+     ...);
   }
 
   template <int... kH>
-  __device__ __forceinline__ static void groups(T (&a)[kW], int t,
+  __device__ __forceinline__ static void groups(T (&a)[kW], int t, int lead,
                                                 std::integer_sequence<int, kH...>,
                                                 const T* __restrict__ tw,
                                                 const T* __restrict__ twp, T q) {
-    (group<kH>(a, t, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
+    (group<kH>(a, t, lead, std::make_integer_sequence<int, kR>{}, tw, twp, q), ...);
   }
 
+  // lead: 1 on a whole plane; on piece G of the 2^k equal pieces of a
+  // plane (a coefficient slab, a cluster's slice), whose local stage s'
+  // is the plane's stage k + s', lead = 2^k + G, so that local group g'
+  // takes the plane's entry 2^(k + s') + G * 2^s' + g'
   __device__ __forceinline__ static void run(T (&a)[kW], int t, const T* __restrict__ tw,
-                                             const T* __restrict__ twp, T q) {
-    groups(a, t, std::make_integer_sequence<int, Base::kGroups>{}, tw, twp, q);
+                                             const T* __restrict__ twp, T q, int lead = 1) {
+    groups(a, t, lead, std::make_integer_sequence<int, kGroups>{}, tw, twp, q);
   }
 };
+
+// The inverse pass (kS, kR): RegPass's words, its stages kS + kR - 1 down
+// to kS as Gentleman-Sande butterflies with the inverse compact table.
+template <int kLogN, int kS, int kR, typename Wd = Words32>
+using RegPassInv = RegPass<kLogN, kS, kR, Wd, true>;
 
 // The last forward pass of the plan (the first inverse one): its groups
 // are the runs of 2^kR adjacent words at gid(t, h) << kR.
@@ -257,52 +231,97 @@ __device__ __forceinline__ void load_runs(const typename Last::T* __restrict__ s
 
 // The forward passes of the plan on a[] in pass 0's layout; returns with
 // a[] in the last pass's layout (RegLast). s is the block's padded plane
-// (RegPlan::kSmemBytes), not read by any thread at the call.
-template <int kLogN>
-__device__ __forceinline__ void reg_forward(uint32_t* s, uint32_t (&a)[kRegWords],
-                                            int t, const uint32_t* __restrict__ tw,
-                                            const uint32_t* __restrict__ twp,
-                                            uint32_t q) {
-  using Plan = RegPlan<kLogN>;
-  using P0 = RegPass<kLogN, 0, kLogRegWords>;
-  using P1 = RegPass<kLogN, kLogRegWords, Plan::kR1>;
-  P0::run(a, t, tw, twp, q);
+// (RegPlan::kSmemBytes), not read by any thread at the call; lead as in
+// RegPass::run.
+template <int kLogN, typename Wd = Words32, typename T = typename Wd::Word>
+__device__ __forceinline__ void reg_forward(T* s, T (&a)[Wd::kCount], int t,
+                                            const T* __restrict__ tw,
+                                            const T* __restrict__ twp, T q, int lead = 1) {
+  using Plan = RegPlan<kLogN, Wd>;
+  using P0 = RegPass<kLogN, 0, Wd::kLog, Wd>;
+  using P1 = RegPass<kLogN, Wd::kLog, Plan::kR1, Wd>;
+  P0::run(a, t, tw, twp, q, lead);
   P0::store(s, a, t);
   __syncthreads();
   P1::load(s, a, t);
-  P1::run(a, t, tw, twp, q);
+  P1::run(a, t, tw, twp, q, lead);
   if constexpr (Plan::kR2 > 0) {
-    using P2 = RegPass<kLogN, kLogRegWords + Plan::kR1, Plan::kR2>;
+    using P2 = RegPass<kLogN, Wd::kLog + Plan::kR1, Plan::kR2, Wd>;
     P1::store(s, a, t);
     __syncthreads();
     P2::load(s, a, t);
-    P2::run(a, t, tw, twp, q);
+    P2::run(a, t, tw, twp, q, lead);
   }
 }
 
 // The inverse passes of the plan on a[] in the last forward pass's layout
 // (RegLast), stages log2 N - 1 down to 0; returns with a[] in pass 0's
-// layout, every word at m * N/32 + t. Same contract on s as reg_forward.
-template <int kLogN>
-__device__ __forceinline__ void reg_inverse(uint32_t* s, uint32_t (&a)[kRegWords],
-                                            int t, const uint32_t* __restrict__ tw,
-                                            const uint32_t* __restrict__ twp,
-                                            uint32_t q) {
-  using Plan = RegPlan<kLogN>;
-  using P0 = RegPassInv<kLogN, 0, kLogRegWords>;
-  using P1 = RegPassInv<kLogN, kLogRegWords, Plan::kR1>;
+// layout, every word at m * N/W + t. Same contract on s and lead as
+// reg_forward.
+template <int kLogN, typename Wd = Words32, typename T = typename Wd::Word>
+__device__ __forceinline__ void reg_inverse(T* s, T (&a)[Wd::kCount], int t,
+                                            const T* __restrict__ tw,
+                                            const T* __restrict__ twp, T q, int lead = 1) {
+  using Plan = RegPlan<kLogN, Wd>;
+  using P0 = RegPassInv<kLogN, 0, Wd::kLog, Wd>;
+  using P1 = RegPassInv<kLogN, Wd::kLog, Plan::kR1, Wd>;
   if constexpr (Plan::kR2 > 0) {
-    using P2 = RegPassInv<kLogN, kLogRegWords + Plan::kR1, Plan::kR2>;
-    P2::run(a, t, tw, twp, q);
+    using P2 = RegPassInv<kLogN, Wd::kLog + Plan::kR1, Plan::kR2, Wd>;
+    P2::run(a, t, tw, twp, q, lead);
     P2::store(s, a, t);
     __syncthreads();
     P1::load(s, a, t);
   }
-  P1::run(a, t, tw, twp, q);
+  P1::run(a, t, tw, twp, q, lead);
   P1::store(s, a, t);
   __syncthreads();
   P0::load(s, a, t);
-  P0::run(a, t, tw, twp, q);
+  P0::run(a, t, tw, twp, q, lead);
+}
+
+// dst[m * N/W + tid] = a[m] * *f (Harvey), or a[m] where f is null.
+template <int kLogN, typename Wd = Words32, typename T = typename Wd::Word>
+__device__ __forceinline__ void store_words(T* __restrict__ dst, const T (&a)[Wd::kCount],
+                                            int tid, const T* __restrict__ f,
+                                            const T* __restrict__ fp, T q) {
+  constexpr int kT = RegPlan<kLogN, Wd>::kThreads;
+  if (f != nullptr) {
+    const T fv = *f, fpv = *fp;
+#pragma unroll
+    for (int m = 0; m < Wd::kCount; ++m) dst[m * kT + tid] = harvey(a[m], fv, fpv, q);
+  } else {
+#pragma unroll
+    for (int m = 0; m < Wd::kCount; ++m) dst[m * kT + tid] = a[m];
+  }
+}
+
+// The whole register-pass NTT of one plane of 2^kLogN words that one
+// block holds (K1's ntt_kernel_reg; K10's one-block form on a slab with
+// its lead): the forward from coalesced loads of src in pass 0's layout,
+// its last pass's runs back to that layout through s; the inverse from
+// src's runs (16-byte aligned: load_runs); then the optional final
+// factor *f and a coalesced store into dst.
+template <int kLogN, bool kInverse, typename Wd = Words32, typename T = typename Wd::Word>
+__device__ __forceinline__ void reg_ntt(T* s, const T* __restrict__ src, T* __restrict__ dst,
+                                        int tid, const T* __restrict__ tw,
+                                        const T* __restrict__ twp, T q,
+                                        const T* __restrict__ f, const T* __restrict__ fp,
+                                        int lead = 1) {
+  using Last = RegLast<kLogN, Wd>;
+  constexpr int kT = RegPlan<kLogN, Wd>::kThreads;
+  T a[Wd::kCount];
+  if constexpr (!kInverse) {
+#pragma unroll
+    for (int m = 0; m < Wd::kCount; ++m) a[m] = ldg(src + m * kT + tid);
+    reg_forward<kLogN, Wd>(s, a, tid, tw, twp, q, lead);
+    Last::store(s, a, tid);
+    __syncthreads();
+    RegPass<kLogN, 0, Wd::kLog, Wd>::load(s, a, tid);
+  } else {
+    load_runs<Last>(src, a, tid);
+    reg_inverse<kLogN, Wd>(s, a, tid, tw, twp, q, lead);
+  }
+  store_words<kLogN, Wd>(dst, a, tid, f, fp, q);
 }
 
 // The shapes the register-pass kernels take: log2 N in [10, 15].

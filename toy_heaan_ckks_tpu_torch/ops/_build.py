@@ -14,7 +14,8 @@ chains, int32 tensors) and a uint64 entry with the suffix ``64`` (wide
 chains, int64 tensors) of the same signature; ``parts`` is the number of
 blocks per plane (``ntt_gpu.plane_split``). K9 (``ckks_ntt_mxu``) takes
 uint32 words only. K10 / K11 (``ckks_coeff_tail`` / ``ckks_coeff_cross``)
-take host arrays of slab pointers (``ptr_array``, ``int_array``);
+take host arrays of slab pointers (``ptr_array``, ``int_array``), K10 also
+a cluster flag (``coeff_ntt_gpu.slab_form``);
 ``ckks_enable_peer_access`` lets one card read another's memory.
 """
 
@@ -33,8 +34,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("ntt.cuh", "ntt_reg.cuh", "ntt_cluster.cuh", "ntt.cu", "keyswitch.cu",
-           "moddown.cu", "ntt_mxu.cu", "coeff_ntt.cu")
+SOURCES = ("ntt.cuh", "ntt_reg.cuh", "ntt_cluster.cuh", "coeff_ntt.cuh", "ntt.cu",
+           "keyswitch.cu", "moddown.cu", "ntt_mxu.cu", "coeff_ntt.cu", "coeff_ntt64.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
@@ -54,10 +55,10 @@ _SIGNATURES = {
     "ckks_moddown": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # in, out, ids, count, shards, tw, twp, q, fin, finp, planes, channels,
-    # log_n, log_s, inverse, stream
+    # log_n, log_s, cluster, inverse, stream
     "ckks_coeff_tail": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _P],
-    # the same with the stage before inverse
+                        _I, _I, _I, _P],
+    # the same with the stage in place of cluster
     "ckks_coeff_cross": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _P],
 }
@@ -69,6 +70,10 @@ _SIGNATURES["ckks_ntt_mxu"] = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
 _SIGNATURES["ckks_enable_peer_access"] = [_I, _I]
 # kernel id, int info[6] (csrc/ntt_cluster.cuh cluster_info)
 _SIGNATURES["ckks_cluster_info"] = [_I, _P]
+# wide, log_n, parts: K2 / K6's blocks a plane (csrc/keyswitch.cu ks_blocks)
+_SIGNATURES["ckks_keyswitch_blocks"] = [_I, _I, _I]
+# wide, log_s, cluster, inverse, int info[6] (csrc/coeff_ntt.cuh tail_info)
+_SIGNATURES["ckks_coeff_tail_info"] = [_I, _I, _I, _I, _P]
 
 
 def _nvcc() -> str:

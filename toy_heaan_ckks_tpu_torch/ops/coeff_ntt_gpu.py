@@ -16,14 +16,19 @@ tuple of the P slab tensors. With log2 P cross stages:
 Both take the whole plane's compact twiddles at the slab's global offset,
 so their words equal the unsharded transform's, and an optional
 per-channel ``final`` factor (the inverse's N^{-1}, or folded constants)
-applied after their butterflies. The kernels are ``csrc/coeff_ntt.cu``
-(``ckks_coeff_tail`` / ``ckks_coeff_cross`` on uint32 words for int32
-slabs, the ``64`` entries on uint64 words for int64 slabs); the twins are
-the staged torch butterflies of ``ops/ntt.py`` restricted to one slab and
-the slab exchange ``slabs[p ^ shift]``. CPU slabs go to the twin and CUDA
-slabs to the kernel, with no fallback either way. One launch covers the
-shards on one device; each wrapper counts its launches in ``launches``
-(``launches_cluster`` stays 0: no cluster is launched).
+applied after their butterflies. The kernels are ``csrc/coeff_ntt.cuh``
+(``ckks_coeff_tail`` / ``ckks_coeff_cross`` in ``coeff_ntt.cu`` on uint32
+words for int32 slabs, the ``64`` entries in ``coeff_ntt64.cu`` on uint64
+words for int64 slabs); the twins are the staged torch butterflies of
+``ops/ntt.py`` restricted to one slab and the slab exchange
+``slabs[p ^ shift]``. CPU slabs go to the twin and CUDA slabs to the
+kernel, with no fallback either way. K10 runs a slab as a plane whose
+twiddles start at the slab's lead, in the form ``slab_form`` picks: one
+block of register passes a slab, or a thread-block cluster of them
+(``csrc/ntt_cluster.cuh``), or, below 2^10 words, the one-barrier-a-stage
+template. One launch covers the shards on one device; each wrapper counts
+its launches in ``launches``, K10 its cluster launches also in
+``launches_cluster`` (K11 launches no cluster).
 """
 
 from __future__ import annotations
@@ -35,9 +40,33 @@ import torch
 from . import _build
 from . import modular as mm
 from .ntt import NttTables
-from .ntt_gpu import SLICE_BYTES, count_launch, final_consts, kernel_tables
+from .ntt_gpu import SLICE_BYTES, final_consts, kernel_tables
 
 MAX_SHARDS = 64  # the kernels' Slabs parameter holds this many pointers
+# fewer slabs than this in one launch take K10's cluster form where the
+# slab has one: one block a slab would leave over half of the H100's 132
+# SMs idle (64 uint32 slabs of 2^14: one block each 0.0150 ms, C = 4
+# 0.0125; 128 of 2^13: one block each 0.0091, C = 4 0.0120; device time,
+# tools/kernel_ab.py --k10-forms)
+SLAB_FILL = 66
+
+
+def slab_form(wide: bool, log_s: int, slabs: int) -> str:
+    """K10's form for ``slabs`` slabs of 2^log_s words in one launch:
+    ``"template"`` below 2^10 words (``tail_kernel``), ``"cluster"``, a
+    thread-block cluster of blocks of register passes a slab
+    (``tail_kernel_cluster``, C by ``kSlabLogCluster*`` of
+    ``csrc/coeff_ntt.cuh``, from 2^12 words on: slices of 2^10 or more),
+    for every uint64 slab of 2^13 or 2^14, which three register passes of
+    16 words do not hold, and for a slab of either word that has one where
+    the launch has fewer than ``SLAB_FILL`` slabs; else ``"block"``, one
+    block of register passes a slab (``tail_kernel_reg``: uint32 slabs of
+    2^10 .. 2^15, uint64 slabs of 2^10 .. 2^12)."""
+    if log_s < 10:
+        return "template"
+    if log_s >= 12 and ((wide and log_s >= 13) or slabs < SLAB_FILL):
+        return "cluster"
+    return "block"
 
 
 def slab_layout(shards: int, degree: int) -> tuple[int, int]:
@@ -195,6 +224,9 @@ def _launch(wrapper, slabs, moduli, degree: int, inverse: bool, final,
     out = tuple(torch.empty_like(t) for t in slabs)
     if not planes:
         return out
+    if stage is None and inverse:
+        # the register forms' inverse reads each slab as 16-byte vectors
+        slabs = tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in slabs)
     groups = _groups(slabs)
     if stage is not None and len(groups) > 1:
         # A partner slab on another card is read through its peer pointer.
@@ -219,12 +251,13 @@ def _launch(wrapper, slabs, moduli, degree: int, inverse: bool, final,
         p = _build.ptr
         args = [ins, outs, _build.int_array(ids), len(ids), len(slabs), p(tw),
                 p(twp), p(kt.q), p(fin), p(finp), planes, channels, log_n, log_s]
-        if stage is not None:
-            args.append(stage)
+        cluster = stage is None and slab_form(wide, log_s, planes * len(ids)) == "cluster"
+        args.append(stage if stage is not None else int(cluster))
         with torch.cuda.device(dev):
             rc = entry(*args, int(inverse), _build.stream(dev))
         _build.check(rc, name)
-        count_launch(wrapper, 1)
+        wrapper.launches += 1
+        wrapper.launches_cluster += cluster
     if stage is not None and len(groups) > 1:
         for dev in groups:
             torch.cuda.synchronize(dev)
@@ -237,7 +270,10 @@ def coeff_tail(slabs, moduli, degree: int, inverse: bool, final=None) -> tuple:
     wide one), forward or inverse, then the optional per-channel plain
     ``final`` factors. Returns new slabs, each on its input's device. A slab
     must fit one block's shared memory (``ntt_gpu.SLICE_BYTES``: uint32
-    S <= 2^15, uint64 S <= 2^14). At P = 1 this is the whole NTT."""
+    S <= 2^15, uint64 S <= 2^14). At P = 1 this is the whole NTT. On CUDA
+    slabs each device's launch runs the form ``slab_form`` picks for its
+    slabs (a cluster launch also counts in ``launches_cluster``); an
+    unaligned slab of the inverse is copied first."""
     return _launch(coeff_tail, slabs, moduli, degree, inverse, final, None)
 
 

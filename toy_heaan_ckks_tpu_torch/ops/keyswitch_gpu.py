@@ -184,6 +184,8 @@ def _accumulate(y_plain, key_a, key_b, base_moduli, ext_moduli, degree: int,
             outer, L, E, D, ds, log_n, parts, _build.stream(dev),
         )
         _build.check(rc, "gadget_accumulate")
+        # the blocks a plane of the form the entry launched
+        parts = lib.ckks_keyswitch_blocks(int(wide), log_n, parts)
     outs = out0.reshape(*lead, E, degree), out1.reshape(*lead, E, degree)
     return outs, parts if outer else 0
 
@@ -211,8 +213,10 @@ def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
 def gadget_accumulate_wide(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
                            degree: int, digit_size: int = 1, d_ntt=None):
     """K6: ``gadget_accumulate`` on int64 planes of a wide chain (any
-    q < 2^63, R = 2^64, N <= 2^16; at 2^15 and 2^16 a cluster of 16
-    blocks of register passes per plane, ``csrc/ntt_cluster.cuh``)."""
+    q < 2^63, R = 2^64, N <= 2^16; at 2^13 .. 2^16 a cluster of blocks of
+    register passes per plane, ``csrc/ntt_cluster.cuh`` ``WidePlan``: 16
+    blocks at 2^15 and 2^16, 8 at 2^14, 4 at 2^13, counted in
+    ``launches_cluster``)."""
     outs, parts = _accumulate(y_plain, key_a, key_b, base_moduli,
                               ext_moduli, degree, digit_size, d_ntt,
                               wide=True)

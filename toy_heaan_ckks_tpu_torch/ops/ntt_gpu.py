@@ -44,8 +44,13 @@ def plane_split(degree: int, wide: bool) -> tuple[int, int]:
     block holds a plane (up to 128 KiB: uint32 N <= 2^15, uint64 N <=
     2^14), else plane bytes / 128 KiB (2 or 4), and the kernels then run
     the cluster of ``csrc/ntt_cluster.cuh`` (16 blocks a plane) whatever P
-    says. Raises unless N is a power of two in [4, 2^16], on every
-    device."""
+    says. At P = 1 uint32 planes of 2^10 .. 2^15 run one block of register
+    passes (K1, K2, K3) and the other planes the one-block templates (K5 /
+    K7, K8; uint32 below 2^10), but for K6, whose uint64 planes of 2^13
+    and 2^14 run on a cluster of ``WidePlan``'s C blocks (the entry's
+    ``ckks_keyswitch_blocks`` reports the form). K10 picks its own form per
+    launch (``coeff_ntt_gpu.slab_form``). Raises unless N is a power of
+    two in [4, 2^16], on every device."""
     log_n = degree.bit_length() - 1
     if degree != 1 << log_n or not 2 <= log_n <= MAX_LOG_N:
         raise ValueError(
