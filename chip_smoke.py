@@ -12,7 +12,8 @@ place of the K1 folds):
   NTT, K2 key switch, K3 / K3' mod-down with / without t, on uint32
   words);
 - wide: N = 2^13, 4 x 61-bit primes, digit_size 1, batch 8 (kernels K5/K7
-  NTT, K6 key switch, K8 / K8' mod-down, on uint64 words);
+  NTT, K6 key switch, K8 / K8' mod-down, on uint64 words, each plane on a
+  thread-block cluster of register passes, csrc/ntt_cluster.cuh);
 - big: N = 2^16, 4 x 30-bit primes, digit_size 2, batch 4 (bench.py's third
   configuration: K4 NTT, K2 key switch and K3 / K3', each plane over a
   thread-block cluster of 16 blocks of register passes,
@@ -22,9 +23,10 @@ place of the K1 folds):
   same cluster plan on uint64 words, 16 blocks a plane); its rotation
   phase runs ``batched_rotate`` and ``rotate_ciphertext`` only.
 
-Every kernel of the small and wide paths must run with one block per plane
-but K6 on the wide path (uint64 planes of 2^13 on a cluster), and
-every kernel of the big paths on clusters (``launches_cluster``).
+Every kernel of the small path must run with one block per plane, and
+every launch of the wide paths (uint64 planes of 2^13 and 2^14, which one
+block holds) and of the big paths on a cluster (``launches_cluster``
+equal to ``launches``; ``read_counts``).
 
 1. the card (``nvidia-smi`` name and power limit), torch / CUDA / nvcc
    versions and the kernel build time (one nvcc per source, in parallel);
@@ -109,9 +111,10 @@ every kernel of the big paths on clusters (``launches_cluster``).
    K6, K8 and K8' rows name their cluster form and carry its registers,
    spill bytes, threads and shared memory a block, blocks a cluster (C),
    resident clusters and SASS counts (K4's and K5''s forward under
-   ``forward``), as does the wide K6 row (its uint64 cluster form at
-   2^13); the uint64 cluster forms are also timed at N = 2^16 (1, 2,
-   2^16), each with its form's registers and resident clusters.
+   ``forward``), as do the wide path's K5/K7, K6, K8 and K8' rows (their
+   uint64 cluster forms at 2^13); the uint64 cluster forms are also timed
+   at N = 2^16 (1, 2, 2^16), each with its form's registers and resident
+   clusters, and those at 2^13 and 2^14 listed with theirs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -247,20 +250,18 @@ def clustered(cfg: PathConfig, wide: bool) -> bool:
     return plane_split(cfg.degree, wide)[1] > 1
 
 
-# uint64 rings whose K6 planes run on a cluster though one block holds
-# them (csrc/keyswitch.cu keyswitch_kernel_cluster64)
-K6_CLUSTER_LOG_N = (13, 14)
+# uint64 rings whose planes run on a cluster though one block holds them
+# (csrc/ntt_cluster.cuh wide_cluster_shape: K5 / K7, K6 and K8 / K8')
+WIDE_CLUSTER_LOG_N = (13, 14)
 
 
 def cluster_counters(cfg: PathConfig, wide: bool) -> set:
     """The counters whose kernels run on clusters on the path: every one
-    where its planes span a cluster, else K6 where its uint64 planes of
-    2^13 / 2^14 run on one (``K6_CLUSTER_LOG_N``)."""
-    if clustered(cfg, wide):
+    where its planes span a cluster or, on uint64 planes of 2^13 / 2^14,
+    where one block holds them (``WIDE_CLUSTER_LOG_N``); none else."""
+    if clustered(cfg, wide) or (wide and cfg.degree.bit_length() - 1 in WIDE_CLUSTER_LOG_N):
         return {"ntt_planes", "gadget_accumulate", "mod_down_combine", "ntt_planes_wide",
                 "gadget_accumulate_wide", "mod_down_combine_wide"}
-    if wide and cfg.degree.bit_length() - 1 in K6_CLUSTER_LOG_N:
-        return {"gadget_accumulate_wide"}
     return set()
 
 
@@ -272,12 +273,17 @@ def zero_counts(counters) -> None:
 def read_counts(cfg: PathConfig, counters, wide: bool) -> dict:
     """Each counter's launches, and for a kernel that runs on clusters on
     the path (``cluster_counters``) its cluster launches as
-    ``name[cluster]``; raises if another kernel ran on a cluster."""
+    ``name[cluster]``; raises if such a kernel launched a one-block form
+    or another kernel ran on a cluster."""
     on_clusters = cluster_counters(cfg, wide)
     counts = {f.__name__: f.launches for f in counters}
     for f in counters:
         if f.__name__ in on_clusters:
             counts[f"{f.__name__}[cluster]"] = f.launches_cluster
+            if f.launches_cluster != f.launches:
+                raise AssertionError(f"[{cfg.name}] {f.__name__}: {f.launches_cluster} of "
+                                     f"{f.launches} launches on clusters, where every "
+                                     "plane runs on one")
         elif f.launches_cluster:
             raise AssertionError(f"[{cfg.name}] {f.__name__}: {f.launches_cluster} cluster "
                                  "launches where its planes run one block each")
@@ -1349,22 +1355,29 @@ def reg_infos(cfg: PathConfig, rows: list) -> None:
 
 
 # The rows that run a cluster register-pass kernel (csrc/ntt_cluster.cuh):
-# the big path's (uint32, N = 2^16) and the big-wide path's (uint64, 2^15):
-# the key each form goes under ("" the row itself), ckks_cluster_info's
-# kernel id, its printed name and the needle of its mangled name.
+# the big path's (uint32, N = 2^16), the big-wide path's (uint64, 2^15)
+# and the wide paths' (uint64, 2^13 and 2^14): the key each form goes under
+# ("" the row itself), ckks_cluster_info's kernel id, its printed name and
+# the needle of its mangled name.
+def wide_cluster_id(log_n: int, form: int) -> int:
+    """``ckks_cluster_info``'s id of a uint64 cluster form, by the one rule
+    of csrc/ntt_cluster.cuh: 4 + 4 (log2 N - 13) + form (0 forward NTT, 1
+    inverse NTT, 2 key switch, 3 mod-down), log2 N = 13 .. 16."""
+    return 4 + 4 * (log_n - 13) + form
+
+
 def _wide_cluster_forms(log_n: int) -> dict:
-    """The uint64 forms at 2^log_n: ids 4 + 3 (log_n - 15) + (0 forward,
-    1 inverse, 2 key switch), and the mod-down's 10 + (log_n - 15)."""
-    first = 4 + 3 * (log_n - 15)
-    mod_down = (10 + log_n - 15, f"moddown_kernel_cluster64<{log_n}>",
+    """The uint64 forms at 2^log_n (``wide_cluster_id``)."""
+    mod_down = (wide_cluster_id(log_n, 3), f"moddown_kernel_cluster64<{log_n}>",
                 f"moddown_kernel_cluster64ILi{log_n}EE")
     return {
         "ntt_planes_wide": {
-            "": (first + 1, f"ntt_kernel_cluster64<{log_n},true>",
+            "": (wide_cluster_id(log_n, 1), f"ntt_kernel_cluster64<{log_n},true>",
                  f"ntt_kernel_cluster64ILi{log_n}ELb1E"),
-            "forward": (first, f"ntt_kernel_cluster64<{log_n},false>",
+            "forward": (wide_cluster_id(log_n, 0), f"ntt_kernel_cluster64<{log_n},false>",
                         f"ntt_kernel_cluster64ILi{log_n}ELb0E")},
-        "gadget_accumulate_wide": {"": (first + 2, f"keyswitch_kernel_cluster64<{log_n}>",
+        "gadget_accumulate_wide": {"": (wide_cluster_id(log_n, 2),
+                                        f"keyswitch_kernel_cluster64<{log_n}>",
                                         f"keyswitch_kernel_cluster64ILi{log_n}EE")},
         "mod_down_combine_wide": {"": mod_down},
         "mod_down_combine_wide[no_t]": {"": mod_down},
@@ -1382,12 +1395,8 @@ CLUSTER_KERNELS = {
 }
 # the uint64 forms at 2^16 (the wide-2^16 kernel checks and times)
 WIDE_16_CLUSTER_KERNELS = _wide_cluster_forms(16)
-# K6's uint64 forms at 2^13 (the wide path) and 2^14 (wide-62b): ids 12, 13
-WIDE_CLUSTER_KERNELS = {
-    log_n: {"gadget_accumulate_wide": {"": (12 + log_n - 13,
-                                            f"keyswitch_kernel_cluster64<{log_n}>",
-                                            f"keyswitch_kernel_cluster64ILi{log_n}EE")}}
-    for log_n in (13, 14)}
+# the uint64 forms at 2^13 (the wide path) and 2^14 (wide-62b)
+WIDE_CLUSTER_KERNELS = {log_n: _wide_cluster_forms(log_n) for log_n in WIDE_CLUSTER_LOG_N}
 
 
 def cluster_info(kernel: int) -> list:
@@ -1406,7 +1415,8 @@ def cluster_info(kernel: int) -> list:
 
 def cluster_infos(cfg: PathConfig, rows: list, table: dict = CLUSTER_KERNELS) -> None:
     """Adds to each row of the path that ``table`` names (CLUSTER_KERNELS:
-    the big and big-wide paths) the cluster form that ran
+    the big and big-wide paths; WIDE_CLUSTER_KERNELS[13]: the wide path) the
+    cluster form that ran
     (``cluster_info``), with its SASS counts."""
     from toy_heaan_ckks_tpu_torch.ops import _build
 
@@ -1588,7 +1598,11 @@ def main() -> int:
     small_errs = check_cases("K1-K3' small", small_cases)
     wide_cases = kernel_cases(WIDE, dev, wide=True)
     wide_errs = check_cases("K5-K8' wide", wide_cases)
+    # every uint64 kernel at 2^14 on its cluster: each check's launch counted
+    zero_counts(wide_counters)
     errs_62 = check_cases("K5-K8' wide 62b 2^14", kernel_cases(WIDE_62, dev, wide=True))
+    print(f"[{WIDE_62.name}] kernel-check launches: "
+          f"{read_counts(WIDE_62, wide_counters, wide=True)}")
     for k, e in errs_62.items():
         wide_errs[k] = max(wide_errs[k], e)
     big_cases = kernel_cases(BIG, dev, wide=False)
@@ -1727,10 +1741,14 @@ def main() -> int:
                                  for kernel, shown, _ in forms.values()}):
         print(f"[{WIDE_16.name}] {shown}: registers, spill bytes, threads, shared "
               f"bytes, blocks a cluster, resident clusters {cluster_info(kernel)}")
-    for kernel, shown, _ in (form for table in WIDE_CLUSTER_KERNELS.values()
-                             for form in table["gadget_accumulate_wide"].values()):
+    wide_forms = {(kernel, shown, needle) for table in WIDE_CLUSTER_KERNELS.values()
+                  for forms in table.values() for kernel, shown, needle in forms.values()}
+    wide_sass = sass_counts(_build.library_path(),
+                            {shown: needle for _, shown, needle in wide_forms})
+    for kernel, shown, _ in sorted(wide_forms):
         print(f"[{WIDE.name}, {WIDE_62.name}] {shown}: registers, spill bytes, threads, "
-              f"shared bytes, blocks a cluster, resident clusters {cluster_info(kernel)}")
+              f"shared bytes, blocks a cluster, resident clusters {cluster_info(kernel)}; "
+              f"SASS {json.dumps(wide_sass[shown])}")
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
                      (BIG_WIDE, big_wide_run)):
         ctx, child, rlk, (a0, a1, b0, b1) = (run["ctx"], run["child"], run["rlk"],

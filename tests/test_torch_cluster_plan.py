@@ -1,18 +1,20 @@
 """The cluster register-pass plan of K4, K3 / K3' and K2 at N = 2^16, of
-K5' / K7, K6 and K8 / K8' at N = 2^15 and 2^16 and of K6 at 2^13 and
-2^14, and K10's forms on a coefficient slab with its lead, in numpy.
+K5 / K5' / K7, K6 and K8 / K8' at N = 2^13 .. 2^16, and K10's forms on a
+coefficient slab with its lead, in numpy.
 
 ``csrc/ntt_cluster.cuh`` spreads one plane of N words over a thread-block
 cluster of C blocks (rank r holds the slice [r*M, (r+1)*M), M = N/C,
 N/W/C threads of W words): uint32 planes with W = 32, uint64 planes with
 the W and C that the header builds (``kLogWideWords``,
-``kWideLogCluster15`` / ``16``, read from it here). This file emulates
+``kWideLogCluster13`` .. ``16`` for K6 and at 2^15 / 2^16 for every
+form, ``kWideNttLogCluster13`` / ``14`` for K5 / K7 and K8 / K8', read
+from it here). This file emulates
 that plan index for index, with the kernels' own maps and, on uint64
 words, their Harvey64 and REDC64 arithmetic (Shoup companions), and holds
 it word for word to the port's twins (``ops/ntt.py``,
 ``moddown_gpu.mod_down_combine_twin``,
 ``keyswitch_gpu.gadget_accumulate_twin``): uint32 at N = 2^16 for C in
-{4, 8, 16}, uint64 at 2^15 and 2^16 for the C built; and at N = 2^12,
+{4, 8, 16}, uint64 at 2^13 .. 2^16 for each form's C built; and at N = 2^12,
 C = 4 to the JAX reference's staged NTT (``toy_heaan_ckks_tpu/ops/ntt.py``)
 and, on uint32 words, its key switch (``ops/keyswitch_pallas.py``, in
 interpret mode) on the CPU:
@@ -101,9 +103,14 @@ def _header_constant(name: str, header: str = "ntt_cluster.cuh") -> int | None:
 
 
 # the uint64 cluster forms (ntt_cluster.cuh WideWords, WidePlan): words a
-# thread and log2 C at N = 2^13 .. 2^16
+# thread and log2 C at N = 2^13 .. 2^16 of K6 ("ks") and of K5 / K7 and
+# K8 / K8' ("ntt"; the same C at 2^15 and 2^16)
 W64 = Words(64, _header_constant("kLogWideWords"))
 WIDE_LOG_C = {n: _header_constant(f"kWideLogCluster{n}") for n in (13, 14, 15, 16)}
+WIDE_FORM_LOG_C = {
+    "ks": WIDE_LOG_C,
+    "ntt": {**WIDE_LOG_C, **{n: _header_constant(f"kWideNttLogCluster{n}") for n in (13, 14)}},
+}
 
 
 class Plan:
@@ -853,12 +860,13 @@ def test_small_keyswitch_plan_matches_reference():
         np.testing.assert_array_equal(g.numpy().view(np.uint32), np.asarray(w))
 
 
-# ── K5' / K7 and K6: the uint64 cluster forms at N = 2^15 and 2^16 ─────
+# ── K5 / K5' / K7, K6 and K8 / K8': the uint64 cluster forms ──────────
 
 
-def _wide_plan(log_n: int) -> Plan:
-    """The uint64 plan as built (``WidePlan<log_n>``)."""
-    return Plan(log_n, WIDE_LOG_C[log_n], W64)
+def _wide_plan(log_n: int, form: str = "ks") -> Plan:
+    """The uint64 plan of ``form`` (WIDE_FORM_LOG_C) as built
+    (``WidePlan<log_n, form>``)."""
+    return Plan(log_n, WIDE_FORM_LOG_C[form][log_n], W64)
 
 
 def _wavefronts(slots, words: Words) -> int:
@@ -897,13 +905,9 @@ def test_wide_plan_shapes(log_n):
     _check_local_twiddles(plan)
 
 
-@pytest.mark.parametrize("log_n", [13, 14, 15, 16])
-def test_wide_plan_is_conflict_free(log_n):
-    """Every shared-memory access of the built uint64 plan takes the least
-    wavefronts a warp can (two half-warps of 8-byte words): the pad of one
-    word after every 16 keeps the exchanges and the scatter free of bank
-    conflicts."""
-    plan = _wide_plan(log_n)
+def _check_conflict_free(plan: Plan):
+    """Every shared-memory access of the plan takes the least wavefronts a
+    warp can (two half-warps of 8-byte words)."""
     phases = 32 * plan.words.bytes // 128
     for name, slots in _accesses(plan):
         for row in np.asarray(slots).reshape(plan.C, plan.T):
@@ -911,12 +915,35 @@ def test_wide_plan_is_conflict_free(log_n):
                 assert _wavefronts(row[w:w + 32], plan.words) == phases, name
 
 
-def _wide_ntt_case(log_n: int, mode: str, count: int = 1):
+@pytest.mark.parametrize("log_n", [13, 14, 15, 16])
+def test_wide_plan_is_conflict_free(log_n):
+    """Every shared-memory access of the built uint64 plan takes the least
+    wavefronts a warp can: the pad of one word after every 16 keeps the
+    exchanges and the scatter free of bank conflicts
+    (``_check_conflict_free``)."""
+    _check_conflict_free(_wide_plan(log_n))
+
+
+@pytest.mark.parametrize("log_n", [13, 14])
+def test_wide_ntt_form_plans(log_n):
+    """K5 / K7's and K8 / K8''s plan as built at 2^13 and 2^14 (their own
+    C there): scatters, slice twiddles and bank conflicts: none but the
+    2-way ones of a slice of 2^10's middle pass (passes 4 + 3 + 3, as K10's
+    uint64 slices of 2^10, TAIL_CONFLICTS)."""
+    plan = _wide_plan(log_n, "ntt")
+    assert plan.C == 1 << WIDE_FORM_LOG_C["ntt"][log_n] and plan.log_m >= 10
+    _check_scatters(plan)
+    _check_local_twiddles(plan)
+    assert _conflicts(plan) == ({"pass (4, 3)": 2} if plan.log_m == 10 else {})
+
+
+def _wide_ntt_case(log_n: int, mode: str, count: int = 1, bits: int = 61):
     """One wide chain's planes and final constants for ``mode``: forward,
     inverse (N^-1), fold (the decomposition fold's constants) or yhat (the
-    mod-down's yhat emission, the last of ``count`` + 1 primes dropped)."""
+    mod-down's yhat emission, the last of ``count`` + 1 primes dropped),
+    on ``bits``-bit primes."""
     n = 1 << log_n
-    moduli = tuple(generate_primes(61, count + (mode == "yhat"), n))
+    moduli = tuple(generate_primes(bits, count + (mode == "yhat"), n))
     final = None
     if mode == "fold":
         final = moddown_gpu._fold_consts_wide(moduli, n, tuple((q - 1) // 3 for q in moduli))
@@ -927,19 +954,23 @@ def _wide_ntt_case(log_n: int, mode: str, count: int = 1):
 
 
 # forward and inverse at both rings; the final constants of the fold and
-# the yhat emission (the same inverse passes) at 2^15
+# the yhat emission (the same inverse passes) at 2^15; every mode at 2^13
+# (the wide path) and 2^14 (wide-62b) on K5 / K7's C there, on 36-bit
+# primes (the twin's bit-serial products cost time by the bit; the
+# Harvey64 words are those of 61 bits, which 2^15 and 2^16 check)
 WIDE_NTT = [(15, "forward"), (15, "inverse"), (15, "fold"), (15, "yhat"),
-            (16, "forward"), (16, "inverse")]
+            (16, "forward"), (16, "inverse"),
+            *((n, mode) for n in (13, 14) for mode in ("forward", "inverse", "fold", "yhat"))]
 
 
 @pytest.mark.parametrize("log_n,mode", WIDE_NTT)
 def test_wide_ntt_plan_matches_twin(log_n, mode):
-    """K5' / K7 on the built uint64 plan (Harvey64 butterflies, Shoup
-    companions) against ``ntt_gpu.ntt_twin`` word for word, one 61-bit
-    plane."""
-    moduli, final, x3 = _wide_ntt_case(log_n, mode)
+    """K5 / K5' / K7 on the built uint64 plan (Harvey64 butterflies, Shoup
+    companions) against ``ntt_gpu.ntt_twin`` word for word, one plane
+    (61-bit at 2^15 and 2^16, 36-bit at 2^13 and 2^14)."""
+    moduli, final, x3 = _wide_ntt_case(log_n, mode, bits=61 if log_n > 14 else 36)
     n = 1 << log_n
-    got = _ntt(_wide_plan(log_n), x3, moduli, mode != "forward", final)
+    got = _ntt(_wide_plan(log_n, "ntt"), x3, moduli, mode != "forward", final)
     want = ntt_gpu.ntt_twin(torch.from_numpy(x3), moduli, n, mode != "forward", final)
     assert torch.equal(got, want)
 
@@ -993,14 +1024,18 @@ def test_wide_small_plan_matches_reference():
     assert torch.equal(_ntt(Plan(12, 2, W64), x3, moduli, True), inv)
 
 
-# K8 / K8' on the built uint64 plan, batch 1, 61-bit primes: (log2 N,
-# bits, with t, kept, dropped) at the big-wide path's shapes at 2^15 (K8: 2
-# kept, the last base prime and the special dropped; K8': 3 kept, the
-# special dropped), at 2^16 (1, 1), and at N = 2^12 on C = 4 (3 x 61-bit,
-# 2 kept, 1 dropped). tests/test_torch_wide.py and test_torch_rotate.py
-# hold the twin to the reference's ``mod_down_combine_pallas_wide``.
+# K8 / K8' on the built uint64 plan, batch 1: (log2 N, bits, with t,
+# kept, dropped) at the big-wide path's shapes at 2^15 (K8: 2 kept, the
+# last base prime and the special dropped; K8': 3 kept, the special
+# dropped), at 2^16 (1, 1), at N = 2^12 on C = 4 (3 x 61-bit, 2 kept, 1
+# dropped), at the wide path's shapes at 2^13 (K8: 3 kept, 2 dropped; K8':
+# 4 kept, 1 dropped) and at wide-62b's K8 at 2^14 (2 kept, 2 dropped), these
+# three on 36-bit primes (WIDE_NTT). tests/test_torch_wide.py and
+# test_torch_rotate.py hold the twin to the reference's
+# ``mod_down_combine_pallas_wide``.
 WIDE_MD = [(15, 61, True, 2, 2), (15, 61, False, 3, 1), (16, 61, True, 1, 1),
-           (12, 61, True, 2, 1)]
+           (12, 61, True, 2, 1), (13, 36, True, 3, 2), (13, 36, False, 4, 1),
+           (14, 36, True, 2, 2)]
 
 
 @pytest.mark.parametrize("log_n,bits,with_t,kept,dropped", WIDE_MD)
@@ -1008,7 +1043,7 @@ def test_wide_moddown_plan_matches_twin(log_n, bits, with_t, kept, dropped):
     """K8 (t) / K8' (no t) on the built uint64 plan (the Phat sum a Harvey64
     in the cross pass's loads, the combine Harvey64s in pass 0's layout)
     against ``mod_down_combine_twin`` word for word."""
-    plan = Plan(12, 2, W64) if log_n == 12 else _wide_plan(log_n)
+    plan = Plan(12, 2, W64) if log_n == 12 else _wide_plan(log_n, "ntt")
     got, want = _moddown_case(plan, bits, with_t, kept, dropped)
     assert torch.equal(got, want)
 
@@ -1054,6 +1089,28 @@ def test_wide_plan_mutations_fail(monkeypatch):
                         functools.partial(scatter_forward, pad=W32.pad))
     with pytest.raises(AssertionError, match="read before it was written"):
         _ntt(Plan(12, 2, W64), x3, moduli, False)
+
+
+def test_wide_13_plan_mutations_fail():
+    """At 2^13 on K5's built C, forward and inverse against the twin, the
+    emulation catches the slice twiddles of a plan of half the ranks
+    (lead * C/2 + r in place of lead * C + r: a wrong C) and a cross pass
+    one stage off (the table entries (lead << (l + 1)) + g: a wrong stage
+    lead)."""
+    n = 1 << 13
+    moduli = tuple(generate_primes(36, 1, n))
+    x3 = _planes(9, moduli, n, 1)
+    for inverse in (False, True):
+        want = ntt_gpu.ntt_twin(torch.from_numpy(x3), moduli, n, inverse)
+        assert torch.equal(_ntt(_wide_plan(13, "ntt"), x3, moduli, inverse), want)
+        wrong_c = _wide_plan(13, "ntt")
+        local = wrong_c.local_twiddle
+        wrong_c.local_twiddle = lambda kS, kR, kL, h, g, p=wrong_c, f=local: (
+            f(kS, kR, kL, h, g) - ((p.lead * p.C // 2) << (kS + kL)))
+        assert not torch.equal(_ntt(wrong_c, x3, moduli, inverse), want)
+        wrong_stage = _wide_plan(13, "ntt")
+        wrong_stage.cross_twiddle = lambda l, g, p=wrong_stage: (p.lead << (l + 1)) + g
+        assert not torch.equal(_ntt(wrong_stage, x3, moduli, inverse), want)
 
 
 @pytest.mark.parametrize("log_n", [15, 16])

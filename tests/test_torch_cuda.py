@@ -9,6 +9,9 @@ torch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +47,12 @@ def _chain(count, digit_size, degree, bits=31):
     base = tuple(port.generate_primes(bits, count, degree))
     ctx = port.CkksContext.build(base, degree, device="cpu")
     return base, base + default_special_primes(ctx, digit_size)
+
+
+def _on_cluster(degree, wide):
+    """Whether the kernels run a plane of ``degree`` on a thread-block
+    cluster: uint32 planes of 2^16, uint64 planes of 2^13 and up."""
+    return int(degree >= 1 << 13 if wide else degree == 1 << 16)
 
 
 def _counted(fn, call):
@@ -211,8 +220,8 @@ def test_keyswitch_cluster_form_digits(dev, digit_size, batch, with_d):
 def _moddown_vs_twin(dev, degree, count, digit_size, with_t, batch, keyswitch=False,
                      offset=0, bits=31):
     """K3 / K3' (K8 / K8' above 32-bit primes) against its twin: one
-    launch, on a cluster where a plane exceeds one block (uint32 N = 2^16,
-    uint64 2^15 and 2^16) and none below, word-equal outputs. The multiply's
+    launch, on a cluster at uint32 N = 2^16 and uint64 2^13 .. 2^16
+    (``_on_cluster``) and none below, word-equal outputs. The multiply's
     shapes keep all but the last base prime and drop it with the
     specials; a key switch's (``keyswitch``) keeps the base and drops the
     specials. ks (and t) are channel slices of larger stacks; ``offset``
@@ -236,7 +245,7 @@ def _moddown_vs_twin(dev, degree, count, digit_size, with_t, batch, keyswitch=Fa
     kw = dict(child_moduli=child, dropped_moduli=dropped, degree=degree,
               t_scale=t_scale)
     got, counts = _counted(fn, lambda: fn(yhat, ks, t, **kw))
-    assert counts == (1, int(ntt_gpu.plane_split(degree, wide)[1] > 1))
+    assert counts == (1, _on_cluster(degree, wide))
     want = moddown_gpu.mod_down_combine_twin(yhat, ks, t, child, dropped,
                                              degree, t_scale)
     assert torch.equal(got, want)
@@ -328,7 +337,7 @@ def test_wide_ntt_kernel_matches_twin(dev, bits, degree, inverse):
     final = tuple((q - 1) // 3 for q in moduli) if inverse else None
     got, counts = _counted(ntt_gpu.ntt_planes_wide, lambda: ntt_gpu.ntt_planes_wide(
         x, moduli, degree, inverse, final))
-    assert counts == (1, int(degree >= 1 << 15))
+    assert counts == (1, _on_cluster(degree, True))
     assert torch.equal(got, ntt_gpu.ntt_twin(x, moduli, degree, inverse, final))
 
 
@@ -351,8 +360,8 @@ def test_wide_keyswitch_kernel_matches_twin(dev, bits, degree, digit_size, count
 
 
 def _wide_ntt_vs_twin(dev, x, moduli, degree, mode):
-    """K5' / K7 at N = 2^15 or 2^16 (ntt_kernel_cluster64, the cluster plan
-    on uint64 words) against its twin: one launch, on a cluster,
+    """K5 / K5' / K7 at N = 2^13 .. 2^16 (ntt_kernel_cluster64, the cluster
+    plan on uint64 words) against its twin: one launch, on a cluster,
     uint64-equal outputs; ``mode`` as in ``_ntt_vs_twin`` (yhat: ``moduli``
     dropped from a chain of 2 more)."""
     inverse = mode != "forward"
@@ -369,28 +378,110 @@ def _wide_ntt_vs_twin(dev, x, moduli, degree, mode):
     assert torch.equal(got, ntt_gpu.ntt_twin(x, moduli, degree, inverse, final))
 
 
-# N = 2^15 (the big-wide path) and 2^16: batches of 1, 3 and 4 items of 1
-# to 4 channels, 61-bit primes
-@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+# N = 2^13 (the wide path), 2^14 (wide-62b), 2^15 (the big-wide path) and
+# 2^16: batches of 1, 3 and 4 items of 1 to 4 channels, 61-bit primes
+@pytest.mark.parametrize("degree", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
 @pytest.mark.parametrize("batch,channels", [(1, 1), (3, 3), (4, 4), (1, 4), (4, 2)])
 @pytest.mark.parametrize("mode", ["forward", "inverse", "fold", "yhat"])
 def test_wide_ntt_cluster_form_matches_twin(dev, degree, batch, channels, mode):
-    """K5' / K7's cluster register-pass form on uint64 words in each mode."""
+    """K5 / K5' / K7's cluster register-pass form on uint64 words in each
+    mode."""
     moduli = tuple(port.generate_primes(61, channels, degree))
     x = _planes(batch * 10 + channels, moduli, degree, (batch,), dev, torch.int64)
     _wide_ntt_vs_twin(dev, x, moduli, degree, mode)
 
 
-@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+@pytest.mark.parametrize("degree", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
 @pytest.mark.parametrize("mode", ["forward", "inverse", "yhat"])
 def test_wide_ntt_cluster_form_unaligned_input(dev, degree, mode):
-    """K5' / K7 on planes one word off a 16-byte boundary (the inverse's
-    runs are 16-byte loads: the wrapper copies them)."""
+    """K5 / K5' / K7 on planes one word off a 16-byte boundary (the
+    inverse's runs are 16-byte loads: the wrapper copies them)."""
     moduli = tuple(port.generate_primes(61, 3, degree))
     x = _planes(12, moduli, degree, (2,), dev, torch.int64)
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
     flat[1:] = x.reshape(-1)
     _wide_ntt_vs_twin(dev, flat[1:].view(x.shape), moduli, degree, mode)
+
+
+@pytest.mark.parametrize("degree", [1 << 13, 1 << 14])
+@pytest.mark.parametrize("mode", ["inverse", "fold", "yhat"])
+def test_wide_ntt_cluster_form_odd_item_stride(dev, degree, mode):
+    """K7 at 2^13 / 2^14 on items one word apart beyond their planes (an
+    odd item stride: every other item off a 16-byte boundary; the wrapper
+    copies them)."""
+    moduli = tuple(port.generate_primes(61, 3, degree))
+    x = _planes(13, moduli, degree, (3,), dev, torch.int64)
+    stride = x[0].numel() + 1
+    flat = torch.empty(3 * stride, dtype=x.dtype, device=dev)
+    odd = flat.as_strided(x.shape, (stride, degree, 1))
+    odd.copy_(x)
+    assert odd.stride(0) % 2 == 1
+    _wide_ntt_vs_twin(dev, odd, moduli, degree, mode)
+
+
+# (path, items, prime bits, base primes): the wide path's (8, 4 x 61-bit,
+# 2^13) and wide-62b's (2, 3 x 62-bit, 2^14), ds 1
+WIDE_PATHS = [("wide", 1 << 13, 8, 61, 4), ("wide-62b", 1 << 14, 2, 62, 3)]
+
+
+@pytest.mark.parametrize("path,degree,batch,bits,count", WIDE_PATHS)
+@pytest.mark.parametrize("mode", ["forward", "fold", "yhat"])
+def test_wide_ntt_cluster_form_path_shapes(dev, path, degree, batch, bits, count, mode):
+    """K5 / K7 at the wide paths' shapes: the forward and the
+    decomposition fold on the base, the yhat emission on the last base
+    prime and the special (the multiply's dropped moduli)."""
+    base, ext = _chain(count, 1, degree, bits)
+    moduli = ext[count - 1:] if mode == "yhat" else base
+    final = None
+    if mode == "fold":
+        final = moddown_gpu._fold_consts_wide(moduli, degree,
+                                              tuple((q - 1) // 3 for q in moduli))
+    elif mode == "yhat":
+        final = moddown_gpu._down_consts_wide(base[:-1], moduli, degree)[6]
+    x = _planes(degree + bits, moduli, degree, (batch,), dev, torch.int64)
+    got, counts = _counted(ntt_gpu.ntt_planes_wide, lambda: ntt_gpu.ntt_planes_wide(
+        x, moduli, degree, mode != "forward", final))
+    assert counts == (1, 1)
+    assert torch.equal(got, ntt_gpu.ntt_twin(x, moduli, degree, mode != "forward", final))
+
+
+@pytest.mark.parametrize("path,degree,batch,bits,count", WIDE_PATHS)
+@pytest.mark.parametrize("keyswitch", [False, True])
+def test_wide_moddown_cluster_form_path_shapes(dev, path, degree, batch, bits, count,
+                                               keyswitch):
+    """K8 (the multiply's: all but the last base prime kept, it and the
+    special dropped, with t) and K8' (a key switch's: the base kept, the
+    special dropped) at the wide paths' shapes."""
+    _moddown_vs_twin(dev, degree, count, 1, not keyswitch, batch, keyswitch, bits=bits)
+
+
+def _header_constant(name: str) -> int:
+    """An int constant of ``csrc/ntt_cluster.cuh`` (the forms as built)."""
+    text = (Path(ntt_gpu.__file__).parent.parent / "csrc" / "ntt_cluster.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_plane_blocks_report_the_forms(dev):
+    """``ntt_gpu.launch_blocks`` (``ckks_plane_blocks``) reports the form
+    each entry launches: the uint64 templates at 2^12 (one block), the
+    uint64 clusters of each form's C at 2^13 and 2^14 whatever P says and
+    of 16 at 2^15 / 2^16, the uint32 register-pass blocks below 2^16 and
+    clusters of 16 there, and 0 where an entry refuses the arguments."""
+    names = {ntt_gpu.FORWARD: "Ntt", ntt_gpu.INVERSE: "Ntt",
+             ntt_gpu.KEY_SWITCH: "", ntt_gpu.MOD_DOWN: "Ntt"}
+    for form, name in names.items():
+        assert ntt_gpu.launch_blocks(form, True, 12, 1) == 1
+        assert ntt_gpu.launch_blocks(form, True, 12, 2) == 0
+        for log_n in (13, 14):
+            want = 1 << _header_constant(f"kWide{name}LogCluster{log_n}")
+            assert ntt_gpu.launch_blocks(form, True, log_n, 1) == want
+            assert ntt_gpu.launch_blocks(form, True, log_n, 2) == want
+        for log_n in (15, 16):
+            want = 1 << _header_constant(f"kWideLogCluster{log_n}")
+            assert ntt_gpu.launch_blocks(form, True, log_n, 1 << (log_n - 14)) == want
+        assert ntt_gpu.launch_blocks(form, False, 14, 1) == 1
+        assert ntt_gpu.launch_blocks(form, False, 16, 2) == 16
+        assert ntt_gpu.launch_blocks(form, False, 15, 2) == 0
 
 
 # (digit_size, base primes): D = 3 (a special plane runs 3 cluster NTTs in
@@ -420,10 +511,10 @@ def test_wide_keyswitch_cluster_form_digits(dev, degree, digit_size, count, batc
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-# N = 2^15 (the big-wide path) and 2^16 at the big-wide chain (3 x 61-bit,
-# ds 1): K8 keeps 2 base primes and drops the last with the special, K8'
-# keeps the base and drops the special
-@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+# N = 2^13, 2^14, 2^15 (the big-wide path) and 2^16 at the big-wide chain
+# (3 x 61-bit, ds 1): K8 keeps 2 base primes and drops the last with the
+# special, K8' keeps the base and drops the special
+@pytest.mark.parametrize("degree", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
 @pytest.mark.parametrize("batch", [1, 3, 4])
 @pytest.mark.parametrize("keyswitch", [False, True])
 def test_wide_moddown_cluster_form_matches_twin(dev, degree, batch, keyswitch):
@@ -432,7 +523,7 @@ def test_wide_moddown_cluster_form_matches_twin(dev, degree, batch, keyswitch):
     _moddown_vs_twin(dev, degree, 3, 1, not keyswitch, batch, keyswitch, bits=61)
 
 
-@pytest.mark.parametrize("degree", [1 << 15, 1 << 16])
+@pytest.mark.parametrize("degree", [1 << 13, 1 << 14, 1 << 15, 1 << 16])
 @pytest.mark.parametrize("with_t", [True, False])
 def test_wide_moddown_cluster_form_unaligned_input(dev, degree, with_t):
     """K8 / K8' with ks read in place one word off a 16-byte boundary."""

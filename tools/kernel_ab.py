@@ -22,7 +22,11 @@ the pace of the wrapper calls, which the host sets where the kernel is
 shorter than the wrapper's host work) and the device ms per call
 (``device_ms``, torch.profiler over 50 calls: the kernels alone, by this
 tool's own checkout's ``chip_smoke.device_split``, which takes windows
-until two record every launch alike, whichever checkout is timed). Run it
+until two record every launch alike, whichever checkout is timed), and
+the least time the card could take for the case's work (``bound_ms``:
+the larger of its bytes over the memory rate and its integer operations
+over the int32 issue rate at the card's maximum SM clock, K9's u8 MACs
+over the int8 tensor rate, as ``chip_smoke.time_cases`` counts them). Run it
 once per checkout in one command on one card, in turns (parent, change,
 change, parent), to compare two commits; no twin is timed. ``--sass``
 adds, per kernel of the built library (each instantiation under its own
@@ -36,8 +40,8 @@ runs torch.profiler and again after one profiler window. Where the
 checkout has the cluster forms of ``csrc/ntt_cluster.cuh``, ``cluster``
 gives each form's registers, spill bytes, threads and shared bytes a
 block, blocks a cluster and resident clusters (uint32 K4, K3, K2 at
-2^16; uint64 K5' / K7, K6 and K8 / K8' at 2^15 and 2^16, K6 at 2^13 and
-2^14; null for a form the checkout's library does not have). ``--k10-forms`` times, in place
+2^16; uint64 K5 / K5' / K7, K6 and K8 / K8' at 2^13 .. 2^16; null for a
+form the checkout's library does not have). ``--k10-forms`` times, in place
 of all that, K10's two register forms (``coeff_ntt_gpu.slab_form``
 patched to pick each: ``block``, one block a slab, and ``cluster``, the
 slab's cluster of ``csrc/coeff_ntt.cuh`` ``kSlabLogCluster*`` blocks)
@@ -282,13 +286,19 @@ def main() -> int:
                 continue
             cases += [(f"K10/K11 {path} {name}", case) for name, case in smoke.coeff_cases(
                 dev, cfg.batch, cfg.count, cfg.degree, cfg.bits, shards).items()]
+    clock_mhz = float(smoke._smi("clocks.max.sm").split()[0])
+    int_ops_per_s = (smoke.INT32_LANES_PER_SM * clock_mhz * 1e6
+                     * torch.cuda.get_device_properties(dev).multi_processor_count)
+    bound = {}
     for name, case in cases:
         times[name] = smoke._cuda_ms(case.kernel, args.iters, warmup=10)
         split, _ = device_split(case.kernel, PROFILE_CALLS)
         device[name] = sum(split.values())
+        bound[name] = 1e3 * max(case.bytes / smoke.HBM_BYTES_PER_S, case.ops / int_ops_per_s,
+                                2 * case.macs / smoke.INT8_OPS_PER_S)
     cluster = cluster_forms(smoke)
     print(json.dumps({"label": args.label or root, "card": card,
-                      "ms": times, "device_ms": device,
+                      "ms": times, "device_ms": device, "bound_ms": bound,
                       **({"cluster": cluster} if cluster else {}),
                       **({"sass": sass} if sass else {}),
                       **({"composite": composite} if composite else {})}))

@@ -345,7 +345,9 @@ int launch_reg(const uint32_t* y, long long y_stride, const uint32_t* d,
 }
 
 using ckks::BigPlan;
-using ckks::WidePlan;
+// K6's uint64 plan
+template <int kLogN>
+using KsWidePlan = ckks::WidePlan<kLogN, ckks::kWideKeySwitch>;
 
 // The cluster form of Plan (see the header): one cluster of Plan::kC
 // blocks of N/C/W threads per (item, extended channel j), the special
@@ -486,8 +488,8 @@ keyswitch_kernel_cluster(const uint32_t* __restrict__ y, long long y_stride,
 
 // K6 on uint64 planes of 2^kLogN words, 2^13 .. 2^16 (see the header).
 template <int kLogN>
-__global__ void __launch_bounds__(WidePlan<kLogN>::kThreads,
-                                  ckks::kWideThreadsPerSm / WidePlan<kLogN>::kThreads)
+__global__ void __launch_bounds__(KsWidePlan<kLogN>::kThreads,
+                                  ckks::kWideThreadsPerSm / KsWidePlan<kLogN>::kThreads)
 keyswitch_kernel_cluster64(const uint64_t* __restrict__ y, long long y_stride,
                            const uint64_t* __restrict__ d, long long d_stride,
                            const uint64_t* __restrict__ key_a,
@@ -500,9 +502,9 @@ keyswitch_kernel_cluster64(const uint64_t* __restrict__ y, long long y_stride,
                            const uint64_t* __restrict__ twp,
                            uint64_t* __restrict__ out0, uint64_t* __restrict__ out1,
                            int outer, int base, int ext, int digits, int digit_size) {
-  keyswitch_cluster_body<WidePlan<kLogN>>(y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
-                                          qinv, tw, twp, out0, out1, outer, base, ext,
-                                          digits, digit_size);
+  keyswitch_cluster_body<KsWidePlan<kLogN>>(y, y_stride, d, d_stride, key_a, key_b, c, cs, q,
+                                            qinv, tw, twp, out0, out1, outer, base, ext,
+                                            digits, digit_size);
 }
 
 template <int kLogN>
@@ -512,45 +514,13 @@ int launch_cluster64(const uint64_t* y, long long y_stride, const uint64_t* d,
                      const uint64_t* qinv, const uint64_t* tw, const uint64_t* twp,
                      uint64_t* out0, uint64_t* out1, int outer, int base, int ext,
                      int digits, int digit_size, cudaStream_t stream) {
-  using Plan = WidePlan<kLogN>;
+  using Plan = KsWidePlan<kLogN>;
   return ckks::launch_cluster<Plan, &keyswitch_kernel_cluster64<kLogN>>(
       outer * ext, Plan::kForwardBytes, stream, y, y_stride, d, d_stride, key_a, key_b, c,
       cs, q, qinv, tw, twp, out0, out1, outer, base, ext, digits, digit_size);
 }
 
-// f(std::integral_constant<int, log_n>{}) for a ring of K6's cluster form.
-template <typename F>
-auto wide_ks_dispatch(int log_n, F f) -> decltype(f(std::integral_constant<int, 16>{})) {
-  switch (log_n) {
-    case 13: return f(std::integral_constant<int, 13>{});
-    case 14: return f(std::integral_constant<int, 14>{});
-    case 15: return f(std::integral_constant<int, 15>{});
-    default: return f(std::integral_constant<int, 16>{});
-  }
-}
-
-// Blocks a plane of the form that ckks_keyswitch (wide 0) or
-// ckks_keyswitch64 (wide 1) launches at log_n for `parts`
-// (ntt_gpu.plane_split): K6's cluster of WidePlan's C at 2^13 .. 2^16
-// whatever parts says, K2's cluster of BigPlan's C at 2^16 (parts above
-// 1), else 1 (one block a plane) at parts 1 and 0 (refused) otherwise.
-int ks_blocks(bool wide, int log_n, int parts) {
-  if (wide && ckks::wide_ks_cluster_shape(log_n))
-    return wide_ks_dispatch(log_n, [](auto log_n_c) {
-      return ckks::WidePlan<decltype(log_n_c)::value>::kC;
-    });
-  if (!wide && parts > 1 && log_n == ckks::kClusterLogN) return BigPlan::kC;
-  return parts == 1 ? 1 : 0;
-}
-
 }  // namespace
-
-// ks_blocks for the wrappers' launch counts: the blocks a plane that the
-// entry launches with these arguments (above 1: a cluster), 0 where it
-// refuses them.
-extern "C" int ckks_keyswitch_blocks(int wide, int log_n, int parts) {
-  return ks_blocks(wide != 0, log_n, parts);
-}
 
 // y: (outer, base, N) plain digit values, item stride y_stride; d: NTT-domain
 // input (outer, base, N) with stride d_stride, or nullptr (no skip-own);
@@ -568,7 +538,7 @@ extern "C" int ckks_keyswitch(const uint32_t* y, long long y_stride,
                               uint32_t* out0, uint32_t* out1, int outer,
                               int base, int ext, int digits, int digit_size,
                               int log_n, int parts, cudaStream_t stream) {
-  const int blocks = ks_blocks(false, log_n, parts);
+  const int blocks = ckks::plane_blocks(ckks::kWideKeySwitch, false, log_n, parts);
   if (blocks > 1) {
     return ckks::launch_cluster<BigPlan, &keyswitch_kernel_cluster>(
         outer * ext, BigPlan::kForwardBytes, stream, y, y_stride, d, d_stride, key_a,
@@ -593,8 +563,8 @@ const void* ckks::keyswitch_cluster_kernel() {
 }
 
 const void* ckks::keyswitch_cluster64_kernel(int log_n) {
-  if (!wide_ks_cluster_shape(log_n)) return nullptr;
-  return wide_ks_dispatch(log_n, [](auto log_n_c) {
+  if (!wide_cluster_shape(log_n)) return nullptr;
+  return wide_dispatch(log_n, [](auto log_n_c) {
     return reinterpret_cast<const void*>(keyswitch_kernel_cluster64<decltype(log_n_c)::value>);
   });
 }
@@ -635,9 +605,9 @@ extern "C" int ckks_keyswitch64(const uint64_t* y, long long y_stride,
                                 uint64_t* out0, uint64_t* out1, int outer,
                                 int base, int ext, int digits, int digit_size,
                                 int log_n, int parts, cudaStream_t stream) {
-  const int blocks = ks_blocks(true, log_n, parts);
+  const int blocks = ckks::plane_blocks(ckks::kWideKeySwitch, true, log_n, parts);
   if (blocks > 1) {
-    return wide_ks_dispatch(log_n, [&](auto log_n_c) {
+    return ckks::wide_dispatch(log_n, [&](auto log_n_c) {
       return launch_cluster64<decltype(log_n_c)::value>(
           y, y_stride, d, d_stride, key_a, key_b, c, cs, q, qinv, tw, twp, out0, out1,
           outer, base, ext, digits, digit_size, stream);

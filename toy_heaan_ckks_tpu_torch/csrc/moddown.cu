@@ -24,8 +24,8 @@
 //
 // uint32 planes that one block holds (N = 2^10 .. 2^15) run another body,
 // moddown_kernel_reg<log2 N>, and uint32 planes of 2^16 a third,
-// moddown_kernel_cluster (below); uint64 planes up to 2^14 run
-// moddown_kernel above, and those of 2^15 and 2^16 moddown_kernel_cluster64
+// moddown_kernel_cluster (below); uint64 planes up to 2^12 run
+// moddown_kernel above, and those of 2^13 .. 2^16 moddown_kernel_cluster64
 // (the cluster plan on uint64 words, below). The one-block design is K2's
 // (csrc/keyswitch.cu) with one digit and the combine as its epilogue:
 //
@@ -73,7 +73,17 @@
 // (tools/kernel_ab.py, device time): (4, 2 kept, 2 dropped, 2^15) with t
 // 0.0161-0.0162 ms against 0.1027-0.1034 for moddown_kernel on clusters
 // of 2; without t (4, 3 kept, 1 dropped) 0.0144 (0.0898-0.0903); at
-// (1, 1 kept, 2 dropped, 2^16) 0.018 (0.110).
+// (1, 1 kept, 2 dropped, 2^16) 0.018 (0.110). On uint64 planes of 2^13
+// and 2^14 the same kernel runs on clusters of kWideNttLogCluster13 / 14
+// = 8 / 16 blocks of 64 threads (122 registers, no spill), where
+// moddown_kernel ran one barrier a stage on one block of 512 threads a
+// plane (24 blocks for the wide path's K8 at (8, 3 kept), 32 for its K8'
+// at (8, 4 kept)). Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/kernel_ab.py, device time): (8, 3 kept, 2 dropped, 2^13) with t
+// 0.0118 ms against 0.0470-0.0473 for moddown_kernel (0.0116 on clusters
+// of 4); without t (8, 4 kept, 1 dropped) 0.0120 (0.0410-0.0422; 0.0124
+// on 4); (2, 2 kept, 2 dropped, 2^14) with t 0.0116 (0.0939-0.0944; 0.0119
+// on 8).
 #include "ntt.cuh"
 #include "ntt_cluster.cuh"
 #include "ntt_reg.cuh"
@@ -126,8 +136,8 @@ moddown_kernel(const T* __restrict__ yhat, long long y_stride,
 }
 
 // One block a plane: moddown_kernel's one-block form (uint32 planes below
-// 2^10, uint64 planes up to 2^14; the larger planes run the cluster forms
-// below).
+// 2^10, uint64 planes up to 2^12; the larger planes run the register-pass
+// and cluster forms below).
 template <typename T>
 int launch_one_block(const T* yhat, long long y_stride, const T* ks, long long ks_stride,
                      const T* t, long long t_stride, const T* c, const T* cs, const T* q,
@@ -251,7 +261,9 @@ int launch_reg(const uint32_t* yhat, long long y_stride, const uint32_t* ks,
 }
 
 using ckks::BigPlan;
-using ckks::WidePlan;
+// K8 / K8''s uint64 plan
+template <int kLogN>
+using ModDownWidePlan = ckks::WidePlan<kLogN, ckks::kWideModDown>;
 
 // The cluster form of Plan (see the header): one cluster of Plan::kC
 // blocks of N/C/W threads per (item, kept channel j).
@@ -335,11 +347,11 @@ moddown_kernel_cluster(const uint32_t* __restrict__ yhat, long long y_stride,
                                 pms, pinv, pinvs, tw, twp, out, dropped, kept);
 }
 
-// K8 / K8' on uint64 planes of 2^kLogN words, 2^15 and 2^16 (see the
+// K8 / K8' on uint64 planes of 2^kLogN words, 2^13 .. 2^16 (see the
 // header).
 template <int kLogN>
-__global__ void __launch_bounds__(WidePlan<kLogN>::kThreads,
-                                  ckks::kWideThreadsPerSm / WidePlan<kLogN>::kThreads)
+__global__ void __launch_bounds__(ModDownWidePlan<kLogN>::kThreads,
+                                  ckks::kWideThreadsPerSm / ModDownWidePlan<kLogN>::kThreads)
 moddown_kernel_cluster64(const uint64_t* __restrict__ yhat, long long y_stride,
                          const uint64_t* __restrict__ ks, long long ks_stride,
                          const uint64_t* __restrict__ t, long long t_stride,
@@ -351,9 +363,9 @@ moddown_kernel_cluster64(const uint64_t* __restrict__ yhat, long long y_stride,
                          const uint64_t* __restrict__ tw,
                          const uint64_t* __restrict__ twp, uint64_t* __restrict__ out,
                          int dropped, int kept) {
-  moddown_cluster_body<WidePlan<kLogN>>(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs,
-                                        q, pm, pms, pinv, pinvs, tw, twp, out, dropped,
-                                        kept);
+  moddown_cluster_body<ModDownWidePlan<kLogN>>(yhat, y_stride, ks, ks_stride, t, t_stride, c,
+                                               cs, q, pm, pms, pinv, pinvs, tw, twp, out,
+                                               dropped, kept);
 }
 
 template <int kLogN>
@@ -364,7 +376,7 @@ int launch_cluster64(const uint64_t* yhat, long long y_stride, const uint64_t* k
                      const uint64_t* pinvs, const uint64_t* tw, const uint64_t* twp,
                      uint64_t* out, int outer, int dropped, int kept,
                      cudaStream_t stream) {
-  using Plan = WidePlan<kLogN>;
+  using Plan = ModDownWidePlan<kLogN>;
   return ckks::launch_cluster<Plan, &moddown_kernel_cluster64<kLogN>>(
       outer * kept, Plan::kForwardBytes, stream, yhat, y_stride, ks, ks_stride, t,
       t_stride, c, cs, q, pm, pms, pinv, pinvs, tw, twp, out, dropped, kept);
@@ -377,8 +389,8 @@ int launch_cluster64(const uint64_t* yhat, long long y_stride, const uint64_t* k
 // (t may be nullptr); c/cs: (dropped, kept); q/pm/pms/pinv/pinvs: (kept,);
 // tw/twp: (kept, N) forward twiddles; out: contiguous (outer, kept, N);
 // parts: 1 (one block a plane) or, at N = 2^16 only, above 1 (a cluster:
-// moddown_kernel_cluster on ckks::BigPlan::kC blocks). Returns the launch's
-// error code (0 on success).
+// moddown_kernel_cluster on ckks::BigPlan::kC blocks; the form is
+// ckks::plane_blocks's). Returns the launch's error code (0 on success).
 extern "C" int ckks_moddown(const uint32_t* yhat, long long y_stride,
                             const uint32_t* ks, long long ks_stride,
                             const uint32_t* t, long long t_stride,
@@ -389,19 +401,20 @@ extern "C" int ckks_moddown(const uint32_t* yhat, long long y_stride,
                             const uint32_t* twp, uint32_t* out, int outer,
                             int dropped, int kept, int log_n, int parts,
                             cudaStream_t stream) {
-  if (parts == 1 && ckks::reg_shape(log_n)) {
+  const int blocks = ckks::plane_blocks(ckks::kWideModDown, false, log_n, parts);
+  if (blocks > 1) {
+    return ckks::launch_cluster<BigPlan, &moddown_kernel_cluster>(
+        outer * kept, BigPlan::kForwardBytes, stream, yhat, y_stride, ks, ks_stride,
+        t, t_stride, c, cs, q, pm, pms, pinv, pinvs, tw, twp, out, dropped, kept);
+  }
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ckks::reg_shape(log_n)) {
     return ckks::reg_dispatch(log_n, [&](auto log_n_c) {
       return launch_reg<decltype(log_n_c)::value>(
           yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv,
           pinvs, tw, twp, out, outer, dropped, kept, stream);
     });
   }
-  if (parts > 1 && log_n == ckks::kClusterLogN) {
-    return ckks::launch_cluster<BigPlan, &moddown_kernel_cluster>(
-        outer * kept, BigPlan::kForwardBytes, stream, yhat, y_stride, ks, ks_stride,
-        t, t_stride, c, cs, q, pm, pms, pinv, pinvs, tw, twp, out, dropped, kept);
-  }
-  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_one_block(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm,
                           pms, pinv, pinvs, tw, twp, out, outer, dropped, kept, log_n,
                           stream);
@@ -420,14 +433,15 @@ const void* ckks::moddown_cluster_kernel() {
 
 const void* ckks::moddown_cluster64_kernel(int log_n) {
   if (!wide_cluster_shape(log_n)) return nullptr;
-  return log_n == 15 ? reinterpret_cast<const void*>(moddown_kernel_cluster64<15>)
-                     : reinterpret_cast<const void*>(moddown_kernel_cluster64<16>);
+  return wide_dispatch(log_n, [](auto log_n_c) {
+    return reinterpret_cast<const void*>(moddown_kernel_cluster64<decltype(log_n_c)::value>);
+  });
 }
 
-// The same on uint64 words (wide chains, radix-2^64 Shoup companions):
-// parts 1 (N <= 2^14, moddown_kernel's one-block form) or, at N = 2^15 and
-// 2^16 only, above 1 (a cluster: moddown_kernel_cluster64 on
-// ckks::WidePlan's C blocks whatever parts says).
+// The same on uint64 words (wide chains, radix-2^64 Shoup companions): at
+// N = 2^13 .. 2^16 a cluster (moddown_kernel_cluster64 on the C blocks of
+// K8's ckks::WidePlan) whatever parts says; below, parts 1
+// (moddown_kernel's one-block form).
 extern "C" int ckks_moddown64(const uint64_t* yhat, long long y_stride,
                               const uint64_t* ks, long long ks_stride,
                               const uint64_t* t, long long t_stride,
@@ -438,12 +452,15 @@ extern "C" int ckks_moddown64(const uint64_t* yhat, long long y_stride,
                               const uint64_t* twp, uint64_t* out, int outer,
                               int dropped, int kept, int log_n, int parts,
                               cudaStream_t stream) {
-  if (parts > 1 && ckks::wide_cluster_shape(log_n)) {
-    return (log_n == 15 ? launch_cluster64<15> : launch_cluster64<16>)(
-        yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv, pinvs, tw,
-        twp, out, outer, dropped, kept, stream);
+  const int blocks = ckks::plane_blocks(ckks::kWideModDown, true, log_n, parts);
+  if (blocks > 1) {
+    return ckks::wide_dispatch(log_n, [&](auto log_n_c) {
+      return launch_cluster64<decltype(log_n_c)::value>(
+          yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms, pinv, pinvs, tw,
+          twp, out, outer, dropped, kept, stream);
+    });
   }
-  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_one_block(yhat, y_stride, ks, ks_stride, t, t_stride, c, cs, q, pm, pms,
                           pinv, pinvs, tw, twp, out, outer, dropped, kept, log_n, stream);
 }

@@ -21,8 +21,8 @@
 //
 // uint32 planes that one block holds (N = 2^10 .. 2^15) run another body,
 // ntt_kernel_reg<log2 N, inverse>, and uint32 planes of 2^16 a third,
-// ntt_kernel_cluster<inverse> (below); uint64 planes up to 2^14 run
-// ntt_kernel above, and those of 2^15 and 2^16 ntt_kernel_cluster64 (the
+// ntt_kernel_cluster<inverse> (below); uint64 planes up to 2^12 run
+// ntt_kernel above, and those of 2^13 .. 2^16 ntt_kernel_cluster64 (the
 // cluster plan on uint64 words, below). The one-block design is K2's NTT
 // (csrc/ntt_reg.cuh): N / 32 threads of 32 words, 5+5+4 stages at 2^14 in
 // registers with one shared-memory exchange between passes, each
@@ -68,6 +68,18 @@
 // at 2^15, 256 at 2^16), the slice's 11 / 12 stages as 4+4+3 / 4+4+4
 // register passes, one 8-byte distributed-shared-memory store a word, a
 // pad of one 8-byte word after 16. 96-126 registers a thread, no spill.
+// K5 / K7 on uint64 planes of 2^13 and 2^14 run the same kernel on
+// clusters of kWideNttLogCluster13 / 14 = 8 / 16 blocks of 64 threads
+// (slices of 2^10 as 4+3+3 register passes; one block holds the plane,
+// but three passes of 16 words do not hold its 13 / 14 stages, and
+// ntt_kernel ran one barrier a stage on one block of 512 threads a plane,
+// 32 blocks at the wide path's (8, 4, 2^13)). 96 registers (126 for the
+// forward at 2^14), no spill. Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (tools/kernel_ab.py, device time): (8, 4, 2^13) forward 0.0102 ms
+// against 0.0358-0.0360 for ntt_kernel, inverse with the fold 0.0106
+// (0.0339-0.0341), yhat at (8, 2) 0.0090 (0.0330-0.0341); on clusters of
+// 4 0.0109-0.0110 / 0.0112 / 0.0091; (2, 3, 2^14) forward 0.0086
+// (0.0713-0.0717), on clusters of 8 0.0090.
 // ntt_kernel on clusters of 2 / 4 gave the big-wide path's 12 planes 24
 // blocks of 512 threads, 15 one-stage barriers each. Measured on an NVIDIA
 // H100 80GB HBM3 at 700 W (tools/kernel_ab.py, device time, (4, 3, 2^15)):
@@ -118,8 +130,8 @@ ntt_kernel(const T* __restrict__ x, long long x_stride, T* __restrict__ out,
 }
 
 // One block a plane: ntt_kernel's one-block form (uint32 planes below
-// 2^10, uint64 planes up to 2^14; the larger planes run the cluster forms
-// below).
+// 2^10, uint64 planes up to 2^12; the larger planes run the register-pass
+// and cluster forms below).
 template <typename T>
 int launch_one_block(const T* x, long long x_stride, T* out, const T* tw, const T* twp,
                      const T* q, const T* fin, const T* finp, int outer, int channels,
@@ -176,6 +188,9 @@ int launch_reg(const uint32_t* x, long long x_stride, uint32_t* out,
 
 using ckks::BigPlan;
 using ckks::WidePlan;
+// K5 / K5' / K7's uint64 plan in each direction
+template <int kLogN, bool kInverse>
+using NttWidePlan = WidePlan<kLogN, kInverse ? ckks::kWideInverse : ckks::kWideForward>;
 
 // The cluster form of Plan (see the header): one cluster of Plan::kC
 // blocks of N/C/W threads per (item, channel) plane.
@@ -208,18 +223,19 @@ ntt_kernel_cluster(const uint32_t* __restrict__ x, long long x_stride,
   ntt_cluster_body<BigPlan, kInverse>(x, x_stride, out, tw, twp, q, fin, finp, channels);
 }
 
-// K5' / K7 on uint64 planes of 2^kLogN words, 2^15 and 2^16 (see the
+// K5 / K5' / K7 on uint64 planes of 2^kLogN words, 2^13 .. 2^16 (see the
 // header).
 template <int kLogN, bool kInverse>
-__global__ void __launch_bounds__(WidePlan<kLogN>::kThreads,
-                                  ckks::kWideThreadsPerSm / WidePlan<kLogN>::kThreads)
+__global__ void __launch_bounds__(NttWidePlan<kLogN, kInverse>::kThreads,
+                                  ckks::kWideThreadsPerSm /
+                                      NttWidePlan<kLogN, kInverse>::kThreads)
 ntt_kernel_cluster64(const uint64_t* __restrict__ x, long long x_stride,
                      uint64_t* __restrict__ out, const uint64_t* __restrict__ tw,
                      const uint64_t* __restrict__ twp, const uint64_t* __restrict__ q,
                      const uint64_t* __restrict__ fin,
                      const uint64_t* __restrict__ finp, int channels) {
-  ntt_cluster_body<WidePlan<kLogN>, kInverse>(x, x_stride, out, tw, twp, q, fin, finp,
-                                              channels);
+  ntt_cluster_body<NttWidePlan<kLogN, kInverse>, kInverse>(x, x_stride, out, tw, twp, q, fin,
+                                                           finp, channels);
 }
 
 template <bool kInverse>
@@ -237,16 +253,10 @@ int launch_cluster64(const uint64_t* x, long long x_stride, uint64_t* out,
                      const uint64_t* tw, const uint64_t* twp, const uint64_t* q,
                      const uint64_t* fin, const uint64_t* finp, int outer, int channels,
                      cudaStream_t stream) {
-  using Plan = WidePlan<kLogN>;
+  using Plan = NttWidePlan<kLogN, kInverse>;
   return ckks::launch_cluster<Plan, &ntt_kernel_cluster64<kLogN, kInverse>>(
       outer * channels, kInverse ? Plan::kInverseBytes : Plan::kForwardBytes, stream, x,
       x_stride, out, tw, twp, q, fin, finp, channels);
-}
-
-template <int kLogN>
-const void* cluster64_kernel(bool inverse) {
-  return inverse ? reinterpret_cast<const void*>(ntt_kernel_cluster64<kLogN, true>)
-                 : reinterpret_cast<const void*>(ntt_kernel_cluster64<kLogN, false>);
 }
 
 }  // namespace
@@ -255,24 +265,27 @@ const void* cluster64_kernel(bool inverse) {
 // contiguous (outer, channels, N); tw/twp: (channels, N) compact twiddles of
 // the direction; q/fin/finp: (channels,); fin == nullptr skips the final
 // multiply; parts: 1 (one block a plane) or, at N = 2^16 only, above 1 (a
-// cluster: ntt_kernel_cluster). The
-// inverse with parts == 1 and N in [2^10, 2^15] reads x as 16-byte
-// vectors: x 16-byte aligned, x_stride a multiple of 4; so does the
-// cluster form, which spreads a plane over ckks::BigPlan::kC blocks
-// whatever parts says. Returns the launch's error code (0 on success).
+// cluster: ntt_kernel_cluster on ckks::BigPlan::kC blocks; the form is
+// ckks::plane_blocks's). The inverse with parts == 1 and N in [2^10,
+// 2^15] reads x as 16-byte vectors: x 16-byte aligned, x_stride a
+// multiple of 4; so does the cluster form. Returns the launch's error
+// code (0 on success).
 extern "C" int ckks_ntt(const uint32_t* x, long long x_stride, uint32_t* out,
                         const uint32_t* tw, const uint32_t* twp,
                         const uint32_t* q, const uint32_t* fin,
                         const uint32_t* finp, int outer, int channels,
                         int log_n, int parts, int inverse,
                         cudaStream_t stream) {
-  if (parts > 1 && log_n == ckks::kClusterLogN) {
+  const int blocks = ckks::plane_blocks(inverse ? ckks::kWideInverse : ckks::kWideForward,
+                                        false, log_n, parts);
+  if (blocks > 1) {
     return inverse ? launch_cluster<true>(x, x_stride, out, tw, twp, q, fin, finp,
                                           outer, channels, stream)
                    : launch_cluster<false>(x, x_stride, out, tw, twp, q, fin, finp,
                                            outer, channels, stream);
   }
-  if (parts == 1 && ckks::reg_shape(log_n)) {
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ckks::reg_shape(log_n)) {
     return ckks::reg_dispatch(log_n, [&](auto log_n_c) {
       constexpr int kLogN = decltype(log_n_c)::value;
       return inverse ? launch_reg<kLogN, true>(x, x_stride, out, tw, twp, q, fin,
@@ -281,34 +294,33 @@ extern "C" int ckks_ntt(const uint32_t* x, long long x_stride, uint32_t* out,
                                                 finp, outer, channels, stream);
     });
   }
-  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_one_block(x, x_stride, out, tw, twp, q, fin, finp, outer, channels,
                           log_n, inverse, stream);
 }
 
-// The same on uint64 words (wide chains, radix-2^64 Shoup companions):
-// parts 1 (N <= 2^14, ntt_kernel's one-block form) or, at N = 2^15 and
-// 2^16 only, above 1 (a cluster: ntt_kernel_cluster64 on
-// ckks::WidePlan's C blocks whatever parts says; the inverse reads x as
-// 16-byte vectors: x 16-byte aligned, x_stride even).
+// The same on uint64 words (wide chains, radix-2^64 Shoup companions): at
+// N = 2^13 .. 2^16 a cluster (ntt_kernel_cluster64 on the C blocks of the
+// direction's ckks::WidePlan) whatever parts says, whose inverse reads x
+// as 16-byte vectors (x 16-byte aligned, x_stride even); below, parts 1
+// (ntt_kernel's one-block form).
 extern "C" int ckks_ntt64(const uint64_t* x, long long x_stride,
                           uint64_t* out, const uint64_t* tw,
                           const uint64_t* twp, const uint64_t* q,
                           const uint64_t* fin, const uint64_t* finp,
                           int outer, int channels, int log_n, int parts,
                           int inverse, cudaStream_t stream) {
-  if (parts > 1 && ckks::wide_cluster_shape(log_n)) {
-    auto run = [&](auto log_n_c) {
+  const int blocks = ckks::plane_blocks(inverse ? ckks::kWideInverse : ckks::kWideForward,
+                                        true, log_n, parts);
+  if (blocks > 1) {
+    return ckks::wide_dispatch(log_n, [&](auto log_n_c) {
       constexpr int kLogN = decltype(log_n_c)::value;
       return inverse ? launch_cluster64<kLogN, true>(x, x_stride, out, tw, twp, q, fin,
                                                      finp, outer, channels, stream)
                      : launch_cluster64<kLogN, false>(x, x_stride, out, tw, twp, q, fin,
                                                       finp, outer, channels, stream);
-    };
-    return log_n == 15 ? run(std::integral_constant<int, 15>{})
-                       : run(std::integral_constant<int, 16>{});
+    });
   }
-  if (parts != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_one_block(x, x_stride, out, tw, twp, q, fin, finp, outer, channels,
                           log_n, inverse, stream);
 }
@@ -326,13 +338,30 @@ const void* ckks::ntt_cluster_kernel(bool inverse) {
                  : reinterpret_cast<const void*>(ntt_kernel_cluster<false>);
 }
 
+const void* ckks::ntt_cluster64_kernel(int log_n, bool inverse) {
+  if (!wide_cluster_shape(log_n)) return nullptr;
+  return wide_dispatch(log_n, [inverse](auto log_n_c) {
+    constexpr int kLogN = decltype(log_n_c)::value;
+    return inverse ? reinterpret_cast<const void*>(ntt_kernel_cluster64<kLogN, true>)
+                   : reinterpret_cast<const void*>(ntt_kernel_cluster64<kLogN, false>);
+  });
+}
+
+// ckks::plane_blocks for the wrappers' launch counts and alignment: the
+// blocks a plane of the form that the entry of `form` (ckks::WideForm:
+// 0 NTT forward, 1 NTT inverse, 2 key switch, 3 mod-down) on uint64
+// (wide 1) or uint32 (wide 0) words launches with these arguments (above
+// 1: a cluster), 0 where it refuses them.
+extern "C" int ckks_plane_blocks(int form, int wide, int log_n, int parts) {
+  return ckks::plane_blocks(form, wide != 0, log_n, parts);
+}
+
 // The cluster kernel `kernel` (ckks::ClusterKernel: 0 K3, 1 K4 forward, 2 K4
-// inverse, 3 K2; uint64 4 K5' forward, 5 K5'/K7 inverse, 6 K6 at 2^15, 7, 8,
-// 9 the same at 2^16, 10 K8 at 2^15, 11 K8 at 2^16, 12 K6 at 2^13, 13 K6
-// at 2^14) as built and as it fits the current device
-// (ckks::cluster_info: registers, spill bytes, threads, shared bytes, blocks
-// a cluster, resident clusters). Returns cudaErrorInvalidValue for another
-// id.
+// inverse, 3 K2; the uint64 forms 4 .. 19 by the rule kClusterWide +
+// kWideForms * (log2 N - 13) + ckks::WideForm) as built and as it fits the
+// current device (ckks::cluster_info: registers, spill bytes, threads,
+// shared bytes, blocks a cluster, resident clusters). Returns
+// cudaErrorInvalidValue for another id.
 extern "C" int ckks_cluster_info(int kernel, int* info) {
   using ckks::BigPlan;
   switch (kernel) {
@@ -351,38 +380,30 @@ extern "C" int ckks_cluster_info(int kernel, int* info) {
     default:
       break;
   }
-  if (kernel == ckks::kClusterModDownWide)
-    return ckks::cluster_info<WidePlan<15>>(ckks::moddown_cluster64_kernel(15),
-                                            WidePlan<15>::kForwardBytes, info);
-  if (kernel == ckks::kClusterModDownWide + 1)
-    return ckks::cluster_info<WidePlan<16>>(ckks::moddown_cluster64_kernel(16),
-                                            WidePlan<16>::kForwardBytes, info);
-  if (kernel == ckks::kClusterKeySwitchWide13)
-    return ckks::cluster_info<WidePlan<13>>(ckks::keyswitch_cluster64_kernel(13),
-                                            WidePlan<13>::kForwardBytes, info);
-  if (kernel == ckks::kClusterKeySwitchWide13 + 1)
-    return ckks::cluster_info<WidePlan<14>>(ckks::keyswitch_cluster64_kernel(14),
-                                            WidePlan<14>::kForwardBytes, info);
   const int wide = kernel - ckks::kClusterWide;
-  if (wide < 0 || wide >= 2 * ckks::kClusterWideIds)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto info64 = [&](auto log_n_c) {
+  if (wide < 0 || wide >= 4 * ckks::kWideForms) return static_cast<int>(cudaErrorInvalidValue);
+  const int form = wide % ckks::kWideForms;
+  return ckks::wide_dispatch(13 + wide / ckks::kWideForms, [&](auto log_n_c) {
     constexpr int kLogN = decltype(log_n_c)::value;
-    using Plan = WidePlan<kLogN>;
-    switch (wide % ckks::kClusterWideIds) {
-      case 0:
-        return ckks::cluster_info<Plan>(cluster64_kernel<kLogN>(false),
-                                        Plan::kForwardBytes, info);
-      case 1:
-        return ckks::cluster_info<Plan>(cluster64_kernel<kLogN>(true),
-                                        Plan::kInverseBytes, info);
+    switch (form) {
+      case ckks::kWideForward:
+        return ckks::cluster_info<WidePlan<kLogN, ckks::kWideForward>>(
+            ckks::ntt_cluster64_kernel(kLogN, false),
+            WidePlan<kLogN, ckks::kWideForward>::kForwardBytes, info);
+      case ckks::kWideInverse:
+        return ckks::cluster_info<WidePlan<kLogN, ckks::kWideInverse>>(
+            ckks::ntt_cluster64_kernel(kLogN, true),
+            WidePlan<kLogN, ckks::kWideInverse>::kInverseBytes, info);
+      case ckks::kWideKeySwitch:
+        return ckks::cluster_info<WidePlan<kLogN, ckks::kWideKeySwitch>>(
+            ckks::keyswitch_cluster64_kernel(kLogN),
+            WidePlan<kLogN, ckks::kWideKeySwitch>::kForwardBytes, info);
       default:
-        return ckks::cluster_info<Plan>(ckks::keyswitch_cluster64_kernel(kLogN),
-                                        Plan::kForwardBytes, info);
+        return ckks::cluster_info<WidePlan<kLogN, ckks::kWideModDown>>(
+            ckks::moddown_cluster64_kernel(kLogN),
+            WidePlan<kLogN, ckks::kWideModDown>::kForwardBytes, info);
     }
-  };
-  return wide < ckks::kClusterWideIds ? info64(std::integral_constant<int, 15>{})
-                                      : info64(std::integral_constant<int, 16>{});
+  });
 }
 
 extern "C" const char* ckks_error_string(int code) {

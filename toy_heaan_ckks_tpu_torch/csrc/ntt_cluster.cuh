@@ -1,9 +1,9 @@
 // The register-pass NTT of one plane spread over a thread-block cluster
 // of C blocks, shared by the cluster forms of K4 (csrc/ntt.cu,
-// ntt_kernel_cluster, uint32 N = 2^16), K5' / K7 (ntt_kernel_cluster64,
-// uint64 N = 2^15, 2^16), K3 / K3' (csrc/moddown.cu,
+// ntt_kernel_cluster, uint32 N = 2^16), K5 / K5' / K7 (ntt_kernel_cluster64,
+// uint64 N = 2^13 .. 2^16), K3 / K3' (csrc/moddown.cu,
 // moddown_kernel_cluster, uint32 2^16), K8 / K8' (moddown_kernel_cluster64,
-// uint64 2^15, 2^16), K2 and K6 (csrc/keyswitch.cu,
+// uint64 2^13 .. 2^16), K2 and K6 (csrc/keyswitch.cu,
 // keyswitch_kernel_cluster at uint32 2^16, keyswitch_kernel_cluster64 at
 // uint64 2^13 .. 2^16, one forward a digit) and K10 (csrc/coeff_ntt.cuh,
 // tail_kernel_cluster: a coefficient slab as a plane whose twiddles start
@@ -59,6 +59,7 @@
 //   (tests/test_torch_cluster_plan.py counts them).
 #pragma once
 
+#include <type_traits>
 #include <utility>
 
 #include "ntt_reg.cuh"
@@ -95,28 +96,67 @@ struct ClusterPlan {
 using BigPlan = ClusterPlan<kClusterLogN, kLogCluster>;
 
 // The uint64 cluster forms: 16 words a thread; 16 blocks a plane at
-// N = 2^15 and 2^16 (planes above 128 KiB: K5' / K7, K6, K8 / K8'), and
-// the C below at 2^13 and 2^14 (K6 alone, whose one-block template runs
-// one barrier a stage; three passes of 16 words hold 12 stages, so one
-// block cannot hold these planes in registers). tests/test_torch_cluster_plan.py
-// reads these five constants.
+// N = 2^15 and 2^16 (planes above 128 KiB), and at 2^13 and 2^14, where
+// one block holds a plane but three passes of 16 words do not hold its
+// stages, the C below, set by the forms' device times at the wide (8, 4,
+// 2^13) and wide-62b (2, 3, 2^14) shapes on an H100: K6 on
+// kWideLogCluster13 / 14 (C 4 / 8, one NTT a digit); K5 / K7 and K8 /
+// K8' (one NTT a plane) on kWideNttLogCluster13 / 14 (C 8 / 16: the NTT
+// 5-7% faster than on C 4 at 2^13 and 1-4% than on C 8 at 2^14, K8' 3%
+// and 3-4%, K8 2% slower at 2^13 and 3% faster at 2^14; slices of 2^10
+// keep 2-way bank conflicts in their middle pass).
+// tests/test_torch_cluster_plan.py reads these constants.
 constexpr int kLogWideWords = 4;
 constexpr int kWideLogCluster13 = 2;
 constexpr int kWideLogCluster14 = 3;
 constexpr int kWideLogCluster15 = 4;
 constexpr int kWideLogCluster16 = 4;
+constexpr int kWideNttLogCluster13 = 3;
+constexpr int kWideNttLogCluster14 = 4;
 using WideWords = RegWords<uint64_t, kLogWideWords>;
-template <int kLogN>
-constexpr int kWideLogCluster = kLogN == 13   ? kWideLogCluster13
-                                : kLogN == 14 ? kWideLogCluster14
-                                : kLogN == 15 ? kWideLogCluster15
-                                              : kWideLogCluster16;
-template <int kLogN>
-using WidePlan = ClusterPlan<kLogN, kWideLogCluster<kLogN>, WideWords>;
-// the rings of the uint64 cluster forms of K5' / K7 and K8 / K8'
-constexpr bool wide_cluster_shape(int log_n) { return log_n == 15 || log_n == 16; }
-// the rings of K6's uint64 cluster form
-constexpr bool wide_ks_cluster_shape(int log_n) { return log_n >= 13 && log_n <= 16; }
+// the uint64 cluster kernels: K5 / K5' forward, K7 (the inverse), K6, K8
+// / K8'
+enum WideForm { kWideForward = 0, kWideInverse = 1, kWideKeySwitch = 2, kWideModDown = 3 };
+constexpr int kWideForms = 4;
+// the rings of the uint64 cluster forms: every uint64 plane of 2^13 ..
+// 2^16 runs on a cluster
+constexpr bool wide_cluster_shape(int log_n) { return log_n >= 13 && log_n <= 16; }
+// log2 C of a uint64 form at 2^log_n (wide_cluster_shape)
+constexpr int wide_log_cluster(int form, int log_n) {
+  return log_n == 15   ? kWideLogCluster15
+         : log_n == 16 ? kWideLogCluster16
+         : form == kWideKeySwitch
+             ? (log_n == 13 ? kWideLogCluster13 : kWideLogCluster14)
+             : (log_n == 13 ? kWideNttLogCluster13 : kWideNttLogCluster14);
+}
+template <int kLogN, int kForm>
+using WidePlan = ClusterPlan<kLogN, wide_log_cluster(kForm, kLogN), WideWords>;
+
+// f(std::integral_constant<int, log_n>{}) for a ring of the uint64
+// cluster forms (wide_cluster_shape).
+template <typename F>
+auto wide_dispatch(int log_n, F f) -> decltype(f(std::integral_constant<int, 16>{})) {
+  switch (log_n) {
+    case 13: return f(std::integral_constant<int, 13>{});
+    case 14: return f(std::integral_constant<int, 14>{});
+    case 15: return f(std::integral_constant<int, 15>{});
+    default: return f(std::integral_constant<int, 16>{});
+  }
+}
+
+// Blocks a plane of the form that an entry launches for `form` (a
+// WideForm; the uint32 entries take any) at log_n for `parts`
+// (ntt_gpu.plane_split's P): a cluster of WidePlan's C on every uint64
+// plane of 2^13 .. 2^16 whatever parts says, of BigPlan's C on uint32
+// planes of 2^16 at parts above 1, else 1 (one block a plane: the
+// register-pass or template forms) at parts 1 and 0 (refused) otherwise.
+// The entries route by it; ckks_plane_blocks reports it.
+constexpr int plane_blocks(int form, bool wide, int log_n, int parts) {
+  if (wide && wide_cluster_shape(log_n)) return 1 << wide_log_cluster(form, log_n);
+  if (!wide && parts > 1 && log_n == kClusterLogN) return BigPlan::kC;
+  return parts == 1 ? 1 : 0;
+}
+
 // resident threads an SM that the uint64 cluster kernels promise ptxas
 // (__launch_bounds__): 512, up to 128 registers a thread
 constexpr int kWideThreadsPerSm = 512;
@@ -338,18 +378,17 @@ __device__ __forceinline__ void cluster_ntt(T* s, const T* __restrict__ src,
 }
 
 // The cluster kernels, by the id ckks_cluster_info takes: the uint32 forms
-// at 2^16 (0 .. 3), then the uint64 forms, three a ring (forward, inverse,
-// key switch) at 2^15 (4 .. 6) and 2^16 (7 .. 9), then the uint64 mod-down
-// at 2^15 (10) and 2^16 (11), then the uint64 key switch at 2^13 (12) and
-// 2^14 (13); each source defines its own.
+// at 2^16 (0 .. 3), then the uint64 forms by one rule, id = kClusterWide
+// + kWideForms * (log2 N - 13) + WideForm, for log2 N = 13 .. 16 (4 .. 19:
+// 2^13's forward 4, inverse 5, key switch 6, mod-down 7, then 2^14's from
+// 8); each source defines its own kernels' accessors.
 enum ClusterKernel { kClusterModDown = 0, kClusterNttForward = 1,
                      kClusterNttInverse = 2, kClusterKeySwitch = 3,
-                     kClusterWide = 4, kClusterModDownWide = 10,
-                     kClusterKeySwitchWide13 = 12 };
-constexpr int kClusterWideIds = 3;  // uint64 forms a ring
+                     kClusterWide = 4 };
 const void* moddown_cluster_kernel();               // csrc/moddown.cu
 const void* moddown_cluster64_kernel(int log_n);    // csrc/moddown.cu
 const void* ntt_cluster_kernel(bool inverse);       // csrc/ntt.cu
+const void* ntt_cluster64_kernel(int log_n, bool inverse);  // csrc/ntt.cu
 const void* keyswitch_cluster_kernel();             // csrc/keyswitch.cu
 const void* keyswitch_cluster64_kernel(int log_n);  // csrc/keyswitch.cu
 

@@ -70,8 +70,9 @@ _SIGNATURES["ckks_ntt_mxu"] = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
 _SIGNATURES["ckks_enable_peer_access"] = [_I, _I]
 # kernel id, int info[6] (csrc/ntt_cluster.cuh cluster_info)
 _SIGNATURES["ckks_cluster_info"] = [_I, _P]
-# wide, log_n, parts: K2 / K6's blocks a plane (csrc/keyswitch.cu ks_blocks)
-_SIGNATURES["ckks_keyswitch_blocks"] = [_I, _I, _I]
+# form, wide, log_n, parts: blocks a plane of the form an entry launches
+# (csrc/ntt_cluster.cuh plane_blocks)
+_SIGNATURES["ckks_plane_blocks"] = [_I, _I, _I, _I]
 # wide, log_s, cluster, inverse, int info[6] (csrc/coeff_ntt.cuh tail_info)
 _SIGNATURES["ckks_coeff_tail_info"] = [_I, _I, _I, _I, _P]
 

@@ -29,7 +29,9 @@ import torch
 from . import _build
 from .modular import arith, mont_mul, shoup, word_table
 from .ntt import NttTables, forward_ntt
-from .ntt_gpu import count_launch, kernel_tables, plane_split
+from .ntt_gpu import (
+    KEY_SWITCH, count_launch, kernel_tables, launch_blocks, plane_split,
+)
 
 
 @functools.lru_cache(maxsize=64)
@@ -142,8 +144,9 @@ def gadget_accumulate_twin(y, key_a, key_b, base_moduli: tuple,
 
 def _accumulate(y_plain, key_a, key_b, base_moduli, ext_moduli, degree: int,
                 digit_size: int, d_ntt, wide: bool):
-    """Shared body of the two entry points; returns ((ks0, ks1), parts):
-    the blocks per plane of the launch, 0 where nothing was launched."""
+    """Shared body of the two entry points; returns ((ks0, ks1), blocks):
+    the blocks per plane of the form launched (``launch_blocks``), 0 where
+    nothing was launched."""
     base_moduli = tuple(int(m) for m in base_moduli)
     ext_moduli = tuple(int(m) for m in ext_moduli)
     L, E = len(base_moduli), len(ext_moduli)
@@ -184,10 +187,9 @@ def _accumulate(y_plain, key_a, key_b, base_moduli, ext_moduli, degree: int,
             outer, L, E, D, ds, log_n, parts, _build.stream(dev),
         )
         _build.check(rc, "gadget_accumulate")
-        # the blocks a plane of the form the entry launched
-        parts = lib.ckks_keyswitch_blocks(int(wide), log_n, parts)
+    blocks = launch_blocks(KEY_SWITCH, wide, log_n, parts) if outer else 0
     outs = out0.reshape(*lead, E, degree), out1.reshape(*lead, E, degree)
-    return outs, parts if outer else 0
+    return outs, blocks
 
 
 def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
@@ -203,10 +205,10 @@ def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
              polynomial (enables the skip-own-tower shortcut).
     Returns (ks0, ks1): int32 (..., E, N) digit inner products over QP.
     """
-    outs, parts = _accumulate(y_plain, key_a, key_b, base_moduli,
-                              ext_moduli, degree, digit_size, d_ntt,
-                              wide=False)
-    count_launch(gadget_accumulate, parts)
+    outs, blocks = _accumulate(y_plain, key_a, key_b, base_moduli,
+                               ext_moduli, degree, digit_size, d_ntt,
+                               wide=False)
+    count_launch(gadget_accumulate, blocks)
     return outs
 
 
@@ -217,10 +219,10 @@ def gadget_accumulate_wide(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
     register passes per plane, ``csrc/ntt_cluster.cuh`` ``WidePlan``: 16
     blocks at 2^15 and 2^16, 8 at 2^14, 4 at 2^13, counted in
     ``launches_cluster``)."""
-    outs, parts = _accumulate(y_plain, key_a, key_b, base_moduli,
-                              ext_moduli, degree, digit_size, d_ntt,
-                              wide=True)
-    count_launch(gadget_accumulate_wide, parts)
+    outs, blocks = _accumulate(y_plain, key_a, key_b, base_moduli,
+                               ext_moduli, degree, digit_size, d_ntt,
+                               wide=True)
+    count_launch(gadget_accumulate_wide, blocks)
     return outs
 
 

@@ -36,7 +36,8 @@ from . import _build
 from .modular import arith, shoup, word_table
 from .ntt import NttTables, forward_ntt
 from .ntt_gpu import (
-    count_launch, kernel_tables, ntt_planes, ntt_planes_wide, plane_split,
+    MOD_DOWN, count_launch, kernel_tables, launch_blocks, ntt_planes, ntt_planes_wide,
+    plane_split,
 )
 
 
@@ -166,8 +167,9 @@ def mod_down_combine_twin(yhat, ks, t, child_moduli: tuple,
 
 def _combine(yhat, ks, t, child_moduli, dropped_moduli, degree: int,
              t_scale: int, wide: bool):
-    """Shared body of the two entry points; returns (out, parts): the
-    blocks per plane of the launch, 0 where nothing was launched."""
+    """Shared body of the two entry points; returns (out, blocks): the
+    blocks per plane of the form launched (``launch_blocks``), 0 where
+    nothing was launched."""
     child_moduli = tuple(int(m) for m in child_moduli)
     dropped_moduli = tuple(int(m) for m in dropped_moduli)
     G, Lc = len(dropped_moduli), len(child_moduli)
@@ -207,7 +209,8 @@ def _combine(yhat, ks, t, child_moduli, dropped_moduli, degree: int,
             _build.stream(dev),
         )
         _build.check(rc, "mod_down_combine")
-    return out.reshape(*lead, Lc, degree), parts if outer else 0
+    blocks = launch_blocks(MOD_DOWN, wide, log_n, parts) if outer else 0
+    return out.reshape(*lead, Lc, degree), blocks
 
 
 def mod_down_combine(yhat, ks, t=None, *, child_moduli, dropped_moduli,
@@ -222,23 +225,25 @@ def mod_down_combine(yhat, ks, t=None, *, child_moduli, dropped_moduli,
     ``launches_cluster`` those on a cluster (N = 2^16: 16 blocks per plane,
     ``csrc/ntt_cluster.cuh``).
     """
-    out, parts = _combine(yhat, ks, t, child_moduli, dropped_moduli,
-                          degree, t_scale, wide=False)
-    count_launch(mod_down_combine, parts)
-    mod_down_combine.launches_no_t += parts > 0 and t is None
+    out, blocks = _combine(yhat, ks, t, child_moduli, dropped_moduli,
+                           degree, t_scale, wide=False)
+    count_launch(mod_down_combine, blocks)
+    mod_down_combine.launches_no_t += blocks > 0 and t is None
     return out
 
 
 def mod_down_combine_wide(yhat, ks, t=None, *, child_moduli, dropped_moduli,
                           degree: int, t_scale: int = 0):
     """K8 (with t) / K8' (t None): ``mod_down_combine`` on int64 planes of a
-    wide chain (any q < 2^63, R = 2^64, N <= 2^16; at 2^15 and 2^16 a
-    cluster of 16 blocks of register passes per plane,
-    ``csrc/ntt_cluster.cuh``)."""
-    out, parts = _combine(yhat, ks, t, child_moduli, dropped_moduli,
-                          degree, t_scale, wide=True)
-    count_launch(mod_down_combine_wide, parts)
-    mod_down_combine_wide.launches_no_t += parts > 0 and t is None
+    wide chain (any q < 2^63, R = 2^64, N <= 2^16; at 2^13 .. 2^16 a
+    cluster of blocks of register passes per plane,
+    ``csrc/ntt_cluster.cuh`` ``WidePlan``: 16 blocks at 2^15 and 2^16,
+    ``kWideNttLogCluster13`` / ``14`` below, counted in
+    ``launches_cluster``)."""
+    out, blocks = _combine(yhat, ks, t, child_moduli, dropped_moduli,
+                           degree, t_scale, wide=True)
+    count_launch(mod_down_combine_wide, blocks)
+    mod_down_combine_wide.launches_no_t += blocks > 0 and t is None
     return out
 
 

@@ -9,12 +9,13 @@ chains and of ``ops/ntt_pallas_wide.py`` (``_ntt_kernel_wide``,
 ``ckks_ntt`` on uint32 words (K1; K4 at N = 2^16) and ``ckks_ntt64`` on
 uint64 words (K5, K5' at N >= 2^15, and K7 when a folded final constant
 is given); the twin is ``ops/ntt.py``'s int64 transform. Every kernel
-holds a plane on chip: one block up to 128 KiB, a thread-block cluster
-above, where ``plane_split`` says a plane needs one (each wrapper counts
-those launches in ``launches_cluster``): the cluster of
-``csrc/ntt_cluster.cuh``, 16 blocks of register passes a plane, for K4 on
-uint32 planes at N = 2^16 and for K5' / K7 on uint64 planes at N = 2^15
-and 2^16. ``ntt_planes`` takes int32 planes (small chains, Shoup
+holds a plane on chip: uint32 planes on one block up to 128 KiB and a
+thread-block cluster above, uint64 planes on a cluster from N = 2^13 on
+(each wrapper counts those launches in ``launches_cluster``, by the form
+that ``launch_blocks`` reports): the cluster of
+``csrc/ntt_cluster.cuh``, blocks of register passes a plane, for K4 on
+uint32 planes at N = 2^16 (16 blocks) and for K5 / K5' / K7 on uint64
+planes at N = 2^13 .. 2^16 (``WidePlan``'s C: 16 at 2^15 and 2^16). ``ntt_planes`` takes int32 planes (small chains, Shoup
 radix 2^32), ``ntt_planes_wide`` int64 planes (wide chains, radix 2^64).
 Each sends a CPU tensor to the twin and launches its kernel for a CUDA
 tensor — there is no fallback from one to the other. One entry point
@@ -45,18 +46,33 @@ def plane_split(degree: int, wide: bool) -> tuple[int, int]:
     2^14), else plane bytes / 128 KiB (2 or 4), and the kernels then run
     the cluster of ``csrc/ntt_cluster.cuh`` (16 blocks a plane) whatever P
     says. At P = 1 uint32 planes of 2^10 .. 2^15 run one block of register
-    passes (K1, K2, K3) and the other planes the one-block templates (K5 /
-    K7, K8; uint32 below 2^10), but for K6, whose uint64 planes of 2^13
-    and 2^14 run on a cluster of ``WidePlan``'s C blocks (the entry's
-    ``ckks_keyswitch_blocks`` reports the form). K10 picks its own form per
-    launch (``coeff_ntt_gpu.slab_form``). Raises unless N is a power of
-    two in [4, 2^16], on every device."""
+    passes (K1, K2, K3) and uint32 planes below 2^10 and uint64 planes up
+    to 2^12 the one-block templates; uint64 planes of 2^13 and 2^14 run
+    on a cluster of ``WidePlan``'s C blocks, whatever P says (K5 / K7, K6
+    and K8 / K8', each on its own C; ``launch_blocks`` reports the form
+    an entry launches). K10 picks its own form per launch
+    (``coeff_ntt_gpu.slab_form``). Raises unless N is a power of two in
+    [4, 2^16], on every device."""
     log_n = degree.bit_length() - 1
     if degree != 1 << log_n or not 2 <= log_n <= MAX_LOG_N:
         raise ValueError(
             f"N = {degree}: the kernels take powers of two in [4, 2^{MAX_LOG_N}]")
     plane = (8 if wide else 4) << log_n
     return log_n, max(1, plane // SLICE_BYTES)
+
+
+# the kernel forms of ``launch_blocks`` (csrc/ntt_cluster.cuh WideForm)
+FORWARD, INVERSE, KEY_SWITCH, MOD_DOWN = range(4)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_blocks(form: int, wide: bool, log_n: int, parts: int) -> int:
+    """Blocks a plane of the form that the entry of ``form`` (FORWARD,
+    INVERSE, KEY_SWITCH, MOD_DOWN) launches on uint64 (``wide``) or
+    uint32 planes of 2^log_n at ``plane_split``'s P: above 1 a cluster, 1
+    one block a plane, 0 refused (``ckks_plane_blocks``, the predicate
+    the entries route by). Needs the built library."""
+    return _build.library().ckks_plane_blocks(form, int(wide), log_n, parts)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -102,7 +118,8 @@ def vector_aligned(x3: torch.Tensor) -> torch.Tensor:
     """``x3`` (items, channels, N), or a contiguous copy where its first
     word or its item stride would break the 16-byte vector loads of the
     register-pass inverses (``csrc/ntt_reg.cuh`` ``load_runs``: the uint32
-    one-block and cluster forms, the uint64 cluster forms)."""
+    one-block and cluster forms, the uint64 cluster forms of 2^13 and
+    up)."""
     if x3.data_ptr() % 16 or x3.stride(0) * x3.element_size() % 16:
         return x3.clone(memory_format=torch.contiguous_format)
     return x3
@@ -123,8 +140,9 @@ def ntt_twin(x, moduli: tuple, degree: int, inverse: bool, final=None):
 
 def _ntt(x: torch.Tensor, moduli, degree: int, inverse: bool,
          final: tuple | None, wide: bool):
-    """Shared body of the two entry points; returns (out, parts): the
-    blocks per plane of the launch, 0 where nothing was launched."""
+    """Shared body of the two entry points; returns (out, blocks): the
+    blocks per plane of the form launched (``launch_blocks``), 0 where
+    nothing was launched."""
     moduli = tuple(int(m) for m in moduli)
     if final is not None and not inverse:
         raise ValueError("ntt_planes: a final factor needs inverse=True")
@@ -138,7 +156,9 @@ def _ntt(x: torch.Tensor, moduli, degree: int, inverse: bool,
     L = len(moduli)
     x3 = _build.planes(x, L, degree)
     _build.require_cuda("ntt_planes", dtype, x3)
-    if inverse and (not wide or parts > 1):
+    blocks = launch_blocks(INVERSE if inverse else FORWARD, wide, log_n, parts)
+    # the uint32 inverses and the uint64 cluster inverses load 16-byte runs
+    if inverse and (not wide or blocks > 1):
         x3 = vector_aligned(x3)
     lib = _build.library()
     kt = kernel_tables(moduli, degree, x.device, rbits)
@@ -157,15 +177,15 @@ def _ntt(x: torch.Tensor, moduli, degree: int, inverse: bool,
         _build.stream(x.device),
     )
     _build.check(rc, "ntt_planes")
-    return out.reshape(x.shape), parts
+    return out.reshape(x.shape), blocks
 
 
-def count_launch(fn, parts: int) -> None:
-    """Add a launch of ``parts`` blocks per plane (0: none) to ``fn``'s
+def count_launch(fn, blocks: int) -> None:
+    """Add a launch of ``blocks`` blocks per plane (0: none) to ``fn``'s
     counters: ``launches`` every launch, ``launches_cluster`` those on a
-    thread-block cluster (P > 1)."""
-    fn.launches += parts > 0
-    fn.launches_cluster += parts > 1
+    thread-block cluster (above 1)."""
+    fn.launches += blocks > 0
+    fn.launches_cluster += blocks > 1
 
 
 def ntt_planes(x: torch.Tensor, moduli, degree: int, inverse: bool,
@@ -175,19 +195,21 @@ def ntt_planes(x: torch.Tensor, moduli, degree: int, inverse: bool,
 
     ``final``: per-channel plain factors applied after the inverse
     butterflies (default N^{-1} mod q). Output canonical, contiguous."""
-    out, parts = _ntt(x, moduli, degree, inverse, final, wide=False)
-    count_launch(ntt_planes, parts)
+    out, blocks = _ntt(x, moduli, degree, inverse, final, wide=False)
+    count_launch(ntt_planes, blocks)
     return out
 
 
 def ntt_planes_wide(x: torch.Tensor, moduli, degree: int, inverse: bool,
                     final: tuple | None = None) -> torch.Tensor:
-    """K5 (forward, inverse; K5' at N >= 2^15 on a cluster of 16 blocks of
-    register passes per plane) and K7 (inverse with a folded ``final``):
-    NTT of int64 (..., L, N) planes of a wide chain (any q < 2^63),
-    N <= 2^16."""
-    out, parts = _ntt(x, moduli, degree, inverse, final, wide=True)
-    count_launch(ntt_planes_wide, parts)
+    """K5 (forward, inverse; K5' at N >= 2^15) and K7 (inverse with a
+    folded ``final``): NTT of int64 (..., L, N) planes of a wide chain
+    (any q < 2^63), N <= 2^16; at 2^13 .. 2^16 on a cluster of blocks of
+    register passes per plane (``csrc/ntt_cluster.cuh`` ``WidePlan``:
+    16 blocks at 2^15 and 2^16, ``kWideNttLogCluster13`` / ``14`` below),
+    counted in ``launches_cluster``."""
+    out, blocks = _ntt(x, moduli, degree, inverse, final, wide=True)
+    count_launch(ntt_planes_wide, blocks)
     return out
 
 
