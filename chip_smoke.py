@@ -41,15 +41,20 @@ equal to ``launches``; ``read_counts``).
    clusters of 16 blocks); and K9 small,
    the matrix-product NTT (forward, inverse, inverse with the
    decomposition fold) against its twin and against K1 on the same
-   inputs at (32, 8, 2^14), (2, 2, 2^15) and (4, 3, 2^10); and K10/K11
+   inputs at (32, 8, 2^14), (1, 8, 2^14), (2, 2, 2^15) and (4, 3, 2^10)
+   (``MXU_SHAPES``; the channel-run kernel up to R = 128, one block a
+   plane at 2^15); and K10/K11
    coeff, the coefficient-sharded NTT (forward, inverse) on CUDA slabs,
    against its twin on the same slabs and the whole-plane kernel: K1 at
    (32, 8, 2^14) with P in {1, 2, 8} (P = 1: K10 alone), K4 at (4, 4, 2^16)
-   with P in {4, 8}, K5' at (4, 3, 2^15) uint64 with P = 4, one K10 and
-   log2 P K11 launches per call, K10's on a cluster where
-   ``coeff_ntt_gpu.slab_form`` picks one; and K10 (forward, inverse), K11
-   and the sharded NTT against their twins at the three coeff case shapes
-   that phase 4 times (``COEFF_CASES``); word equality required;
+   with P in {4, 8}, K5' at (4, 3, 2^15) uint64 with P = 4, one K10
+   launch per call and, for P >= 2, one K11 launch of its one-launch form
+   (``coeff_cross_stages``: every cross stage at once, no per-stage
+   launch), K10's on a cluster where ``coeff_ntt_gpu.slab_form`` picks
+   one; and K10 (forward, inverse), K11 (one stage, and every stage of a
+   transform in one launch, forward and inverse) and the sharded NTT
+   against their twins at the three coeff case shapes that phase 4 times
+   (``COEFF_CASES``); word equality required;
 3. each multiply path through the user entry points, with every launch
    count set to 0 just before it and read just after: generate_primes ->
    CkksEngine -> sk / pk / relin key (seed 42) -> encode + encrypt 2 x B
@@ -82,7 +87,9 @@ equal to ``launches``; ``read_counts``).
    1), small on P = 8 (multiply); each output equal to the unsharded
    path's word for word, the multiply's decode within the path's bound,
    K10 and K11 launched in every call (counts set to 0 just before, read
-   just after), K10 on clusters on the big and big-wide paths (64 uint32
+   just after; one K11 launch of the one-launch form for each K10
+   launch, none of the per-stage form), K10 on clusters on the big and
+   big-wide paths (64 uint32
    slabs of 2^14 and 48 uint64 slabs of 2^13 a launch) and on none on the
    small one (2,048 slabs of 2^11), and no other kernel on a cluster;
 4. the multiply composite (mults/s at the path's batch, latency at
@@ -94,8 +101,12 @@ equal to ``launches``; ``read_counts``).
    rate), the batched rotation (rotations/s, batch-1
    latency), the hoisted calls, and profiler splits of the multiply
    composite and the batched rotation into the kernels and the torch glue;
-   the same for the small path under ``CKKS_NTT_MXU=1`` (small-mxu); K10
-   and K11 against their twins and the whole sharded NTT against the
+   the same for the small path under ``CKKS_NTT_MXU=1`` (small-mxu), with
+   K9 timed at (32, 8, 2^14) and (1, 8, 2^14) and the kernel it picks
+   there (``ntt_mxu_gpu.mxu_form``: the channel-run kernel, planes a block,
+   registers; the K9 row's ``shapes``); K10 and K11 (one stage, and every
+   cross stage in one launch, the K11 row's form) against their twins and
+   the whole sharded NTT against the
    whole-plane kernel at the big, small and big-wide coeff paths' planes
    (device time from the profiler: their wrappers' host work can outlast
    the kernels, so a loop of calls times the host), with K10's form at
@@ -706,10 +717,12 @@ def run_rotation(cfg: PathConfig, rot: RotateConfig, run: dict, counters,
                 outputs=outputs)
 
 
-# K9 (items, channels, N, prime bits): the small path's shape (R = 128), the
-# envelope's largest plane (R = 256, 136 KiB of shared memory) and its
-# smallest (R = 8, padded to the mma depth)
+# K9 (items, channels, N, prime bits): the small path's shapes at batch 32
+# and 1 (R = 128, the channel-run kernel), the envelope's largest plane (R =
+# 256, 136 KiB of shared memory: one block a plane) and its smallest (R =
+# 8, padded to the mma depth)
 MXU_SHAPES = {"small": (SMALL.batch, SMALL.count, SMALL.degree, SMALL.bits),
+              "small B 1": (1, SMALL.count, SMALL.degree, SMALL.bits),
               "2^15": (2, 2, 1 << 15, 31), "2^10": (4, 3, 1 << 10, 31)}
 
 
@@ -763,10 +776,11 @@ def mxu_cases(dev, shape: str) -> tuple:
 
 def check_mxu(dev) -> tuple:
     """Phase 2, K9 small: K9 against its twin and against K1 at each of
-    MXU_SHAPES; returns the small shape's cases and the max |error|."""
+    MXU_SHAPES; returns the small path's cases at batch 32 and 1 and the
+    max |error|."""
     import torch
 
-    errs, small = {}, None
+    errs, small = {}, {}
     for shape in MXU_SHAPES:
         cases, k1 = mxu_cases(dev, shape)
         B, L, n, _ = MXU_SHAPES[shape]
@@ -777,8 +791,8 @@ def check_mxu(dev) -> tuple:
             got, want = case.kernel(), k1[name]()
             torch.cuda.synchronize()
             _same(f"{label} {name}", got, want, "K9 == K1")
-        if shape == "small":
-            small = cases
+        if shape.startswith("small"):
+            small[shape] = cases
     return small, errs
 
 
@@ -923,11 +937,14 @@ def coeff_input(dev, batch: int, channels: int, degree: int, bits: int, shards: 
 def check_coeff(dev) -> int:
     """Phase 2, K10/K11 coeff: the sharded NTT (forward, inverse) on CUDA
     slabs at each of COEFF_SHAPES, word-equal to its twin on the same slabs
-    and to the whole-plane kernel; one K10 and log2 P K11 launches per
-    call, K10's on a cluster where ``slab_form`` picks one, K11's never."""
+    and to the whole-plane kernel; one K10 launch per call and, for P >=
+    2, one launch of K11's one-launch form (none of the per-stage form),
+    K10's on a cluster where ``slab_form`` picks one, K11's never."""
     import torch
 
-    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import coeff_cross, coeff_tail, slab_form
+    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import (
+        coeff_cross, coeff_cross_stages, coeff_tail, slab_form,
+    )
     from toy_heaan_ckks_tpu_torch.ops.ntt_gpu import ntt_planes, ntt_planes_wide
     from toy_heaan_ckks_tpu_torch.parallel.coeff_ntt import coeff_ntt
     from toy_heaan_ckks_tpu_torch.parallel.mesh import unshard_planes
@@ -941,13 +958,14 @@ def check_coeff(dev) -> int:
             cluster = slab_form(bits > 31, (n // shards).bit_length() - 1,
                                 B * L * shards) == "cluster"
             for inverse in (False, True):
-                zero_counts((coeff_tail, coeff_cross))
+                counters = (coeff_tail, coeff_cross, coeff_cross_stages)
+                zero_counts(counters)
                 out = coeff_ntt(slabs, moduli, n, inverse)
                 torch.cuda.synchronize()
-                counts = [(f.launches, f.launches_cluster) for f in (coeff_tail, coeff_cross)]
-                if counts != [(1, int(cluster)), (shards.bit_length() - 1, 0)]:
-                    raise AssertionError(f"{label}: (K10, K11) launches {counts}, K10 "
-                                         f"on a cluster: {cluster}")
+                counts = [(f.launches, f.launches_cluster) for f in counters]
+                if counts != [(1, int(cluster)), (0, 0), (int(shards > 1), 0)]:
+                    raise AssertionError(f"{label}: (K10, K11 per stage, K11 one launch) "
+                                         f"launches {counts}, K10 on a cluster: {cluster}")
                 what = "inverse" if inverse else "forward"
                 twin = coeff_twin(slabs, moduli, n, inverse)
                 for p, (g, w) in enumerate(zip(out, twin)):
@@ -958,9 +976,26 @@ def check_coeff(dev) -> int:
     return err
 
 
+def cross_stages(cg, slabs, moduli, n: int, inverse: bool, final=None, twin: bool = False):
+    """Every cross stage of a transform: ``coeff_cross_stages`` (or its
+    twin), or, in a checkout of the port without it (the parent in an
+    A/B of ``tools/kernel_ab.py``), the same work as one ``coeff_cross``
+    launch (or twin) a stage."""
+    name = "coeff_cross_stages" + ("_twin" if twin else "")
+    if hasattr(cg, name):
+        return getattr(cg, name)(slabs, moduli, n, inverse, final)
+    cross = len(slabs).bit_length() - 1
+    stages = list(range(cross - 1, -1, -1) if inverse else range(cross))
+    one = cg.coeff_cross_twin if twin else cg.coeff_cross
+    for st in stages:
+        slabs = one(slabs, moduli, n, st, inverse, final if st == stages[-1] else None)
+    return slabs
+
+
 def coeff_cases(dev, B: int, L: int, n: int, bits: int, shards: int) -> dict:
-    """K10 (forward, inverse) and K11 (forward stage 0) against their twins
-    at one shape, the whole sharded NTT against its twins, and the
+    """K10 (forward, inverse) and K11 (forward stage 0, and every cross
+    stage of a transform, forward and inverse with N^-1) against their
+    twins at one shape, the whole sharded NTT against its twins, and the
     whole-plane kernel on the same planes, with the work of each."""
     from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
     from toy_heaan_ckks_tpu_torch.ops.ntt_gpu import ntt_planes, ntt_planes_wide, ntt_twin
@@ -999,6 +1034,17 @@ def coeff_cases(dev, B: int, L: int, n: int, bits: int, shards: int) -> dict:
             lambda: cg.coeff_cross(slabs, moduli, n, 0, False),
             lambda: cg.coeff_cross_twin(slabs, moduli, n, 0, False),
             2 * plane + 2 * L * w, B * L * n * (op["harvey"] + op["add"]))
+        # each word read and written once; the P - 1 twiddle entries of the
+        # stages (value and Shoup companion) and, inverse, the final factors
+        stage_ops = B * L * (n // 2) * cross * bfly
+        for name, inverse, final in (("forward", False, None), ("inverse", True, fin)):
+            cases[f"coeff_cross_stages {name}"] = Case(
+                lambda inverse=inverse, final=final: cross_stages(cg, slabs, moduli, n,
+                                                                  inverse, final),
+                lambda inverse=inverse, final=final: cross_stages(cg, slabs, moduli, n,
+                                                                  inverse, final, twin=True),
+                2 * plane + 2 * L * (shards - 1 + inverse) * w,
+                stage_ops + (B * L * n * op["harvey"] if inverse else 0))
     return cases
 
 
@@ -1038,7 +1084,9 @@ def run_coeff(cfg: PathConfig, shards: int, rotate: bool, tail_clusters: bool, d
     import numpy as np
     import torch
 
-    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import coeff_cross, coeff_tail
+    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import (
+        coeff_cross, coeff_cross_stages, coeff_tail,
+    )
     from toy_heaan_ckks_tpu_torch.ops.poly import Poly
     from toy_heaan_ckks_tpu_torch.parallel.coeff_composite import (
         build_mul_relin_rescale_coeff, build_rotate_coeff,
@@ -1051,7 +1099,7 @@ def run_coeff(cfg: PathConfig, shards: int, rotate: bool, tail_clusters: bool, d
     ctx, child, rlk, n = run["ctx"], run["child"], run["rlk"], cfg.degree
     mesh = make_coeff_mesh(shards, dev)
     sh = lambda t: shard_planes(t, mesh)
-    all_counters = counters + (coeff_tail, coeff_cross)
+    all_counters = counters + (coeff_tail, coeff_cross, coeff_cross_stages)
     label = f"[{cfg.name}-coeff P {shards}]"
     mul = build_mul_relin_rescale_coeff(mesh, ctx, rlk.ext_ctx, rlk.digit_size)
     mul_args = [sh(t) for t in run["batch"] + (rlk.a, rlk.b)]
@@ -1082,8 +1130,10 @@ def run_coeff(cfg: PathConfig, shards: int, rotate: bool, tail_clusters: bool, d
             raise AssertionError(f"{label} {name}: K10 cluster launches "
                                  f"{counts['coeff_tail[cluster]']}, expected "
                                  f"{'some' if tail_clusters else 'none'}")
-        if counts["coeff_tail"] < 1 or counts["coeff_cross"] < 1:
-            raise AssertionError(f"{label} {name} ran no K10 or no K11: {counts}")
+        if (counts["coeff_tail"] < 1 or counts["coeff_cross"] != 0
+                or counts["coeff_cross_stages"] != counts["coeff_tail"]):
+            raise AssertionError(f"{label} {name}: K10 must launch, and K11 once a "
+                                 f"transform in its one-launch form: {counts}")
         for i, (g, w) in enumerate(zip(got, want)):
             _same(f"{label} {name}[{i}]", unshard_planes(g), w,
                   "sharded composite == unsharded path")
@@ -1107,7 +1157,8 @@ def run_coeff(cfg: PathConfig, shards: int, rotate: bool, tail_clusters: bool, d
         raise AssertionError(f"{label} decode error {max_err} > {cfg.max_decode_err}")
     return dict(per_call=per_call, mul=lambda: mul(*mul_args),
                 launches={k: sum(c[k] for c in per_call.values())
-                          for k in ("coeff_tail", "coeff_cross", "coeff_tail[cluster]")})
+                          for k in ("coeff_tail", "coeff_cross", "coeff_cross_stages",
+                                    "coeff_tail[cluster]")})
 
 
 def time_coeff(run: dict, coeff_run: dict, shards: int) -> None:
@@ -1513,8 +1564,11 @@ def device_split(fn, iters: int, windows: int = 12) -> tuple:
             wall = (time.perf_counter() - t0) * 1e3 / iters
             _spin(TRAIL_SPINS)
             prof.step()
-        split = {"ntt_kernel": 0.0, "ntt_mxu_kernel": 0.0, "keyswitch_kernel": 0.0,
+        # (a kernel counts under the first key its name holds: "ntt_mxu" is
+        # K9's two kernels, "cross_kernel" / "cross_stages_kernel" K11's)
+        split = {"ntt_kernel": 0.0, "ntt_mxu": 0.0, "keyswitch_kernel": 0.0,
                  "moddown_kernel": 0.0, "tail_kernel": 0.0, "cross_kernel": 0.0,
+                 "cross_stages_kernel": 0.0,
                  "other": 0.0}
         counts, spins = {}, 0
         for ev in prof.key_averages():
@@ -1760,10 +1814,16 @@ def main() -> int:
     time_rotation(BIG, big_run, big_rot, iters=3)
     time_rotation(BIG_WIDE, big_wide_run, big_wide_rot, iters=3)
 
-    # K9 at the small path's shapes, and the small path under CKKS_NTT_MXU=1
-    mxu_times = time_cases(dataclasses.replace(SMALL, name="K9 small"),
-                           mxu_cases_small, int_ops_per_s, twin_iters=5)
-    t = mxu_times["inverse+fold"]
+    # K9 at the small path's shapes (batch 32 and 1), and the small path
+    # under CKKS_NTT_MXU=1
+    from toy_heaan_ckks_tpu_torch.ops.ntt_mxu_gpu import mxu_form
+
+    mxu_times = {shape: time_cases(dataclasses.replace(SMALL, name=f"K9 {shape}"),
+                                   cases, int_ops_per_s, twin_iters=5 if shape == "small" else 2)
+                 for shape, cases in mxu_cases_small.items()}
+    forms = {shape: mxu_form(*MXU_SHAPES[shape][:3], True) for shape in mxu_cases_small}
+    print(f"[K9] kernel at the small shapes (inverse): {json.dumps(forms)}")
+    t = mxu_times["small"]["inverse+fold"]
     rows.append({
         "name": "ntt_mxu_planes", "route": "cuda",
         "source": "toy_heaan_ckks_tpu_torch/csrc/ntt_mxu.cu",
@@ -1773,7 +1833,12 @@ def main() -> int:
         "cluster_launches": 0, "max_abs_err": max(mxu_errs.values()),
         "ms": t.ms, "plain_ms": t.plain_ms, "bound_ms": t.bound_ms,
         "bound_by": t.bound_by, "library_ms": None, "device_ms": t.device_ms,
-        "forward_ms": mxu_times["forward"].ms, "inverse_ms": mxu_times["inverse"].ms,
+        "forward_ms": mxu_times["small"]["forward"].ms,
+        "inverse_ms": mxu_times["small"]["inverse"].ms,
+        "shapes": {shape: {**forms[shape], **{f"{mode}_device_ms": times[mode].device_ms
+                                              for mode in times},
+                           "bound_ms": times["inverse+fold"].bound_ms}
+                   for shape, times in mxu_times.items()},
     })
     mxu_cfg = dataclasses.replace(SMALL, name="small-mxu")
     with mxu_env():
@@ -1795,8 +1860,10 @@ def main() -> int:
         forms[label] = tail_form(cfg, shards)
         print(f"[{label}] K10 form: {json.dumps(forms[label])}")
     coeff_times = shape_times[COEFF_CASES[0][0]]
+    # K11's row is its one-launch form, the form of every coeff path's launches
+    # on one card (the per-stage form's time beside it, under stage_*)
     for fn, case_name, line in (("coeff_tail", "coeff_tail forward", 53),
-                                ("coeff_cross", "coeff_cross forward", 155)):
+                                ("coeff_cross_stages", "coeff_cross_stages forward", 155)):
         t = coeff_times[case_name]
         row = {
             "name": fn, "route": "cuda",
@@ -1813,6 +1880,19 @@ def main() -> int:
             "shape": "(4, 4, 2^16) uint32, P 4, forward",
             "ms_is": "profiler device time per call", "call_ms": t.ms,
         }
+        if fn == "coeff_cross_stages":
+            stage = coeff_times["coeff_cross forward"]
+            row.update(stage_kernel_ms=stage.device_ms, stage_kernel_bound_ms=stage.bound_ms,
+                       stage_kernel_launches=sum(r["launches"]["coeff_cross"]
+                                                 for r in coeff_runs.values()),
+                       shape="(4, 4, 2^16) uint32, P 4, every cross stage, forward")
+            row["shapes"] = {label: {
+                **{f"{d}_ms": times[f"coeff_cross_stages {d}"].device_ms
+                   for d in ("forward", "inverse")},
+                **{f"{d}_bound_ms": times[f"coeff_cross_stages {d}"].bound_ms
+                   for d in ("forward", "inverse")},
+                "stage_kernel_ms": times["coeff_cross forward"].device_ms}
+                for label, times in shape_times.items()}
         if fn == "coeff_tail":
             row["shapes"] = {label: {
                 **forms[label],

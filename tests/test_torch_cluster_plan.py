@@ -1326,3 +1326,129 @@ TAIL_CONFLICTS = [(W32, 14, 2, {"pass (5, 4)": 2}), (W32, 11, 0, {"pass (5, 3)":
 @pytest.mark.parametrize("words,log_s,log_c,want", TAIL_CONFLICTS)
 def test_tail_plan_bank_conflicts(words, log_s, log_c, want):
     assert _conflicts(Plan(log_s, log_c, words, lead=5)) == want
+
+
+# ── K11: every cross stage of a transform in one launch ──
+
+# the most shards the one-launch form takes, as built
+STAGES_MAX_SHARDS = _header_constant("kStagesMaxShards", "coeff_ntt.cuh")
+
+
+def stage_pairs(log_p: int, st: int) -> list:
+    """(p, p + h, g) of cross stage st in ``cross_stages_kernel``: the
+    slab pairs h = P >> (st + 1) apart, p & h == 0, and their twiddle's
+    group g = p / (2h) (the per-stage kernel's (p S + i) >> (log2 d + 1))."""
+    h = (1 << log_p) >> (st + 1)
+    return [(p, p + h, p // (2 * h)) for p in range(1 << log_p) if not p & h]
+
+
+def emulate_cross_stages(slabs, moduli, degree: int, inverse: bool, final=None,
+                         words: Words = W32, pairs=stage_pairs, reverse: bool = False):
+    """``cross_stages_kernel`` on P int64 numpy slabs (B, L, S): thread
+    off = plane * S + i (every thread at once) holds x[p] = slab p's word
+    off, runs stages 0 .. log2 P - 1 (inverse: log2 P - 1 .. 0; ``reverse``
+    flips the order) on its registers with twiddle tw[ch, 2^st + g], ch =
+    plane mod L, then the optional ``final`` factors, and writes x[p] to
+    slab p; returns torch slabs of the word."""
+    P = len(slabs)
+    B, L, S = slabs[0].shape
+    log_p, log_s = P.bit_length() - 1, S.bit_length() - 1
+    fwd, fwdp, inv, invp = _tables(tuple(moduli), degree, words.bits)
+    tw, twp = (inv, invp) if inverse else (fwd, fwdp)
+    ch = (np.arange(B * L * S) >> log_s) % L
+    q = np.array(moduli, np.int64)[ch]
+    x = [s.reshape(-1).copy() for s in slabs]
+    stages = list(range(log_p - 1, -1, -1) if inverse else range(log_p))
+    for st in stages[::-1] if reverse else stages:
+        for lo, hi, g in pairs(log_p, st):
+            k = (1 << st) + g
+            w, wp = tw[ch, k], None if twp is None else twp[ch, k]
+            if inverse:
+                x[lo], x[hi] = _add(x[lo], x[hi], q), _mul(_sub(x[lo], x[hi], q), w, wp, q)
+            else:
+                v = _mul(x[hi], w, wp, q)
+                x[lo], x[hi] = _add(x[lo], v, q), _sub(x[lo], v, q)
+    if final is not None:
+        f = np.array([v % m for v, m in zip(final, moduli)], np.int64)
+        fp = _companions(f, moduli, words)
+        x = [_mul(a, f[ch], None if fp is None else fp[ch], q) for a in x]
+    dtype = np.int32 if words.bits == 32 else np.int64
+    return tuple(torch.from_numpy(a.reshape(B, L, S).astype(dtype)) for a in x)
+
+
+def _stages_case(words: Words, shards: int, inverse: bool, final: bool):
+    """P slabs of 2^4 words (batch 2, two channels of 31-bit or 36-bit
+    primes) as int64 numpy and torch slabs, the chain, N and the final
+    factors (N^-1) or None."""
+    log_s = 4
+    degree = shards << log_s
+    moduli = tuple(generate_primes(31 if words.bits == 32 else 36, 2, degree))
+    x = _planes(shards + 7 * inverse, moduli, degree, 2)
+    S = 1 << log_s
+    slabs = [x[..., p * S:(p + 1) * S].copy() for p in range(shards)]
+    dtype = torch.int32 if words.bits == 32 else torch.int64
+    fin = tuple(pow(degree, -1, q) for q in moduli) if final else None
+    return slabs, tuple(torch.from_numpy(a).to(dtype) for a in slabs), moduli, degree, fin
+
+
+# (P, inverse, final): every P the one-launch form takes, forward bare and
+# inverse with the final factor (coeff_ntt's two calls), and the inverse
+# bare and the forward with the factor at P = 4
+STAGES_RUNS = [(shards, inverse, final) for shards in (2, 4, 8, 16)
+               for inverse, final in ((False, False), (True, True), (True, False),
+                                      (False, True))
+               if shards == 4 or inverse == final]
+
+
+def test_stages_bound_as_built():
+    assert STAGES_MAX_SHARDS == cg.STAGES_MAX_SHARDS == 16
+
+
+@pytest.mark.parametrize("words", [W32, W64], ids=["u32", "u64"])
+@pytest.mark.parametrize("shards,inverse,final", STAGES_RUNS)
+def test_cross_stages_plan_matches_per_stage_twins(words, shards, inverse, final):
+    """K11's one-launch plan (a thread per offset, the P words in its
+    registers, the stages' pairs, sides and twiddles, ``final`` on the
+    last stage's words) word for word against the per-stage twins
+    composed (``coeff_cross_twin`` stage by stage) and against
+    ``coeff_cross_stages`` on CPU slabs."""
+    slabs, tslabs, moduli, degree, fin = _stages_case(words, shards, inverse, final)
+    got = emulate_cross_stages(slabs, moduli, degree, inverse, fin, words)
+    want = tslabs
+    log_p = shards.bit_length() - 1
+    stages = list(range(log_p - 1, -1, -1) if inverse else range(log_p))
+    for st in stages:
+        want = cg.coeff_cross_twin(want, moduli, degree, st, inverse,
+                                   fin if st == stages[-1] else None)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    wrapped = cg.coeff_cross_stages(tslabs, moduli, degree, inverse, fin)
+    assert all(torch.equal(g, w) for g, w in zip(wrapped, want))
+
+
+def test_cross_stages_plan_mutations_fail():
+    """The emulation catches a twiddle group p / h for p / (2h), the
+    sides of a butterfly swapped, the stages run in the wrong order and a
+    dropped final factor, at P = 8 (uint64), forward and inverse."""
+    wrong_group = lambda log_p, st: [(lo, hi, lo // (hi - lo)) for lo, hi, _ in
+                                     stage_pairs(log_p, st)]
+    swapped = lambda log_p, st: [(hi, lo, g) for lo, hi, g in stage_pairs(log_p, st)]
+    for inverse in (False, True):
+        slabs, tslabs, moduli, degree, fin = _stages_case(W64, 8, inverse, True)
+        want = cg.coeff_cross_stages_twin(tslabs, moduli, degree, inverse, fin)
+        good = emulate_cross_stages(slabs, moduli, degree, inverse, fin, W64)
+        assert all(torch.equal(g, w) for g, w in zip(good, want))
+        for name, kwargs in (("group", dict(pairs=wrong_group)),
+                             ("sides", dict(pairs=swapped)), ("order", dict(reverse=True))):
+            got = emulate_cross_stages(slabs, moduli, degree, inverse, fin, W64, **kwargs)
+            assert not all(torch.equal(g, w) for g, w in zip(got, want)), (name, inverse)
+        got = emulate_cross_stages(slabs, moduli, degree, inverse, None, W64)
+        assert not all(torch.equal(g, w) for g, w in zip(got, want)), ("final", inverse)
+
+
+def test_cross_stages_twin_refuses_one_shard():
+    slabs, tslabs, moduli, degree, _ = _stages_case(W32, 2, False, False)
+    one = (torch.cat(tslabs, dim=-1),)
+    with pytest.raises(ValueError, match="no cross stage"):
+        cg.coeff_cross_stages(one, moduli, degree, False)
+    with pytest.raises(ValueError, match="no cross stage"):
+        cg.coeff_cross_stages_twin(one, moduli, degree, True)

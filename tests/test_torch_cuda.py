@@ -313,13 +313,51 @@ def test_mxu_kernel_matches_twin_and_k1(dev, degree, mode):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-def test_mxu_kernel_reads_channel_slices(dev, inverse):
-    """K9 on a channel slice of a larger stack (item stride 5 N)."""
-    degree = 1 << 13
+@pytest.mark.parametrize("degree", [1 << 13, 1 << 15])
+def test_mxu_kernel_reads_channel_slices(dev, inverse, degree):
+    """K9 on a channel slice of a larger stack (item stride 5 N) and on
+    items an odd number of words apart (item stride 3 N + 1), both
+    kernels (R = 64: the channel-run kernel; R = 256: one block a plane)."""
     moduli, _ = _chain(5, 1, degree)
     x = _planes(11, moduli, degree, (2,), dev)[..., 2:, :]
     got = ntt_mxu_gpu.ntt_mxu_planes(x, moduli[2:], degree, inverse)
     assert torch.equal(got, ntt_gpu.ntt_planes(x, moduli[2:], degree, inverse))
+    flat = torch.zeros(3 * (3 * degree + 1), dtype=torch.int32, device=dev)
+    odd = flat.as_strided((3, 3, degree), (3 * degree + 1, degree, 1))
+    odd.copy_(_planes(12, moduli[2:], degree, (3,), dev))
+    got = ntt_mxu_gpu.ntt_mxu_planes(odd, moduli[2:], degree, inverse)
+    assert torch.equal(got, ntt_gpu.ntt_planes(odd.contiguous(), moduli[2:], degree, inverse))
+
+
+# K9 at chip_smoke.py's MXU_SHAPES (items, channels, N): the small path's
+# batch 32 and 1 (R = 128), R = 256 and R = 8; the kernel each runs (the
+# channel-run kernel up to R = 128, planes a block to fill 132 SMs, and
+# its blocks)
+MXU_SHAPES = [((32, 8, 1 << 14), (1, 2, 128)), ((1, 8, 1 << 14), (1, 1, 8)),
+              ((2, 2, 1 << 15), (0, 1, 4)), ((4, 3, 1 << 10), (1, 1, 12))]
+
+
+@pytest.mark.parametrize("shape,form", MXU_SHAPES)
+@pytest.mark.parametrize("mode", ["forward", "inverse", "fold"])
+def test_mxu_kernel_at_path_shapes(dev, shape, form, mode):
+    """K9 at each MXU_SHAPES shape and mode against its twin and K1 (the
+    fold against ``inv_ntt_fold``'s constants), one launch, and the kernel
+    it picks (``mxu_form``, on an H100's 132 SMs)."""
+    B, L, degree = shape
+    moduli = tuple(port.generate_primes(31, L, degree))
+    x = _planes(B + L, moduli, degree, (B,), dev)
+    inverse = mode != "forward"
+    post = small_fast._dec_inv_ints(moduli, 4) if mode == "fold" else None
+    got, counts = _counted(ntt_mxu_gpu.ntt_mxu_planes, lambda: ntt_mxu_gpu.ntt_mxu_planes(
+        x, moduli, degree, inverse, post))
+    assert counts == (1, 0)
+    assert torch.equal(got, ntt_mxu.ntt_mxu(x, moduli, degree, inverse, post))
+    final = None if post is None else small_fast._fold_consts(moduli, degree, post)
+    assert torch.equal(got, ntt_gpu.ntt_planes(x, moduli, degree, inverse, final))
+    info = ntt_mxu_gpu.mxu_form(B, L, degree, inverse)
+    assert info["run_kernel"] == form[0] and info["threads_per_block"] == 512
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert (info["planes_a_block"], info["blocks"]) == form[1:]
 
 
 # wide chains: 61-bit at 2^13 (the wide main path), 62-bit with 63-bit
@@ -721,9 +759,11 @@ def _coeff_chain(degree, wide):
 def test_coeff_kernels_match_twins_and_whole_plane(dev, degree, shards, wide,
                                                    inverse):
     """K11 per cross stage and K10 each against its twin on the same CUDA
-    slabs; the sharded NTT word-equal to K1 / K4 / K5 / K5' on the whole
-    plane, with one K10 and log2 P K11 launches, K10's on a cluster where
-    ``slab_form`` picks one (K11 never)."""
+    slabs, K11's one-launch form against the per-stage kernels; the
+    sharded NTT word-equal to K1 / K4 / K5 / K5' on the whole plane, with
+    one K10 launch and, for P >= 2, one K11 launch of the one-launch form
+    (none of the per-stage form), K10's on a cluster where ``slab_form``
+    picks one (K11 never)."""
     from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
     from toy_heaan_ckks_tpu_torch.parallel.coeff_ntt import coeff_ntt
     from toy_heaan_ckks_tpu_torch.parallel.mesh import (
@@ -743,28 +783,64 @@ def test_coeff_kernels_match_twins_and_whole_plane(dev, degree, shards, wide,
         twin = cg.coeff_tail_twin(slabs, moduli, degree, True,
                                   final if cross == 0 else None)
         assert all(torch.equal(a, b) for a, b in zip(s, twin))
+    one_launch = cg.coeff_cross_stages(s, moduli, degree, inverse, final) if cross else s
     for st in stages:
         fin = final if inverse and st == 0 else None
         nxt = cg.coeff_cross(s, moduli, degree, st, inverse, fin)
         twin = cg.coeff_cross_twin(s, moduli, degree, st, inverse, fin)
         assert all(torch.equal(a, b) for a, b in zip(nxt, twin))
         s = nxt
+    assert all(torch.equal(a, b) for a, b in zip(one_launch, s))
     if not inverse:
         tail = cg.coeff_tail(s, moduli, degree, False)
         twin = cg.coeff_tail_twin(s, moduli, degree, False)
         assert all(torch.equal(a, b) for a, b in zip(tail, twin))
         s = tail
-    before = [(f.launches, f.launches_cluster) for f in (cg.coeff_tail, cg.coeff_cross)]
+    counters = (cg.coeff_tail, cg.coeff_cross, cg.coeff_cross_stages)
+    before = [(f.launches, f.launches_cluster) for f in counters]
     out = coeff_ntt(slabs, moduli, degree, inverse)
-    after = [(f.launches, f.launches_cluster) for f in (cg.coeff_tail, cg.coeff_cross)]
+    after = [(f.launches, f.launches_cluster) for f in counters]
     log_s = (degree // shards).bit_length() - 1
     cluster = cg.slab_form(wide, log_s, 2 * len(moduli) * shards) == "cluster"
     assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == [
-        (1, int(cluster)), (cross, 0)]
+        (1, int(cluster)), (0, 0), (int(cross > 0), 0)]
     whole = (ntt_gpu.ntt_planes_wide if wide else ntt_gpu.ntt_planes)(
         x, moduli, degree, inverse)
     assert torch.equal(unshard_planes(out), whole)
     assert torch.equal(unshard_planes(s), whole)
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("inverse,final", [(False, False), (True, True), (True, False),
+                                           (False, True)])
+def test_coeff_cross_stages_match_per_stage(dev, shards, wide, inverse, final):
+    """K11's one-launch form (P <= 16: one launch, no per-stage launch) at
+    N = 2^14 against the per-stage kernels run stage by stage and against
+    their composed twins, with and without the final factor; at P = 32 the
+    entry runs the per-stage form, one launch a stage."""
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import make_coeff_mesh, shard_planes
+
+    degree = 1 << 14
+    moduli, dtype = _coeff_chain(degree, wide)
+    x = _planes(shards + 3 * inverse, moduli, degree, (2,), dev, dtype)
+    slabs = shard_planes(x, make_coeff_mesh(shards, dev))
+    fin = tuple(pow(degree, -1, q) for q in moduli) if final else None
+    cross = shards.bit_length() - 1
+    stages = list(range(cross - 1, -1, -1) if inverse else range(cross))
+    staged, twin = slabs, slabs
+    for st in stages:
+        f = fin if st == stages[-1] else None
+        staged = cg.coeff_cross(staged, moduli, degree, st, inverse, f)
+        twin = cg.coeff_cross_twin(twin, moduli, degree, st, inverse, f)
+    before = cg.coeff_cross.launches, cg.coeff_cross_stages.launches
+    got = cg.coeff_cross_stages(slabs, moduli, degree, inverse, fin)
+    fused = shards <= cg.STAGES_MAX_SHARDS
+    assert (cg.coeff_cross.launches - before[0],
+            cg.coeff_cross_stages.launches - before[1]) == ((0, 1) if fused else (cross, 0))
+    for g, a, b in zip(got, staged, twin):
+        assert torch.equal(g, a) and torch.equal(g, b)
 
 
 # every register form of K10 that csrc/coeff_ntt.cuh builds: (wide, log2
@@ -849,7 +925,7 @@ def test_coeff_tail_refuses_a_slab_above_one_block(dev, degree, shards, wide):
 def test_coeff_composites_match_unsharded_on_card(dev, bits, count, digit_size):
     """At N = 1024 on 8 shards of the card: the coefficient-sharded multiply
     and rotation equal the unsharded composites on the card word for word,
-    and ran K10 and K11."""
+    and ran K10 and K11 (one launch of the one-launch form a transform)."""
     from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
     from toy_heaan_ckks_tpu_torch.parallel.coeff_composite import (
         build_mul_relin_rescale_coeff, build_rotate_coeff,
@@ -871,7 +947,7 @@ def test_coeff_composites_match_unsharded_on_card(dev, bits, count, digit_size):
     args = [_planes(20 + i, ctx.moduli, degree, (2,), dev, rlk.a.dtype) for i in range(4)]
     mesh = make_coeff_mesh(8, dev)
     sh = lambda t: shard_planes(t, mesh)
-    before = cg.coeff_tail.launches, cg.coeff_cross.launches
+    before = cg.coeff_tail.launches, cg.coeff_cross.launches, cg.coeff_cross_stages.launches
     got = build_mul_relin_rescale_coeff(mesh, ctx, rlk.ext_ctx, digit_size)(
         *map(sh, args), sh(rlk.a), sh(rlk.b))
     want = _mul_relin_rescale_arrays(*args, rlk.a, rlk.b, ctx, rlk.ext_ctx,
@@ -884,7 +960,8 @@ def test_coeff_composites_match_unsharded_on_card(dev, bits, count, digit_size):
     for g, w in zip(got + rot, want + rot_want):
         assert torch.equal(unshard_planes(g), w)
     assert cg.coeff_tail.launches - before[0] == 12
-    assert cg.coeff_cross.launches - before[1] == 36
+    assert cg.coeff_cross.launches - before[1] == 0
+    assert cg.coeff_cross_stages.launches - before[2] == 12
 
 
 def _cards(count: int):
@@ -896,9 +973,10 @@ def _cards(count: int):
 @pytest.mark.parametrize("shards", [4, 8])
 @pytest.mark.parametrize("wide", [False, True])
 def test_coeff_ntt_across_cards(dev, shards, wide):
-    """Shards on four cards (two per card at P = 8): K11 reads partner
-    slabs through peer pointers, one launch per card, and the words equal
-    K1 / K5 on the whole plane on one card."""
+    """Shards on four cards (two per card at P = 8): K11 keeps its
+    per-stage form and reads partner slabs through peer pointers, one
+    launch per card and stage (none of the one-launch form), and the
+    words equal K1 / K5 on the whole plane on one card."""
     from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
     from toy_heaan_ckks_tpu_torch.parallel.coeff_ntt import coeff_ntt
     from toy_heaan_ckks_tpu_torch.parallel.mesh import (
@@ -913,11 +991,13 @@ def test_coeff_ntt_across_cards(dev, shards, wide):
     slabs = shard_planes(x, mesh)
     whole = ntt_gpu.ntt_planes_wide if wide else ntt_gpu.ntt_planes
     for inverse in (False, True):
-        before = cg.coeff_tail.launches, cg.coeff_cross.launches
+        before = (cg.coeff_tail.launches, cg.coeff_cross.launches,
+                  cg.coeff_cross_stages.launches)
         out = coeff_ntt(slabs, moduli, degree, inverse)
         assert [t.device for t in out] == list(mesh.devices)
-        assert (cg.coeff_tail.launches - before[0],
-                cg.coeff_cross.launches - before[1]) == (4, 4 * (shards.bit_length() - 1))
+        assert (cg.coeff_tail.launches - before[0], cg.coeff_cross.launches - before[1],
+                cg.coeff_cross_stages.launches - before[2]) == (
+            4, 4 * (shards.bit_length() - 1), 0)
         assert torch.equal(unshard_planes(out).to(dev), whole(x, moduli, degree, inverse))
 
 

@@ -15,7 +15,13 @@ path), and K10 / K11 at the coeff paths' planes where it has them
 (``chip_smoke.coeff_cases``: (4, 4, 2^16) on P = 4 under ``K10/K11
 big``, (4, 3, 2^15) uint64 on P = 4 under ``K10/K11 big-wide``, (32, 8,
 2^14) on P = 8 under ``K10/K11 small``; with ``--paths``, those of the
-paths named), and
+paths named: K11 there as one stage and as every cross stage of a
+transform, forward and inverse, ``coeff_cross_stages``, which a checkout
+without K11's one-launch form runs as its stage loop on the same work),
+and K9 at ``K9_SHAPES`` (``chip_smoke.mxu_cases``, the shapes the
+checkout's ``MXU_SHAPES`` lacks added to it: the small path's batch 32 and
+1, and R = 8, 32, 64 and 256; ``--paths mxu``), with the kernel K9 picks
+(``mxu``: ``ntt_mxu_gpu.mxu_form`` where the checkout has it), and
 prints one JSON line: the card's name and power limit and, per case, the
 mean ms of 100 launches after 10 warm-up launches (``ms``, CUDA events:
 the pace of the wrapper calls, which the host sets where the kernel is
@@ -78,6 +84,11 @@ K10_SHAPES = (
     ("big-wide B 2 P 8", 2, 3, 1 << 15, 61, 8),
 )
 COEFF_PATHS = {"small": "SMALL", "big": "BIG", "big-wide": "BIG_WIDE"}
+# K9 (items, channels, N, prime bits) at every R = N / 128 of its envelope:
+# the small path's batch 32 and 1 (R = 128), and R = 8, 32, 64 and 256
+K9_SHAPES = {"small": (32, 8, 1 << 14, 31), "small B 1": (1, 8, 1 << 14, 31),
+             "2^10": (4, 3, 1 << 10, 31), "2^12": (8, 4, 1 << 12, 31),
+             "2^13": (16, 4, 1 << 13, 31), "2^15": (2, 2, 1 << 15, 31)}
 PROFILE_CALLS = 50  # calls per profiler window of a case's device time
 _TIMER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "chip_smoke.py")
@@ -279,6 +290,17 @@ def main() -> int:
     cases = [(f"{cfg.name} {name}", case)
              for cfg, wide in ((cfg, cfg.bits > 31) for cfg in chosen)
              for name, case in smoke.kernel_cases(cfg, dev, wide=wide).items()]
+    mxu = {}
+    if hasattr(smoke, "mxu_cases") and (not args.paths or "mxu" in args.paths.split(",")):
+        for shape, dims in K9_SHAPES.items():
+            smoke.MXU_SHAPES.setdefault(shape, dims)
+            cases += [(f"K9 {shape} {name}", case)
+                      for name, case in smoke.mxu_cases(dev, shape)[0].items()]
+            try:
+                from toy_heaan_ckks_tpu_torch.ops.ntt_mxu_gpu import mxu_form
+            except ImportError:
+                continue
+            mxu[shape] = mxu_form(*smoke.MXU_SHAPES[shape][:3], True)
     if hasattr(smoke, "coeff_cases"):
         for path, shards in (("big", 4), ("big-wide", 4), ("small", 8)):
             cfg = getattr(smoke, COEFF_PATHS[path])
@@ -300,6 +322,7 @@ def main() -> int:
     print(json.dumps({"label": args.label or root, "card": card,
                       "ms": times, "device_ms": device, "bound_ms": bound,
                       **({"cluster": cluster} if cluster else {}),
+                      **({"mxu": mxu} if mxu else {}),
                       **({"sass": sass} if sass else {}),
                       **({"composite": composite} if composite else {})}))
     return 0

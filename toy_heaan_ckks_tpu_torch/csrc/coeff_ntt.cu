@@ -35,6 +35,20 @@ extern "C" int ckks_coeff_cross(const void* const* in, void* const* out,
                       planes, channels, log_n, log_s, stage, inverse, stream);
 }
 
+// K11's one-launch form: every cross stage of the transform on `shards`
+// slabs (2 .. 16), all on the current device (in/out: host arrays of the
+// slab pointers; the other arguments as ckks_coeff_tail's). fin applies
+// after the last stage.
+extern "C" int ckks_coeff_cross_stages(const void* const* in, void* const* out, int shards,
+                                       const uint32_t* tw, const uint32_t* twp,
+                                       const uint32_t* q, const uint32_t* fin,
+                                       const uint32_t* finp, int planes, int channels,
+                                       int log_n, int log_s, int inverse,
+                                       cudaStream_t stream) {
+  return launch_cross_stages(in, out, shards, tw, twp, q, fin, finp, planes, channels, log_n,
+                             log_s, inverse, stream);
+}
+
 // K10's register form (log_s >= 10, the cluster flag) on uint32 (wide 0)
 // or uint64 (wide 1) words as built and as it fits the current device
 // (coeff_ntt.cuh tail_info: registers, spill bytes, threads, shared bytes,

@@ -46,16 +46,30 @@
 // cluster that cannot be resident kErrClusterDoesNotFit. No form gives way
 // to another.
 //
+// K11 has two forms. Where every shard of a launch lies on one card and P
+// <= kStagesMaxShards, cross_stages_kernel runs all log2 P cross stages in
+// one launch: a thread owns one offset (plane, i) across the P slabs, loads
+// the P words into registers, runs the butterflies there and writes the P
+// words, so each word is read once and written once per transform (the
+// per-stage form reads it twice and writes it once a stage). Above that P,
+// and where the shards span several cards, cross_kernel runs one stage a
+// launch, the partner slab read through its (peer) pointer.
+//
 // What bounds them on an H100: K10 the integer pipe, as K1 and K4 (the
-// template: its serial chain of log2 S shared-memory stages); K11 reads two
-// words and writes one per output word, so device memory. Measured on an
+// template: its serial chain of log2 S shared-memory stages); K11 device
+// memory (per stage two words read and one written per output word; all
+// stages at once one read and one write). Measured on an
 // NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_ab.py, device time, forward
 // / inverse): (4, 4, 2^16) P 4, 64 slabs of 2^14 on clusters of 4,
 // 0.0125-0.0126 / 0.0120-0.0121 ms against 0.0480-0.0482 / 0.0464 for the
 // template; (4, 3, 2^15) uint64 P 4, 48 slabs of 2^13 on clusters of 8,
 // 0.0114 / 0.0109 (0.0337-0.0365 / 0.0334); (32, 8, 2^14) P 8, 2,048
 // slabs of 2^11 on one block each, 0.0216-0.0217 / 0.0223 (0.0526-0.0540
-// / 0.0531-0.0535).
+// / 0.0531-0.0535). K11, every cross stage of a forward transform, in
+// turns with the per-stage launches on the same slabs: (4, 4, 2^16) P 4
+// 0.0028 (0.0153); (4, 3, 2^15) uint64 P 4 0.0025 (0.0079); (32, 8, 2^14)
+// P 8 0.0082 (0.0810; the 34 MB it moves stay in the 50 MB L2 between
+// calls, so it reads faster than device memory could deliver).
 #pragma once
 
 #include <type_traits>
@@ -73,6 +87,9 @@ namespace {
 
 constexpr int kMaxShards = 64;
 constexpr int kCrossThreads = 256;
+// the most shards K11's one-launch form holds (P words a thread, in
+// registers); coeff_ntt_gpu.STAGES_MAX_SHARDS
+constexpr int kStagesMaxShards = 16;
 
 template <typename T>
 struct Slabs {
@@ -275,6 +292,70 @@ cross_kernel(Slabs<T> slabs, const T* __restrict__ tw, const T* __restrict__ twp
   slabs.out[p][off] = r;
 }
 
+// K11's one-launch form: every cross stage of a transform, all P =
+// 2^kLogP shards on the launch's card. Thread (plane, i) loads x[p] =
+// in[p][plane * S + i] for every slab p (neighbouring threads take
+// neighbouring i, so each slab's loads coalesce), runs the stages in
+// registers and writes out[p] at the same offset. Stage st pairs slab p
+// with p + h, h = P >> (st + 1) = d / S, for p & h == 0; both take twiddle
+// tw[2^st + g] with g = (p * S + i) >> (log2 d + 1) = p / (2h), the index
+// of cross_kernel. Forward (Cooley-Tukey) stages 0 .. log2 P - 1: x[p] +
+// w x[p+h], x[p] - w x[p+h]; inverse (Gentleman-Sande) stages log2 P - 1
+// .. 0: x[p] + x[p+h], (x[p] - x[p+h]) w; then the optional final factor
+// on every word. The words equal log2 P launches of cross_kernel.
+template <typename T, int kLogP>
+__global__ void __launch_bounds__(kCrossThreads)
+cross_stages_kernel(Slabs<T> slabs, const T* __restrict__ tw, const T* __restrict__ twp,
+                    const T* __restrict__ q, const T* __restrict__ fin,
+                    const T* __restrict__ finp, long long total, int channels, int log_n,
+                    int log_s, int inverse) {
+  constexpr int kP = 1 << kLogP;
+  const long long off = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (off >= total) return;
+  const int ch = static_cast<int>((off >> log_s) % channels);
+  const T qc = q[ch];
+  const T* w = tw + (static_cast<long long>(ch) << log_n);
+  const T* wp = twp + (static_cast<long long>(ch) << log_n);
+  T x[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) x[p] = slabs.in[p][off];
+  if (!inverse) {
+#pragma unroll
+    for (int st = 0; st < kLogP; ++st) {
+      const int h = kP >> (st + 1);
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        if (p & h) continue;
+        const int k = (1 << st) + p / (2 * h);
+        const T v = ckks::harvey(x[p + h], ckks::ldg(w + k), ckks::ldg(wp + k), qc);
+        const T u = x[p];
+        x[p] = ckks::add_mod(u, v, qc);
+        x[p + h] = ckks::sub_mod(u, v, qc);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int st = kLogP - 1; st >= 0; --st) {
+      const int h = kP >> (st + 1);
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        if (p & h) continue;
+        const int k = (1 << st) + p / (2 * h);
+        const T u = x[p], v = x[p + h];
+        x[p] = ckks::add_mod(u, v, qc);
+        x[p + h] = ckks::harvey(ckks::sub_mod(u, v, qc), ckks::ldg(w + k), ckks::ldg(wp + k), qc);
+      }
+    }
+  }
+  if (fin != nullptr) {
+    const T f = fin[ch], fp = finp[ch];
+#pragma unroll
+    for (int p = 0; p < kP; ++p) x[p] = ckks::harvey(x[p], f, fp, qc);
+  }
+#pragma unroll
+  for (int p = 0; p < kP; ++p) slabs.out[p][off] = x[p];
+}
+
 template <typename T>
 int fill(Slabs<T>* slabs, const void* const* in, void* const* out,
          const int* ids, int count, int shards) {
@@ -426,6 +507,46 @@ int launch_cross(const void* const* in, void* const* out, const int* ids,
   cross_kernel<T><<<static_cast<unsigned>(blocks), kCrossThreads, 0, stream>>>(
       slabs, tw, twp, q, fin, finp, total, planes, channels, log_n, log_s,
       stage, inverse);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11's one-launch form on `shards` slabs (planes, S), all on the current
+// device, 2 <= shards <= kStagesMaxShards.
+template <typename T>
+int launch_cross_stages(const void* const* in, void* const* out, int shards, const T* tw,
+                        const T* twp, const T* q, const T* fin, const T* finp, int planes,
+                        int channels, int log_n, int log_s, int inverse,
+                        cudaStream_t stream) {
+  if (shards < 2 || shards > kStagesMaxShards || log_s < 1 ||
+      shards != 1 << (log_n - log_s) || planes < 1)
+    return cudaErrorInvalidValue;
+  int ids[kMaxShards];
+  for (int p = 0; p < shards; ++p) ids[p] = p;
+  Slabs<T> slabs;
+  const int err = fill(&slabs, in, out, ids, shards, shards);
+  if (err != cudaSuccess) return err;
+  const long long total = static_cast<long long>(planes) << log_s;
+  const long long blocks = (total + kCrossThreads - 1) / kCrossThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  switch (log_n - log_s) {
+    case 1:
+      cross_stages_kernel<T, 1><<<grid, kCrossThreads, 0, stream>>>(
+          slabs, tw, twp, q, fin, finp, total, channels, log_n, log_s, inverse);
+      break;
+    case 2:
+      cross_stages_kernel<T, 2><<<grid, kCrossThreads, 0, stream>>>(
+          slabs, tw, twp, q, fin, finp, total, channels, log_n, log_s, inverse);
+      break;
+    case 3:
+      cross_stages_kernel<T, 3><<<grid, kCrossThreads, 0, stream>>>(
+          slabs, tw, twp, q, fin, finp, total, channels, log_n, log_s, inverse);
+      break;
+    default:
+      cross_stages_kernel<T, 4><<<grid, kCrossThreads, 0, stream>>>(
+          slabs, tw, twp, q, fin, finp, total, channels, log_n, log_s, inverse);
+      break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

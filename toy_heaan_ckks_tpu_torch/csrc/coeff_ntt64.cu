@@ -28,6 +28,17 @@ extern "C" int ckks_coeff_cross64(const void* const* in, void* const* out,
                       planes, channels, log_n, log_s, stage, inverse, stream);
 }
 
+// ckks_coeff_cross_stages's arguments on uint64 words.
+extern "C" int ckks_coeff_cross_stages64(const void* const* in, void* const* out, int shards,
+                                         const uint64_t* tw, const uint64_t* twp,
+                                         const uint64_t* q, const uint64_t* fin,
+                                         const uint64_t* finp, int planes, int channels,
+                                         int log_n, int log_s, int inverse,
+                                         cudaStream_t stream) {
+  return launch_cross_stages(in, out, shards, tw, twp, q, fin, finp, planes, channels, log_n,
+                             log_s, inverse, stream);
+}
+
 int ckks::coeff_tail64_info(int log_s, int cluster, int inverse, int* info) {
   return tail_info<uint64_t>(log_s, cluster, inverse, info);
 }

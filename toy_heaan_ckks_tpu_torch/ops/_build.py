@@ -13,9 +13,10 @@ cluster launch that cannot be resident returns its own code, 100001);
 chains, int32 tensors) and a uint64 entry with the suffix ``64`` (wide
 chains, int64 tensors) of the same signature; ``parts`` is the number of
 blocks per plane (``ntt_gpu.plane_split``). K9 (``ckks_ntt_mxu``) takes
-uint32 words only. K10 / K11 (``ckks_coeff_tail`` / ``ckks_coeff_cross``)
-take host arrays of slab pointers (``ptr_array``, ``int_array``), K10 also
-a cluster flag (``coeff_ntt_gpu.slab_form``);
+uint32 words only (``ckks_ntt_mxu_info`` reports the kernel it picks). K10 / K11 (``ckks_coeff_tail`` / ``ckks_coeff_cross``, and K11's
+one-launch form ``ckks_coeff_cross_stages``) take host arrays of slab
+pointers (``ptr_array``, ``int_array``), K10 also a cluster flag
+(``coeff_ntt_gpu.slab_form``);
 ``ckks_enable_peer_access`` lets one card read another's memory.
 """
 
@@ -61,12 +62,18 @@ _SIGNATURES = {
     # the same with the stage in place of cluster
     "ckks_coeff_cross": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _P],
+    # in, out, shards, tw, twp, q, fin, finp, planes, channels, log_n,
+    # log_s, inverse, stream
+    "ckks_coeff_cross_stages": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 _SIGNATURES.update({f"{name}64": sig for name, sig in list(_SIGNATURES.items())})
 # x, x_stride, out, w_first, w_second, t, t_shoup, rs, q, qinv, outer,
 # channels, rows, inverse, stream
 _SIGNATURES["ckks_ntt_mxu"] = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _P]
+# outer, channels, rows, inverse, int info[8] (csrc/ntt_mxu.cu: the kernel
+# ckks_ntt_mxu launches)
+_SIGNATURES["ckks_ntt_mxu_info"] = [_I, _I, _I, _I, _P]
 _SIGNATURES["ckks_enable_peer_access"] = [_I, _I]
 # kernel id, int info[6] (csrc/ntt_cluster.cuh cluster_info)
 _SIGNATURES["ckks_cluster_info"] = [_I, _P]

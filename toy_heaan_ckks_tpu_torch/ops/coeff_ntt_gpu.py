@@ -11,24 +11,31 @@ tuple of the P slab tensors. With log2 P cross stages:
   butterflies never leave a slab: forward in increasing, inverse in
   decreasing order;
 - ``coeff_cross`` (K11) runs one stage st < log2 P, whose distance
-  d = N >> (st + 1) >= S pairs slab p with slab p ^ (d / S).
+  d = N >> (st + 1) >= S pairs slab p with slab p ^ (d / S);
+- ``coeff_cross_stages`` (K11) runs every cross stage of a transform: in
+  one launch where all P slabs lie on one card and P <=
+  ``STAGES_MAX_SHARDS`` (a thread holds an offset's P words in registers:
+  each word read and written once), else one ``coeff_cross`` launch a
+  stage and card.
 
 Both take the whole plane's compact twiddles at the slab's global offset,
 so their words equal the unsharded transform's, and an optional
 per-channel ``final`` factor (the inverse's N^{-1}, or folded constants)
 applied after their butterflies. The kernels are ``csrc/coeff_ntt.cuh``
-(``ckks_coeff_tail`` / ``ckks_coeff_cross`` in ``coeff_ntt.cu`` on uint32
-words for int32 slabs, the ``64`` entries in ``coeff_ntt64.cu`` on uint64
-words for int64 slabs); the twins are the staged torch butterflies of
-``ops/ntt.py`` restricted to one slab and the slab exchange
-``slabs[p ^ shift]``. CPU slabs go to the twin and CUDA slabs to the
+(``ckks_coeff_tail`` / ``ckks_coeff_cross`` / ``ckks_coeff_cross_stages``
+in ``coeff_ntt.cu`` on uint32 words for int32 slabs, the ``64`` entries in
+``coeff_ntt64.cu`` on uint64 words for int64 slabs); the twins are the
+staged torch butterflies of ``ops/ntt.py`` restricted to one slab and the
+slab exchange ``slabs[p ^ shift]``. CPU slabs go to the twin and CUDA slabs to the
 kernel, with no fallback either way. K10 runs a slab as a plane whose
 twiddles start at the slab's lead, in the form ``slab_form`` picks: one
 block of register passes a slab, or a thread-block cluster of them
 (``csrc/ntt_cluster.cuh``), or, below 2^10 words, the one-barrier-a-stage
 template. One launch covers the shards on one device; each wrapper counts
-its launches in ``launches``, K10 its cluster launches also in
-``launches_cluster`` (K11 launches no cluster).
+its launches in ``launches`` (so ``coeff_cross.launches`` counts the
+per-stage form and ``coeff_cross_stages.launches`` the one-launch form),
+K10 its cluster launches also in ``launches_cluster`` (K11 launches no
+cluster).
 """
 
 from __future__ import annotations
@@ -49,6 +56,9 @@ MAX_SHARDS = 64  # the kernels' Slabs parameter holds this many pointers
 # 0.0125; 128 of 2^13: one block each 0.0091, C = 4 0.0120; device time,
 # tools/kernel_ab.py --k10-forms)
 SLAB_FILL = 66
+# the most shards K11's one-launch form takes (csrc/coeff_ntt.cuh
+# kStagesMaxShards: a thread holds P words in registers)
+STAGES_MAX_SHARDS = 16
 
 
 def slab_form(wide: bool, log_s: int, slabs: int) -> str:
@@ -187,6 +197,28 @@ def coeff_cross_twin(slabs, moduli, degree: int, stage: int, inverse: bool,
     return tuple(out)
 
 
+def coeff_cross_stages_twin(slabs, moduli, degree: int, inverse: bool,
+                            final=None) -> tuple:
+    """Plain torch version of K11's one-launch form: ``coeff_cross_twin``
+    over every cross stage, forward 0 .. log2 P - 1, inverse in reverse,
+    with ``final`` on the last stage's words."""
+    stages = _cross_order("coeff_cross_stages", len(slabs), degree, inverse)
+    for st in stages:
+        slabs = coeff_cross_twin(slabs, moduli, degree, st, inverse,
+                                 final if st == stages[-1] else None)
+    return tuple(slabs)
+
+
+def _cross_order(name: str, shards: int, degree: int, inverse: bool) -> range:
+    """The cross stages of a transform in the order they run; raises at
+    P = 1, which has none."""
+    log_n, log_s = slab_layout(shards, degree)
+    if log_n == log_s:
+        raise ValueError(f"{name}: one shard has no cross stage")
+    cross = log_n - log_s
+    return range(cross - 1, -1, -1) if inverse else range(cross)
+
+
 def _groups(slabs) -> dict:
     """Shard indices by device, in shard order."""
     groups: dict = {}
@@ -201,16 +233,34 @@ def _enable_peer(device: int, peer: int) -> None:
                  "enable peer access")
 
 
-def _launch(wrapper, slabs, moduli, degree: int, inverse: bool, final,
-            stage: int | None) -> tuple:
-    """Shared body of the two wrappers: validate, then the twin (CPU) or
-    one kernel launch per device (CUDA), each counted on ``wrapper``."""
-    name = wrapper.__name__
-    slabs, moduli = tuple(slabs), tuple(int(m) for m in moduli)
-    log_n, log_s, wide, planes = _check(name, slabs, moduli, degree)
+def _check_final(name: str, final, moduli: tuple) -> None:
     if final is not None and len(final) != len(moduli):
         raise ValueError(f"{name}: {len(final)} final factors for "
                          f"{len(moduli)} channels")
+
+
+def _tables(moduli: tuple, degree: int, dev, wide: bool, inverse: bool, final) -> tuple:
+    """(tw, twp, q, fin, finp) of a launch on ``dev``: the direction's
+    compact twiddles, the moduli and the final factors (None without
+    them)."""
+    rbits = 64 if wide else 32
+    kt = kernel_tables(moduli, degree, dev, rbits)
+    tw, twp = (kt.inv, kt.inv_shoup) if inverse else (kt.fwd, kt.fwd_shoup)
+    fin = finp = None
+    if final is not None:
+        fin, finp = final_consts(moduli, tuple(int(f) for f in final), dev, rbits)
+    return tw, twp, kt.q, fin, finp
+
+
+def _launch(wrapper, slabs, moduli, degree: int, inverse: bool, final,
+            stage: int | None) -> tuple:
+    """Shared body of K10's and K11's per-stage wrappers: validate, then
+    the twin (CPU) or one kernel launch per device (CUDA), each counted on
+    ``wrapper``."""
+    name = wrapper.__name__
+    slabs, moduli = tuple(slabs), tuple(int(m) for m in moduli)
+    log_n, log_s, wide, planes = _check(name, slabs, moduli, degree)
+    _check_final(name, final, moduli)
     if slabs[0].device.type == "cpu":
         if stage is None:
             return coeff_tail_twin(slabs, moduli, degree, inverse, final)
@@ -220,7 +270,6 @@ def _launch(wrapper, slabs, moduli, degree: int, inverse: bool, final,
                          f"{SLICE_BYTES} bytes of shared memory")
     if stage is not None and not 0 <= stage < log_n - log_s:
         raise ValueError(f"{name}: stage {stage} is not a cross stage")
-    rbits = 64 if wide else 32
     out = tuple(torch.empty_like(t) for t in slabs)
     if not planes:
         return out
@@ -243,14 +292,9 @@ def _launch(wrapper, slabs, moduli, degree: int, inverse: bool, final,
     ins, outs = _build.ptr_array(slabs), _build.ptr_array(out)
     channels = len(moduli)
     for dev, ids in groups.items():
-        kt = kernel_tables(moduli, degree, dev, rbits)
-        tw, twp = (kt.inv, kt.inv_shoup) if inverse else (kt.fwd, kt.fwd_shoup)
-        fin = finp = None
-        if final is not None:
-            fin, finp = final_consts(moduli, tuple(int(f) for f in final), dev, rbits)
-        p = _build.ptr
-        args = [ins, outs, _build.int_array(ids), len(ids), len(slabs), p(tw),
-                p(twp), p(kt.q), p(fin), p(finp), planes, channels, log_n, log_s]
+        tabs = _tables(moduli, degree, dev, wide, inverse, final)
+        args = [ins, outs, _build.int_array(ids), len(ids), len(slabs),
+                *map(_build.ptr, tabs), planes, channels, log_n, log_s]
         cluster = stage is None and slab_form(wide, log_s, planes * len(ids)) == "cluster"
         args.append(stage if stage is not None else int(cluster))
         with torch.cuda.device(dev):
@@ -286,5 +330,42 @@ def coeff_cross(slabs, moduli, degree: int, stage: int, inverse: bool,
     return _launch(coeff_cross, slabs, moduli, degree, inverse, final, stage)
 
 
+def coeff_cross_stages(slabs, moduli, degree: int, inverse: bool,
+                       final=None) -> tuple:
+    """K11 over every cross stage of a transform of P >= 2 slabs: forward
+    stages 0 .. log2 P - 1, or inverse stages log2 P - 1 .. 0, then the
+    optional ``final`` factors. Returns new slabs. On CUDA slabs that all
+    lie on one card with P <= ``STAGES_MAX_SHARDS``: one launch of the
+    one-launch form, counted in ``coeff_cross_stages.launches``; otherwise
+    one ``coeff_cross`` launch a stage and card (counted there)."""
+    name = "coeff_cross_stages"
+    slabs, moduli = tuple(slabs), tuple(int(m) for m in moduli)
+    log_n, log_s, wide, planes = _check(name, slabs, moduli, degree)
+    stages = _cross_order(name, len(slabs), degree, inverse)
+    _check_final(name, final, moduli)
+    if slabs[0].device.type == "cpu":
+        return coeff_cross_stages_twin(slabs, moduli, degree, inverse, final)
+    groups = _groups(slabs)
+    if len(groups) > 1 or len(slabs) > STAGES_MAX_SHARDS:
+        for st in stages:
+            slabs = coeff_cross(slabs, moduli, degree, st, inverse,
+                                final if st == stages[-1] else None)
+        return slabs
+    out = tuple(torch.empty_like(t) for t in slabs)
+    if not planes:
+        return out
+    dev = slabs[0].device
+    entry = getattr(_build.library(), f"ckks_{name}{'64' if wide else ''}")
+    tabs = _tables(moduli, degree, dev, wide, inverse, final)
+    with torch.cuda.device(dev):
+        rc = entry(_build.ptr_array(slabs), _build.ptr_array(out), len(slabs),
+                   *map(_build.ptr, tabs), planes, len(moduli), log_n, log_s,
+                   int(inverse), _build.stream(dev))
+    _build.check(rc, name)
+    coeff_cross_stages.launches += 1
+    return out
+
+
 coeff_tail.launches = coeff_tail.launches_cluster = 0
 coeff_cross.launches = coeff_cross.launches_cluster = 0
+coeff_cross_stages.launches = coeff_cross_stages.launches_cluster = 0

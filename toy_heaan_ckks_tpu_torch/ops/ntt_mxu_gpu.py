@@ -1,11 +1,15 @@
 """K9: the matrix-product NTT as a CUDA tensor-core kernel, with its twin.
 
 Counterpart of ``toy_heaan_ckks_tpu/ops/ntt_mxu.py`` (``_mxu_kernel``,
-``ntt_mxu_pallas``). The kernel is ``csrc/ntt_mxu.cu`` (``ckks_ntt_mxu``:
-one block per (channel, item) plane, channel-major grid, u8 x u8 -> s32
-``mma.sync``); the twin is ``ntt_mxu.ntt_mxu``. ``ntt_mxu_planes`` sends a
-CPU tensor to the twin and launches the kernel for a CUDA tensor, with no
-fallback from one to the other, and raises outside ``supported_mxu``.
+``ntt_mxu_pallas``). The kernel is ``csrc/ntt_mxu.cu`` (``ckks_ntt_mxu``,
+u8 x u8 -> s32 ``mma.sync``): for R = N / 128 <= 128 a block of 16 warps
+owns one channel and a run of its planes, with both matrices' limbs in
+shared memory once a block (``ntt_mxu_run_kernel``); at R = 256 one block
+per (channel, item) plane (``ntt_mxu_kernel``); ``mxu_form`` reports which
+and its launch shape. The twin is ``ntt_mxu.ntt_mxu``. ``ntt_mxu_planes``
+sends a CPU tensor to the twin and launches the kernel for a CUDA tensor,
+with no fallback from one to the other, and raises outside
+``supported_mxu``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ def ntt_mxu_planes(x: torch.Tensor, moduli, degree: int, inverse: bool,
     ``post`` the plain ``mont_mul(iNTT(x), post)`` of
     ``small_fast.inv_ntt_fold``. Output canonical, contiguous, equal to
     K1's words. ``launches`` counts the kernel's launches;
-    ``launches_cluster`` stays 0 (one block per plane)."""
+    ``launches_cluster`` stays 0 (no kernel of K9 runs on a cluster)."""
     moduli = tuple(int(m) for m in moduli)
     if not supported_mxu(degree, moduli):
         raise ValueError(
@@ -62,3 +66,23 @@ def ntt_mxu_planes(x: torch.Tensor, moduli, degree: int, inverse: bool,
 
 
 ntt_mxu_planes.launches = ntt_mxu_planes.launches_cluster = 0
+
+MXU_INFO = ("run_kernel", "planes_a_block", "blocks", "regs_per_thread",
+            "local_bytes_per_thread", "threads_per_block", "smem_bytes_per_block",
+            "blocks_per_sm")
+
+
+def mxu_form(outer: int, channels: int, degree: int, inverse: bool) -> dict:
+    """The kernel ``ntt_mxu_planes`` launches on the current card for
+    ``outer`` items of ``channels`` planes of N = ``degree``, as built
+    (``ckks_ntt_mxu_info``): whether it is the channel-run kernel, its
+    planes a block and blocks, and its registers, spill, threads, shared
+    bytes and resident blocks an SM."""
+    import ctypes
+
+    from .ntt_mxu import layout
+
+    buf = (ctypes.c_int * len(MXU_INFO))()
+    _build.check(_build.library().ckks_ntt_mxu_info(
+        outer, channels, layout(degree)[0], int(inverse), buf), "ckks_ntt_mxu_info")
+    return dict(zip(MXU_INFO, buf))

@@ -9,8 +9,8 @@ decomposition's basis extension, the key products and the mod-down's
 combine are pointwise, so they run on each slab with ``ops/modular``'s
 operations (jnp under GSPMD in the reference); keys are sharded on N like
 the data, so each shard holds its N/P slice of the key material. The channel
-NTTs are the coefficient-sharded NTT of ``coeff_ntt.py`` (K11 cross stages
-and one K10 tail per transform). The rotation's NTT-domain automorphism
+NTTs are the coefficient-sharded NTT of ``coeff_ntt.py`` (the K11 cross
+stages, one launch on one card, and one K10 tail per transform). The rotation's NTT-domain automorphism
 permutes the whole N axis: it gathers the plane and takes each shard's
 slice of the permutation (the reference's ``jnp.take``), torch glue.
 

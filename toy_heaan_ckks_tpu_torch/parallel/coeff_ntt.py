@@ -5,11 +5,12 @@ Counterpart of ``toy_heaan_ckks_tpu/parallel/coeff_ntt.py``
 shards of S = N / P contiguous coefficients, the in-place distance-d
 butterfly stages split cleanly: the first log2 P stages (d >= S) pair slab p
 with slab p ^ (d / S) at the same offset, and the rest (d < S) stay inside
-a slab. The forward runs the cross stages first, one K11 launch each
-(``coeff_ntt_gpu.coeff_cross``), then every local stage in one K10 launch
-(``coeff_ntt_gpu.coeff_tail``); the inverse runs K10 first, then the cross
-stages in reverse, and folds N^{-1} (or the caller's per-channel factors)
-into its last launch. The words equal the unsharded transform's
+a slab. The forward runs the cross stages first
+(``coeff_ntt_gpu.coeff_cross_stages``: one K11 launch where every shard
+lies on one card, else one a stage and card), then every local stage in
+one K10 launch (``coeff_ntt_gpu.coeff_tail``); the inverse runs K10 first,
+then the cross stages in reverse, and folds N^{-1} (or the caller's
+per-channel factors) into its last launch. The words equal the unsharded transform's
 (``ntt_gpu.ntt_planes`` / ``ntt_planes_wide``).
 
 The reference's ``use_pallas``, ``interpret`` and ``remote_dma`` switches
@@ -24,7 +25,7 @@ import torch
 
 from ..ops import _build as build
 from ..ops import modular as mm
-from ..ops.coeff_ntt_gpu import coeff_cross, coeff_tail, slab_layout
+from ..ops.coeff_ntt_gpu import coeff_cross_stages, coeff_tail, slab_layout
 from .mesh import CoeffMesh
 
 
@@ -39,15 +40,13 @@ def coeff_ntt(slabs, moduli, degree: int, inverse: bool, final=None) -> tuple:
     if not inverse:
         if final is not None:
             raise ValueError("coeff_ntt: a final factor needs inverse=True")
-        for st in range(cross):
-            slabs = coeff_cross(slabs, moduli, degree, st, False)
+        if cross:
+            slabs = coeff_cross_stages(slabs, moduli, degree, False)
         return coeff_tail(slabs, moduli, degree, False)
     if final is None:
         final = tuple(pow(degree, -1, q) for q in moduli)
     slabs = coeff_tail(slabs, moduli, degree, True, final if cross == 0 else None)
-    for st in range(cross - 1, -1, -1):
-        slabs = coeff_cross(slabs, moduli, degree, st, True, final if st == 0 else None)
-    return slabs
+    return coeff_cross_stages(slabs, moduli, degree, True, final) if cross else slabs
 
 
 def _build(mesh: CoeffMesh, moduli, degree: int, inverse: bool, wide: bool):
