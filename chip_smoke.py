@@ -92,6 +92,18 @@ equal to ``launches``; ``read_counts``).
    big-wide paths (64 uint32
    slabs of 2^14 and 48 uint64 slabs of 2^13 a launch) and on none on the
    small one (2,048 slabs of 2^11), and no other kernel on a cluster;
+3e. mesh: the batch x channel mesh (``make_ckks_mesh(8, batch)``, every
+   grid point on the card) through ``build_mul_relin_rescale`` on phase
+   3's batch and relin key, small on batch 2 (channels split over 4, keys
+   and the 7-channel output replicated) and batch 4 (channels and keys
+   split over 2, output replicated), wide on batch 2 (channels and keys
+   split over 4), and ``build_rotate`` by 1 on phase 3b's small batch and
+   key on batch 4; each output equal to the unsharded path's word for
+   word with the builder's output spec, the multiplies' decode within the
+   path's bound, and, with the counts set to 0 just before each call and
+   read just after, every kernel of the path launched (K1, K2, K3 / K3'
+   small; K5 / K7, K6, K8 wide), K2 / K6 on the digit ranges the plan
+   deals at each batch point (``MESH_CALLS``), no K9, K10 or K11;
 4. the multiply composite (mults/s at the path's batch, latency at
    batch 1), timed first, before the process first runs torch.profiler;
    CUDA-event timings of each kernel (its device time from torch.profiler
@@ -113,7 +125,10 @@ equal to ``launches``; ``read_counts``).
    each (block or cluster, blocks a slab, registers, resident slabs; the
    K10 row's ``shapes``),
    and the big coeff
-   multiply beside the unsharded one, with its profile. The small K1,
+   multiply beside the unsharded one, with its profile; the small mesh
+   multiplies of phase 3e at batch 32 beside the unsharded one (CUDA
+   events, before the first profiler window, with the card's name and
+   power limit) and their profiler splits. The small K1,
    K2, K3 and K3' rows also carry their register-pass kernel's registers,
    spill bytes, threads and shared memory a block, resident blocks an SM
    and SASS counts (beside the template's uint32 one-block form; K1's
@@ -1179,6 +1194,125 @@ def time_coeff(run: dict, coeff_run: dict, shards: int) -> None:
     profile_composite(f"{BIG.name}-coeff P {shards} composite batch {B}", coeff_run["mul"])
 
 
+# phase 3e: (path, batch axis of make_ckks_mesh(8, ...), the rotation
+# instead of the multiply, the digit ranges K2 / K6 launch on at each batch
+# point: D = 2 replicated over 4 channel points (batch 2), split over 2
+# (batch 4); wide D = 4 split over 4)
+MESH_CALLS = ((SMALL, 2, False, ((0, 1), (1, 2))),
+              (SMALL, 4, False, ((0, 1), (1, 2))),
+              (SMALL, 4, True, ((0, 1), (1, 2))),
+              (WIDE, 2, False, ((0, 1), (1, 2), (2, 3), (3, 4))))
+
+
+def run_mesh(cfg: PathConfig, batch_axis: int, rotate: bool, ranges: tuple, dev,
+             run: dict, rot_run: dict, counters, wide: bool) -> dict:
+    """Phase 3e on one call: phase 3's batch and relin key (or phase 3b's
+    rotation batch and key) sharded on ``make_ckks_mesh(8, batch_axis)``
+    with every grid point on the card, through ``build_mul_relin_rescale``
+    (``ct_spec_for`` / ``key_spec_for`` in, ``ct_spec_for(mesh, L - 1)``
+    out) or ``build_rotate`` by 1 (``ct_spec`` / ``key_spec``). The output
+    must equal the unsharded path's word for word and carry its spec, the
+    multiply's decode stay within the path's bound; every count is set to
+    0 just before the call and read just after: every kernel of the path
+    launched, K2 / K6 on the digit ranges ``ranges`` at each batch point,
+    no K9, K10 or K11."""
+    import numpy as np
+    import torch
+
+    from toy_heaan_ckks_tpu_torch.ops.coeff_ntt_gpu import (
+        coeff_cross, coeff_cross_stages, coeff_tail,
+    )
+    from toy_heaan_ckks_tpu_torch.ops.ntt_mxu_gpu import ntt_mxu_planes
+    from toy_heaan_ckks_tpu_torch.ops.poly import Poly
+    from toy_heaan_ckks_tpu_torch.parallel.mesh import (
+        ct_spec, ct_spec_for, key_spec, key_spec_for, make_ckks_mesh, shard, unshard,
+    )
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import (
+        build_mul_relin_rescale, build_rotate,
+    )
+    from toy_heaan_ckks_tpu_torch.types import Ciphertext
+
+    ctx, child, n = run["ctx"], run["child"], cfg.degree
+    L = ctx.num_channels
+    mesh = make_ckks_mesh(8, batch=batch_axis, devices=dev)
+    label = f"[{cfg.name}-mesh {batch_axis}x{8 // batch_axis}]"
+    if rotate:
+        rk = rot_run["rotk"]
+        perm = ctx.automorphism_table_ntt(pow(5, rk.rotation % (n // 2), 2 * n))
+        fn = build_rotate(mesh, ctx, rk.ext_ctx, perm, rk.digit_size)
+        name, out_spec = "build_rotate", ct_spec(mesh)
+        args = ([shard(t, ct_spec(mesh)) for t in rot_run["batch"]]
+                + [shard(k, key_spec(mesh)) for k in (rk.a, rk.b)])
+        want = rot_run["outputs"]["batched"]
+    else:
+        rlk = run["rlk"]
+        fn = build_mul_relin_rescale(mesh, ctx, rlk.ext_ctx, rlk.digit_size)
+        name, out_spec = "build_mul_relin_rescale", ct_spec_for(mesh, L - 1)
+        args = ([shard(t, ct_spec_for(mesh, L)) for t in run["batch"]]
+                + [shard(k, key_spec_for(mesh, rlk.a.shape[0])) for k in (rlk.a, rlk.b)])
+        want = run["outputs"]["batched"]
+    switch = counters[1]
+    others = (ntt_mxu_planes, coeff_tail, coeff_cross, coeff_cross_stages)
+    zero_counts(counters + others)
+    switch.digit_ranges.clear()
+    t0 = time.perf_counter()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(cfg, counters, wide)
+    counts.update({f.__name__: f.launches for f in others})
+    dealt = sorted(switch.digit_ranges)
+    print(f"{label} {name}: {wall:.3f} s (first call); launches {counts}; "
+          f"{switch.__name__} digit ranges {dealt}; in {args[0].spec.axes}, keys "
+          f"{args[-1].spec.axes}, out {got[0].spec.axes}")
+    if min(counts[f.__name__] for f in counters) < 1 or any(f.launches for f in others):
+        raise AssertionError(f"{label} {name}: every kernel of the path must launch "
+                             f"and no K9, K10 or K11: {counts}")
+    if dealt != sorted(ranges * batch_axis):
+        raise AssertionError(f"{label} {name}: digit ranges {dealt}, the plan deals "
+                             f"{list(ranges)} at each of {batch_axis} batch points")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.spec != out_spec:
+            raise AssertionError(f"{label} {name}[{i}]: out spec {g.spec.axes}")
+        _same(f"{label} {name}[{i}]", unshard(g), w, "sharded composite == unsharded path")
+    if not rotate:
+        o0, o1 = (unshard(t) for t in got)
+        sk_child = run["sk"].reduce_to(child)
+        enc, eng, single = run["enc"], run["eng"], run["mul_ct"]
+        max_err = 0.0
+        for i in range(2):
+            ct = Ciphertext(c0=Poly(o0[i], child, True), c1=Poly(o1[i], child, True),
+                            logp=single.logp, logq=single.logq, scale=single.scale)
+            dec = enc.decode(eng.decrypt(ct, sk_child))
+            if dec.shape != (n // 2,) or not np.all(np.isfinite(dec)):
+                raise AssertionError(f"{label} decode {i}: bad shape or non-finite values")
+            max_err = max(max_err, float(np.max(np.abs(
+                dec - run["values"][i] * run["values_b"][i]))))
+        print(f"{label} decode max |err| vs a*b over 2 items: {max_err:.3e} "
+              f"(bound {cfg.max_decode_err})")
+        if max_err > cfg.max_decode_err:
+            raise AssertionError(f"{label} decode error {max_err} > {cfg.max_decode_err}")
+    return dict(call=lambda: fn(*args), launches=counts, label=label)
+
+
+def time_mesh(run: dict, mesh_runs: dict) -> None:
+    """Phase 4: ms per call of the small mesh multiplies at the path's batch
+    beside the unsharded multiply, CUDA events in one loop each, before the
+    process's first profiler window."""
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import batched_mul_relin_rescale
+
+    ctx, child, rlk = run["ctx"], run["child"], run["rlk"]
+    a0, a1, b0, b1 = run["batch"]
+    unsharded_ms = _cuda_ms(
+        lambda: batched_mul_relin_rescale((a0, a1), (b0, b1), rlk, ctx, child), 10)
+    times = {label: _cuda_ms(call, 10) for label, call in mesh_runs.items()}
+    parts = "; ".join(f"{label} {ms:.4f} ms = {SMALL.batch * 1000 / ms:.1f} mults/s"
+                      for label, ms in times.items())
+    print(f"time [{SMALL.name}-mesh] composite batch {SMALL.batch} ({_smi('name,power.limit')}): "
+          f"{parts}; unsharded {unsharded_ms:.4f} ms = "
+          f"{SMALL.batch * 1000 / unsharded_ms:.1f} mults/s")
+
+
 def time_composite(cfg: PathConfig, run: dict) -> None:
     """mults/s of the batched multiply at the path's batch and its batch-1
     latency."""
@@ -1705,6 +1839,14 @@ def main() -> int:
                                       *runs[cfg.name], small_counters + wide_counters)
                   for cfg, shards, rotate, tail_clusters in COEFF_PATHS}
 
+    # ── phase 3e: the batch x channel mesh on the card ─────────────────
+    t0 = time.perf_counter()
+    paths = {SMALL.name: (small_run, small_rot, small_counters, False),
+             WIDE.name: (wide_run, wide_rot, wide_counters, True)}
+    mesh_runs = [run_mesh(cfg, batch_axis, rotate, ranges, dev, *paths[cfg.name])
+                 for cfg, batch_axis, rotate, ranges in MESH_CALLS]
+    print(f"phase 3e (mesh): {time.perf_counter() - t0:.1f} s")
+
     # ── phase 4: timings (CUDA events, after warm-up) ───────────────────
     small_names = {
         "inverse+fold": ("ntt_planes", "csrc/ntt.cu",
@@ -1766,6 +1908,8 @@ def main() -> int:
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
                      (BIG_WIDE, big_wide_run)):
         time_composite(cfg, run)
+    time_mesh(small_run, {r["label"]: r["call"] for (cfg, _, rotate, _), r
+                          in zip(MESH_CALLS, mesh_runs) if cfg is SMALL and not rotate})
     rows = time_path(SMALL, small_cases, small_errs, small_run,
                      small_rot["launches"], small_names, int_ops_per_s, twin_iters=5)
     time_no_d(SMALL, rows, small_no_d, int_ops_per_s, twin_iters=2)
@@ -1809,6 +1953,9 @@ def main() -> int:
                                              run["batch"])
         profile_composite(f"{cfg.name} composite batch {cfg.batch}", lambda:
                           batched_mul_relin_rescale((a0, a1), (b0, b1), rlk, ctx, child))
+    for (cfg, _, rotate, _), r in zip(MESH_CALLS, mesh_runs):
+        if cfg is SMALL and not rotate:
+            profile_composite(f"{r['label'][1:-1]} composite batch {SMALL.batch}", r["call"])
     time_rotation(SMALL, small_run, small_rot, iters=5)
     time_rotation(WIDE, wide_run, wide_rot, iters=3)
     time_rotation(BIG, big_run, big_rot, iters=3)

@@ -1038,3 +1038,93 @@ def test_coeff_composites_across_cards(dev, bits, count, digit_size):
     for g, w in zip(got + rot, want + rot_want):
         assert [t.device for t in g] == cards
         assert torch.equal(unshard_planes(g).to(dev), w)
+
+
+# ── the batch x channel mesh ─────────────────────────────────────────────
+
+# (prime bits, count, digit_size, the rotation mesh's points and batch axis):
+# the rotation's key_spec splits D digits over its channel axis
+MESH_CHAINS = [(31, 4, 2, 8, 4), (61, 3, 1, 3, 1)]
+
+
+def _mesh_case(dev, bits, count, digit_size, degree=1 << 12):
+    ctx = port.CkksContext.build(port.generate_primes(bits, count, degree), degree, dev)
+    eng = port.CkksEngine(ctx, port.CkksParams(3.2, degree // 2, 30))
+    rng = make_rng(42)
+    sk = eng.generate_secret_key(rng)
+    rlk = eng.generate_gadget_relin_key(sk, rng, digit_size=digit_size)
+    rotk = eng.generate_gadget_rotation_key(sk, 1, rng, digit_size=digit_size)
+    args = [_planes(40 + i, ctx.moduli, degree, (4,), dev, rlk.a.dtype) for i in range(4)]
+    return ctx, rlk, rotk, args
+
+
+def _mesh_calls(ctx, rlk, rotk, args, mul_devices, rot_devices, rot_batch):
+    """The sharded multiply on make_ckks_mesh(len(mul_devices), batch=2)
+    and the rotation by 1 on make_ckks_mesh(len(rot_devices), rot_batch),
+    each output unsharded."""
+    from toy_heaan_ckks_tpu_torch.parallel import mesh as pm
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import (
+        build_mul_relin_rescale, build_rotate,
+    )
+
+    L, n = ctx.num_channels, ctx.degree
+    m = pm.make_ckks_mesh(len(mul_devices), batch=2, devices=mul_devices)
+    data_s, key_s = pm.ct_spec_for(m, L), pm.key_spec_for(m, rlk.a.shape[0])
+    mul = build_mul_relin_rescale(m, ctx, rlk.ext_ctx, rlk.digit_size)(
+        *(pm.shard(a, data_s) for a in args), pm.shard(rlk.a, key_s),
+        pm.shard(rlk.b, key_s))
+    r = pm.make_ckks_mesh(len(rot_devices), batch=rot_batch, devices=rot_devices)
+    perm = ctx.automorphism_table_ntt(pow(5, 1, 2 * n))
+    rot = build_rotate(r, ctx, rotk.ext_ctx, perm, rotk.digit_size)(
+        pm.shard(args[0], pm.ct_spec(r)), pm.shard(args[1], pm.ct_spec(r)),
+        pm.shard(rotk.a, pm.key_spec(r)), pm.shard(rotk.b, pm.key_spec(r)))
+    return [pm.unshard(t) for t in mul + rot], perm
+
+
+@pytest.mark.parametrize("bits,count,digit_size,rot_points,rot_batch", MESH_CHAINS)
+def test_mesh_composites_match_cpu_twin(dev, bits, count, digit_size, rot_points,
+                                        rot_batch):
+    """At N = 2^12, every grid point on the card: the sharded multiply
+    (make_ckks_mesh(8, batch=2)) and rotation by 1 equal the unsharded
+    composites run as the twins on the CPU word for word, and K2 / K6
+    launched on each point's digit range."""
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import (
+        _mul_relin_rescale_arrays, _rotate_arrays,
+    )
+
+    ctx, rlk, rotk, args = _mesh_case(dev, bits, count, digit_size)
+    switch = (keyswitch_gpu.gadget_accumulate if ctx.chain.small
+              else keyswitch_gpu.gadget_accumulate_wide)
+    switch.digit_ranges.clear()
+    got, perm = _mesh_calls(ctx, rlk, rotk, args, [dev] * 8, [dev] * rot_points,
+                            rot_batch)
+    D = rlk.a.shape[0]
+    assert sorted(set(switch.digit_ranges)) == [(t, t + 1) for t in range(D)]
+    cpu = torch.device("cpu")
+    cctx = port.CkksContext.build(ctx.moduli, ctx.degree, cpu)
+    ext = port.CkksContext.build(rlk.ext_ctx.moduli, ctx.degree, cpu)
+    rext = port.CkksContext.build(rotk.ext_ctx.moduli, ctx.degree, cpu)
+    a = [t.cpu() for t in args]
+    want = list(_mul_relin_rescale_arrays(*a, rlk.a.cpu(), rlk.b.cpu(), cctx, ext,
+                                          cctx.drop_last(1), digit_size))
+    want += _rotate_arrays(a[0], a[1], rotk.a.cpu(), rotk.b.cpu(), perm.cpu(), cctx,
+                           rext, digit_size)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("bits,count,digit_size,rot_points,rot_batch", MESH_CHAINS)
+def test_mesh_across_cards(dev, bits, count, digit_size, rot_points, rot_batch):
+    """The same calls with the grid points dealt over every card (two or
+    more): the collectives copy blocks card to card, and the words equal
+    the mesh on one card."""
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip("needs 2 CUDA devices")
+    cards = _cards(k)
+    ctx, rlk, rotk, args = _mesh_case(dev, bits, count, digit_size)
+    spread, _ = _mesh_calls(ctx, rlk, rotk, args, [cards[p % k] for p in range(8)],
+                            [cards[p % k] for p in range(rot_points)], rot_batch)
+    one, _ = _mesh_calls(ctx, rlk, rotk, args, [dev] * 8, [dev] * rot_points, rot_batch)
+    for g, w in zip(spread, one):
+        assert torch.equal(g.to(dev), w)

@@ -3,8 +3,10 @@
 Ported so far: keygen, encrypt and decrypt; the fused CKKS multiply
 (hybrid gadget relinearization and rescale); rotations, conjugation and
 hoisted rotation sums with hybrid key switching; the plaintext and level
-ops around them; on small-prime chains (all q < 2^31: int32 planes,
-R = 2^32) and wide ones (q < 2^63: int64 planes, R = 2^64). Module paths
+ops around them; the per-level ``KeyLadder``; the batch x channel and
+coefficient meshes with their sharded multiply and rotation; on
+small-prime chains (all q < 2^31: int32 planes, R = 2^32) and wide ones
+(q < 2^63: int64 planes, R = 2^64). Module paths
 and names follow the JAX package; each module's docstring names its
 counterpart. Residues are Montgomery-form planes (..., L, N), NTT-resident
 in the reference's tree order, bit-identical to the reference's uint32
@@ -16,6 +18,7 @@ from .context import CkksContext
 from .encoding.encoder import CkksEncoder
 from .engine import CkksEngine, CkksParams
 from .keys import (
+    KeyLadder,
     PublicKey,
     RnsGadgetConjugationKey,
     RnsGadgetRelinKey,
@@ -33,6 +36,7 @@ __all__ = [
     "CkksEngine",
     "CkksParams",
     "Ciphertext",
+    "KeyLadder",
     "Plaintext",
     "Poly",
     "PublicKey",

@@ -2,9 +2,10 @@
 
 Counterpart of ``toy_heaan_ckks_tpu/keys.py`` for the keys of the fused
 multiply, rotations and conjugation (the gadget relin, rotation and
-conjugation keys; the legacy single-pair keys and ``KeyLadder`` are not
-ported). The keys draw from the caller's numpy Generator in the
-reference's order, so one seed gives bit-identical keys in both packages.
+conjugation keys) and for the per-level ``KeyLadder`` / ``LevelKeys``;
+the legacy single-pair keys are not ported. The keys draw from the
+caller's numpy Generator in the reference's order, so one seed gives
+bit-identical keys in both packages.
 Gadget keys are stored as (D, E, N) NTT-domain Montgomery stacks (digit,
 channel incl. specials, coefficient) of the extended chain's dtype (int32
 with R = 2^32 when every prime is below 2^31, else int64 with R = 2^64)
@@ -301,3 +302,92 @@ class RnsGadgetConjugationKey:
             sk, sk.poly.conjugate(), std_dev, ctx, rng, special, specials,
             digit_size,
         ))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LevelKeys:
+    """Key material specialised to one RNS level."""
+
+    ctx: CkksContext
+    sk: SecretKey
+    pk: PublicKey
+    rlk: RnsGadgetRelinKey
+    rot: dict  # rotation offset -> RnsGadgetRotationKey
+
+
+class KeyLadder:
+    """Per-level key ladder (eager or lazy).
+
+    Level l's secret key is the channel-truncated master secret, and fresh
+    pk / rlk / rotation keys are drawn for each level from the caller's
+    Generator, in the reference's order (levels from the top down when
+    eager, in the order of ``at_level`` calls when ``lazy``), so one seed
+    gives the reference's keys word for word. ``lazy=True`` defers a
+    level's keys to its first ``at_level`` call; ``memory_bytes()``
+    reports the bytes the generated keys hold.
+    """
+
+    def __init__(self, master_ctx: CkksContext, sk: SecretKey,
+                 error_variance: float, rng: np.random.Generator,
+                 rotations: tuple = (), min_level: int = 1, lazy: bool = False,
+                 digit_size: int = 1):
+        self.levels: dict[int, LevelKeys] = {}
+        self._std = float(error_variance) ** 0.5
+        self._sk = sk
+        self._rng = rng
+        self._rotations = tuple(rotations)
+        self.digit_size = digit_size
+        self._min_level = max(1, min_level)
+        self._ctxs: dict[int, CkksContext] = {}
+        ctx = master_ctx
+        while ctx.num_channels >= self._min_level:
+            self._ctxs[ctx.num_channels] = ctx
+            if ctx.num_channels == 1:
+                break
+            ctx = ctx.drop_last(1)
+        if not lazy:
+            for lvl in sorted(self._ctxs, reverse=True):
+                self._generate(lvl)
+
+    def _generate(self, num_channels: int) -> LevelKeys:
+        ctx = self._ctxs[num_channels]
+        sk_l = self._sk.reduce_to(ctx)
+        pk_l = PublicKey.generate(sk_l, 3.2, ctx, self._rng)
+        rlk_l = RnsGadgetRelinKey.generate(sk_l, self._std, ctx, self._rng,
+                                           digit_size=self.digit_size)
+        rot_l = {
+            r: RnsGadgetRotationKey.generate(sk_l, r, self._std, ctx, self._rng,
+                                             digit_size=self.digit_size)
+            for r in self._rotations
+        }
+        keys = LevelKeys(ctx=ctx, sk=sk_l, pk=pk_l, rlk=rlk_l, rot=rot_l)
+        self.levels[num_channels] = keys
+        return keys
+
+    def at_level(self, num_channels: int) -> LevelKeys:
+        keys = self.levels.get(num_channels)
+        if keys is None:
+            if num_channels not in self._ctxs:
+                raise KeyError(f"KeyLadder has no level {num_channels} "
+                               f"(min_level={self._min_level})")
+            keys = self._generate(num_channels)
+        return keys
+
+    def for_ctx(self, ctx: CkksContext) -> LevelKeys:
+        return self.at_level(ctx.num_channels)
+
+    def memory_bytes(self) -> int:
+        """Bytes of the generated keys' tensors (the shared contexts and
+        tables not counted): per level, sum of numel x element size over
+        sk, pk a / b and the (D, E, N) a / b stacks of the relin and
+        rotation keys, so 4 bytes a residue on a small chain and 8 on a
+        wide one (the reference counts its (..., 2, N) uint32 limb pairs,
+        8 bytes a residue on every chain)."""
+        total = 0
+        for keys in self.levels.values():
+            arrs = [keys.pk.a.data, keys.pk.b.data, keys.sk.poly.data,
+                    keys.rlk.a, keys.rlk.b]
+            for rk in keys.rot.values():
+                arrs += [rk.a, rk.b]
+            total += sum(a.numel() * a.element_size() for a in arrs)
+        return total

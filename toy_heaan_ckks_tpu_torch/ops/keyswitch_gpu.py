@@ -142,11 +142,38 @@ def gadget_accumulate_twin(y, key_a, key_b, base_moduli: tuple,
     return ks0, ks1
 
 
+def digit_channels(num_channels: int, digit_size: int, digits: tuple) -> tuple:
+    """The base channels [k0, k1) of the digit range ``digits`` = (t0, t1)
+    of a chain of ``num_channels`` channels; raises ``ValueError`` unless
+    0 <= t0 < t1 <= D."""
+    ds = min(digit_size, num_channels)
+    t0, t1 = digits
+    if not 0 <= t0 < t1 <= -(-num_channels // ds):
+        raise ValueError(f"digit range {digits} outside the "
+                         f"{-(-num_channels // ds)} digits")
+    return t0 * ds, min(t1 * ds, num_channels)
+
+
 def _accumulate(y_plain, key_a, key_b, base_moduli, ext_moduli, degree: int,
-                digit_size: int, d_ntt, wide: bool):
+                digit_size: int, d_ntt, wide: bool, digits=None):
     """Shared body of the two entry points; returns ((ks0, ks1), blocks):
     the blocks per plane of the form launched (``launch_blocks``), 0 where
-    nothing was launched."""
+    nothing was launched. A digit range (t0, t1) is the sub-problem of
+    its digits: y's channels [k0, k1) over those base moduli, whose digit
+    groups are the whole chain's from t0 on (the kernel and the twin need
+    no offset); the skip-own input must then start at digit 0, where the
+    sub-problem's base channels are the extended chain's first ones."""
+    if digits is not None:
+        k0, k1 = digit_channels(len(base_moduli), digit_size, digits)
+        if d_ntt is not None and k0:
+            raise ValueError("gadget_accumulate: the skip-own input d_ntt "
+                             "needs a digit range from digit 0")
+        if d_ntt is not None and d_ntt.shape[-2] != k1:
+            raise ValueError("gadget_accumulate: d_ntt must hold the digit "
+                             "range's channels")
+        digit_size = min(digit_size, len(base_moduli))
+        y_plain = y_plain[..., k0:k1, :]
+        base_moduli = tuple(base_moduli)[k0:k1]
     base_moduli = tuple(int(m) for m in base_moduli)
     ext_moduli = tuple(int(m) for m in ext_moduli)
     L, E = len(base_moduli), len(ext_moduli)
@@ -193,7 +220,8 @@ def _accumulate(y_plain, key_a, key_b, base_moduli, ext_moduli, degree: int,
 
 
 def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
-                      degree: int, digit_size: int = 1, d_ntt=None):
+                      degree: int, digit_size: int = 1, d_ntt=None,
+                      digits=None):
     """K2: fused decompose + raise + NTT + key inner product (small chains;
     at N = 2^16 on a thread-block cluster of 16 blocks per plane,
     ``csrc/ntt_cluster.cuh``).
@@ -203,17 +231,25 @@ def gadget_accumulate(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
     key_a/key_b: int32 (D, E, N) Montgomery NTT-domain key stacks.
     d_ntt: optional int32 (..., L, N) NTT-domain planes of the switched
              polynomial (enables the skip-own-tower shortcut).
+    digits: optional (t0, t1), the digits [t0, t1) alone (a shard's share
+             of the digit sum): y over every base channel, the keys
+             (t1 - t0, E, N), d_ntt (t0 = 0 only) over [0, k1), the
+             range's channels; ``digit_ranges`` lists each such launch's
+             range.
     Returns (ks0, ks1): int32 (..., E, N) digit inner products over QP.
     """
     outs, blocks = _accumulate(y_plain, key_a, key_b, base_moduli,
                                ext_moduli, degree, digit_size, d_ntt,
-                               wide=False)
+                               wide=False, digits=digits)
     count_launch(gadget_accumulate, blocks)
+    if blocks and digits is not None:
+        gadget_accumulate.digit_ranges.append(tuple(digits))
     return outs
 
 
 def gadget_accumulate_wide(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
-                           degree: int, digit_size: int = 1, d_ntt=None):
+                           degree: int, digit_size: int = 1, d_ntt=None,
+                           digits=None):
     """K6: ``gadget_accumulate`` on int64 planes of a wide chain (any
     q < 2^63, R = 2^64, N <= 2^16; at 2^13 .. 2^16 a cluster of blocks of
     register passes per plane, ``csrc/ntt_cluster.cuh`` ``WidePlan``: 16
@@ -221,10 +257,14 @@ def gadget_accumulate_wide(y_plain, key_a, key_b, *, base_moduli, ext_moduli,
     ``launches_cluster``)."""
     outs, blocks = _accumulate(y_plain, key_a, key_b, base_moduli,
                                ext_moduli, degree, digit_size, d_ntt,
-                               wide=True)
+                               wide=True, digits=digits)
     count_launch(gadget_accumulate_wide, blocks)
+    if blocks and digits is not None:
+        gadget_accumulate_wide.digit_ranges.append(tuple(digits))
     return outs
 
 
 gadget_accumulate.launches = gadget_accumulate.launches_cluster = 0
 gadget_accumulate_wide.launches = gadget_accumulate_wide.launches_cluster = 0
+gadget_accumulate.digit_ranges = []
+gadget_accumulate_wide.digit_ranges = []
