@@ -104,6 +104,21 @@ equal to ``launches``; ``read_counts``).
    read just after, every kernel of the path launched (K1, K2, K3 / K3'
    small; K5 / K7, K6, K8 wide), K2 / K6 on the digit ranges the plan
    deals at each batch point (``MESH_CALLS``), no K9, K10 or K11;
+3f. bootstrap (``models/bootstrap.py``, the recipe of ``BootConfig``: the
+   scale-matched chain of 37 primes near 2^30 with q0 near 2^31, ds 4, h 8,
+   r 7, deg 8, dft_levels 3, arcsine): the whole refresh at N = 2^16
+   through ``bootstrap`` (raise_modulus exact, CoeffToSlot's decode within
+   BOOT_CTS_ERR, level 1 -> 4 on the level path of the 2^10 refresh on the
+   same primes, EvalMod's first and last fused multiply equal to the CPU
+   twin, the decode within BOOT_FULL_ERR and a square-and-rescale of the
+   output within BOOT_SQUARE_ERR / BOOT_SQUARE_SELF_ERR; keygen, encode,
+   stage and cold seconds and the peak device memory), and at N = 2^10
+   (decode within BOOT_REFRESH_ERR, c0 / c1 equal to the port's CPU path
+   from the same seeds, then a warm refresh with the keys kept); with the
+   counts set to 0 just before each refresh and read just after, K1 / K4,
+   K2, K3 and K3' launched (on clusters at 2^16, on none at 2^10) and no
+   other kernel; phase 2 checks the four kernels at both rings' shapes
+   (``boot_kernel_cases``);
 4. the multiply composite (mults/s at the path's batch, latency at
    batch 1), timed first, before the process first runs torch.profiler;
    CUDA-event timings of each kernel (its device time from torch.profiler
@@ -140,7 +155,9 @@ equal to ``launches``; ``read_counts``).
    ``forward``), as do the wide path's K5/K7, K6, K8 and K8' rows (their
    uint64 cluster forms at 2^13); the uint64 cluster forms are also timed
    at N = 2^16 (1, 2, 2^16), each with its form's registers and resident
-   clusters, and those at 2^13 and 2^14 listed with theirs.
+   clusters, and those at 2^13 and 2^14 listed with theirs; the launches
+   of phase 3f on the K1 / K4, K2, K3 and K3' rows, and profiler splits of
+   the warm 2^10 refresh and the warm first level of the 2^16 CoeffToSlot.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -1295,6 +1312,491 @@ def run_mesh(cfg: PathConfig, batch_axis: int, rotate: bool, ranges: tuple, dev,
     return dict(call=lambda: fn(*args), launches=counts, label=label)
 
 
+# phase 3f: the bootstrap path (models/bootstrap.py). The recipe is
+# tests/test_bootstrap.py's factored-DFT one on the card's chain: h = 8
+# (K = 7), KeyLadder(lazy=True, digit_size=4) and BootstrapKeys(digit_size=4),
+# keys from make_rng(33), values uniform in [-0.02, 0.02] from
+# np.random.default_rng(9), r 7, deg 8, dft_levels 3, arcsine.
+#
+# The chain. The 28 NTT primes of 2^16 below 2^31 (generate_primes(31, 28,
+# 2^16)) spread 1.9% below the scale 2^31: each Chebyshev step heals a scale
+# mismatch above 1% (funceval._combine spends a level), the r squarings then
+# grow the scale out of the chain, and the refresh runs out of levels from
+# N = 2^12 on, in the JAX reference as in the port (ROADMAP queue 3). So the
+# refresh runs on the repo's scale-matched chain instead, lengthened within
+# the 128-bit bound: build_modulus_chain(2^16, 30, 36, first_bits=31), q0
+# just below 2^31 and 36 primes alternating above and below the scale 2^30
+# (within 2.5%), 37 channels + 4 specials = 1,253 bits of log QP against
+# 1,772 at 2^16. The refresh spends 33 of them (the formula's 25, plus 13
+# heals on each packed half run side by side) and leaves level 4. NTT primes
+# of 2^16 serve every smaller ring, so the same primes at N = 2^10 give the
+# same level path and heals: the refresh there is held word for word to the
+# port's CPU path, and the 2^16 one to its level path.
+@dataclasses.dataclass(frozen=True)
+class BootConfig:
+    name: str
+    degree: int
+    depth: int = 36  # scale primes after q0
+    scale_bits: int = 30
+    first_bits: int = 31
+    chain_ring: int = 1 << 16
+    digit_size: int = 4
+    hw: int = 8
+    r: int = 7
+    deg: int = 8
+    dft_levels: int = 3
+    mmax: float = 0.02
+
+    @property
+    def count(self) -> int:
+        return self.depth + 1
+
+    @property
+    def bits(self) -> int:  # the widest prime's bits (kernel cases)
+        return self.first_bits
+
+    def primes(self) -> list:
+        from toy_heaan_ckks_tpu_torch import build_modulus_chain
+
+        return list(build_modulus_chain(self.chain_ring, self.scale_bits, self.depth,
+                                        first_bits=self.first_bits).moduli)
+
+
+BOOT_REFRESH = BootConfig("boot 2^10", 1 << 10)
+BOOT_FULL = BootConfig("boot 2^16", 1 << 16)
+BOOT_KEY_SEED, BOOT_VALUE_SEED = 33, 9
+BOOT_LEVEL_OUT = 4
+# the level of EvalMod's last fused multiply (the arcsine cube): 3 digits,
+# the last of one channel, and K3 dropping the 4 specials and q_9
+BOOT_LOW_LEVEL = 9
+# the host decodes CoeffToSlot's output on 3 channels (2^92): its
+# plaintext, the raised m + q0 I over 2^30, stays below 2^40
+BOOT_LOW_CHANNELS = 3
+# decode gates, from the JAX reference on the CPU on the same chain, seeds
+# and draws (python -m tools.bootstrap_noise --impl reference --chain
+# matched --log-n 8 9 10 11 12; the port's words are the same), rounded up.
+# At 2^10 twice the reference's refresh error there, 3.599e-2. At 2^16 twice
+# what the least-squares fit of log2(err) over N = 2^8 ... 2^12 predicts:
+# the refresh against m 0.4666 (slope 0.61; 1.855e-2, 1.975e-2, 3.599e-2,
+# 6.405e-2, 8.468e-2), the square-and-rescale of the output against the
+# output's own decode squared 0.2934 (slope 1.36; 1.886e-4 ... 7.410e-3),
+# CoeffToSlot against the raised plaintext's packed coefficients 7.538e-4
+# (slope 1.30; 5.388e-7 ... 2.120e-5). The square against m^2 is held to
+# what those two bounds allow: |y^2 - m^2| <= e (e + 2 mmax) for a refresh
+# error e, plus the multiply's own. The refresh keeps no bit of the message
+# at 2^16 on this chain (PERF.md, precision): its gates hold the port to the
+# reference's growth, and the words and the level path to the CPU.
+BOOT_REFRESH_ERR = 0.072
+BOOT_FULL_ERR = 0.94
+BOOT_SQUARE_SELF_ERR = 0.59
+BOOT_SQUARE_ERR = BOOT_FULL_ERR * (BOOT_FULL_ERR + 2 * BOOT_FULL.mmax) + BOOT_SQUARE_SELF_ERR
+BOOT_CTS_ERR = 1.6e-3
+
+
+def boot_setup(cfg: BootConfig, dev) -> dict:
+    """The recipe's chain, keys, encoder and level-1 ciphertext on ``dev``,
+    drawn in the reference test's order."""
+    import numpy as np
+
+    from toy_heaan_ckks_tpu_torch import (
+        CkksContext, CkksEncoder, CkksEngine, CkksParams, KeyLadder,
+    )
+    from toy_heaan_ckks_tpu_torch.math.sampling import make_rng
+    from toy_heaan_ckks_tpu_torch.models import BootstrapKeys
+
+    n = cfg.degree
+    full = CkksContext.build(cfg.primes(), n, dev)
+    ctx1 = full.slice_channels(0, 1)
+    params = CkksParams(3.2, cfg.hw, cfg.scale_bits)
+    rng = make_rng(BOOT_KEY_SEED)
+    sk = CkksEngine(full, params).generate_secret_key(rng)
+    eng1 = CkksEngine(ctx1, params)
+    sk1 = sk.reduce_to(ctx1)
+    pk1 = eng1.generate_public_key(sk1, rng)
+    ladder = KeyLadder(full, sk, 3.2, rng, lazy=True, digit_size=cfg.digit_size)
+    bkeys = BootstrapKeys(ladder, params, rng, digit_size=cfg.digit_size)
+    enc = CkksEncoder(n, cfg.scale_bits)
+    m = np.random.default_rng(BOOT_VALUE_SEED).uniform(-cfg.mmax, cfg.mmax, n // 2)
+    ct1 = eng1.encrypt(enc.encode(m, ctx1), pk1, ctx1.total_bits(), rng)
+    return dict(full=full, params=params, sk=sk, sk1=sk1, ladder=ladder, bkeys=bkeys,
+                enc=enc, m=m, ct1=ct1)
+
+
+def boot_kernel_cases(cfg: BootConfig, dev) -> dict:
+    """K1 / K4, K2, K3 and K3' at the refresh's shapes, at the top of the
+    chain and at EvalMod's last fused multiply: the hoisted decomposition's
+    forward NTT (10 digits x 41 channels), the key switch of one item (10
+    digits, the last of one channel, E 41; 3 digits, E 13), with and without
+    d, the fused multiply's mod-down (36 and 8 kept, 5 dropped) and the
+    t-less one of 8 items (37 kept, the 4 specials dropped)."""
+    import numpy as np
+    import torch
+
+    from toy_heaan_ckks_tpu_torch import CkksContext
+    from toy_heaan_ckks_tpu_torch.keys import default_special_primes
+    from toy_heaan_ckks_tpu_torch.ops.ntt_gpu import ntt_planes, ntt_twin
+
+    path = PathConfig(cfg.name, cfg.degree, cfg.bits, cfg.count, cfg.digit_size, 1,
+                      cfg.scale_bits, 0.0)
+    top = kernel_cases(path, dev, wide=False)
+    low = kernel_cases(dataclasses.replace(path, count=BOOT_LOW_LEVEL), dev, wide=False)
+    eight = kernel_cases(dataclasses.replace(path, batch=8), dev, wide=False)
+    n = cfg.degree
+    primes = tuple(cfg.primes())
+    ext = primes + default_special_primes(CkksContext.build(primes, n, dev),
+                                          cfg.digit_size)
+    digits = -(-cfg.count // cfg.digit_size)
+    rng = np.random.Generator(np.random.PCG64(4321))
+    x = _rand_planes(rng, (digits,), ext, n, dev, torch.int32)
+    cases = {
+        f"forward ({digits}, {len(ext)})": Case(lambda: ntt_planes(x, ext, n, False),
+                                                lambda: ntt_twin(x, ext, n, False), 0, 0),
+        "mod_down_no_t (8 items)": eight["mod_down_no_t"],
+    }
+    for label, shapes in (("", top), (f" level {BOOT_LOW_LEVEL}", low)):
+        for name in ("gadget_accumulate", "gadget_accumulate[no_d]", "mod_down_combine"):
+            cases[name + label] = shapes[name]
+    return cases
+
+
+def boot_counters():
+    """Every kernel counter of the port: the path's own three and those that
+    must not launch on it (K9, K10, K11, the uint64 kernels)."""
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.ops import keyswitch_gpu as ksg
+    from toy_heaan_ckks_tpu_torch.ops import moddown_gpu as mdg
+    from toy_heaan_ckks_tpu_torch.ops import ntt_gpu
+    from toy_heaan_ckks_tpu_torch.ops.ntt_mxu_gpu import ntt_mxu_planes
+
+    path = (ntt_gpu.ntt_planes, ksg.gadget_accumulate, mdg.mod_down_combine)
+    others = (ntt_gpu.ntt_planes_wide, ksg.gadget_accumulate_wide,
+              mdg.mod_down_combine_wide, ntt_mxu_planes, cg.coeff_tail, cg.coeff_cross,
+              cg.coeff_cross_stages)
+    return path, others
+
+
+def boot_zero(path, others) -> None:
+    zero_counts(path + others)
+    path[2].launches_no_t = 0
+
+
+def boot_counts(cfg: BootConfig, path, others) -> dict:
+    """The path's launches (each on clusters where the ring spans one,
+    ``read_counts``), K3' apart; raises if another kernel launched."""
+    launches = read_counts(cfg, path, wide=False)
+    launches["mod_down_combine[no_t]"] = path[2].launches_no_t
+    stray = {f.__name__: f.launches for f in others if f.launches}
+    if stray or min(launches.values()) < 1:
+        raise AssertionError(f"[{cfg.name}] launches {launches}, other kernels {stray}")
+    return launches
+
+
+class _Spies:
+    """Wrappers around the refresh's stages for one ``bootstrap`` call:
+    the seconds and the last output of each stage of ``models.bootstrap``
+    (``raise_modulus``, ``coeff_to_slot``, ``eval_mod``, ``slot_to_coeff``),
+    the level of each scale heal (``algorithms.normalize_scale``), the
+    first and the last fused multiply (``CkksEngine.mul_rescale``) with its
+    inputs, and the keygen and encode seconds of ``bkeys``. Undone on
+    exit."""
+
+    STAGES = ("raise_modulus", "coeff_to_slot", "eval_mod", "slot_to_coeff")
+
+    def __init__(self, bkeys):
+        import importlib
+
+        from toy_heaan_ckks_tpu_torch import CkksEngine
+
+        self.bt = importlib.import_module("toy_heaan_ckks_tpu_torch.models.bootstrap")
+        self.alg = importlib.import_module("toy_heaan_ckks_tpu_torch.models.algorithms")
+        self.engine, self.bkeys = CkksEngine, bkeys
+        self.seconds = dict.fromkeys(self.STAGES + ("keygen", "encodes"), 0.0)
+        self.out, self.heals, self.muls = {}, [], []
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.bt, name) for name in self.STAGES}
+        for name, fn in self.saved.items():
+            setattr(self.bt, name, self._stage(name, fn))
+        self.normalize = self.alg.normalize_scale
+        self.mul_rescale = self.engine.__dict__["mul_rescale"]
+        self.alg.normalize_scale = self._heal
+        self.engine.mul_rescale = staticmethod(self._mul)
+        for name, total in (("rot_keys", "keygen"), ("conj", "keygen"),
+                            ("encoded_diags", "encodes")):
+            setattr(self.bkeys, name, self._timed(getattr(self.bkeys, name), total))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.bt, name, fn)
+        self.alg.normalize_scale = self.normalize
+        self.engine.mul_rescale = self.mul_rescale
+        for name in ("rot_keys", "conj", "encoded_diags"):
+            del self.bkeys.__dict__[name]
+        return False
+
+    def _timed(self, fn, total: str):
+        import torch
+
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[total] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def _stage(self, name: str, fn):
+        timed = self._timed(fn, name)
+
+        def wrapped(*args, **kw):
+            out = self.out[name] = timed(*args, **kw)
+            return out
+        return wrapped
+
+    def _heal(self, engine, ct, target):
+        self.heals.append(ct.level)
+        return self.normalize(engine, ct, target)
+
+    def _mul(self, a, b, rlk):
+        out = self.mul_rescale.__func__(a, b, rlk)
+        call = (a, b, rlk, out)
+        if not self.muls:
+            self.muls.append(call)
+        else:
+            self.muls[1:] = [call]
+        return out
+
+
+def boot_twin_mul(cfg: BootConfig, call) -> int:
+    """Holds one fused multiply of the refresh (``CkksEngine.mul_rescale``
+    on the card) to the CPU twin on the same words; its level."""
+    import torch
+
+    from toy_heaan_ckks_tpu_torch import CkksContext
+    from toy_heaan_ckks_tpu_torch.parallel.sharded import _mul_relin_rescale_arrays
+
+    a, b, rlk, out = call
+    cpu = torch.device("cpu")
+    ctx_cpu = CkksContext.build(a.ctx.moduli, cfg.degree, cpu)
+    ext_cpu = CkksContext.build(rlk.ext_ctx.moduli, cfg.degree, cpu)
+    c0, c1 = _mul_relin_rescale_arrays(
+        a.c0.data.cpu(), a.c1.data.cpu(), b.c0.data.cpu(), b.c1.data.cpu(),
+        rlk.a.cpu(), rlk.b.cpu(), ctx_cpu, ext_cpu, ctx_cpu.drop_last(1),
+        digit_size=rlk.digit_size)
+    if not (torch.equal(c0, out.c0.data.cpu()) and torch.equal(c1, out.c1.data.cpu())):
+        raise AssertionError(f"[{cfg.name}] GPU mul_rescale at level {a.level} differs "
+                             "from the CPU twin")
+    return a.level
+
+
+def boot_refresh(cfg: BootConfig, s: dict, dev, keep_level: int | None = None) -> dict:
+    """One cold ``bootstrap`` of ``s``'s ciphertext through ``_Spies``, the
+    counts set to 0 just before it and read just after (the lazy keygen of
+    the ladder's and the bootstrap's keys inside it included), the peak
+    device memory over it. ``keep_level``: a DFT level whose rotation keys
+    are kept."""
+    import torch
+
+    from toy_heaan_ckks_tpu_torch.models import bootstrap
+
+    path, others = boot_counters()
+    bkeys = s["bkeys"]
+    if keep_level is not None:
+        evict = bkeys.evict_level
+        bkeys.evict_level = lambda level: None if level == keep_level else evict(level)
+    kw = dict(r=cfg.r, deg=cfg.deg, dft_levels=cfg.dft_levels, arcsine=True)
+    with _Spies(bkeys) as spies:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        boot_zero(path, others)
+        t0 = time.perf_counter()
+        out = bootstrap(s["ct1"], s["full"], bkeys, s["params"], s["enc"], **kw)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = boot_counts(cfg, path, others)
+    if keep_level is not None:
+        del bkeys.__dict__["evict_level"]
+    return dict(out=out, cold=cold, launches=launches, spies=spies,
+                peak=torch.cuda.max_memory_allocated(), kw=kw)
+
+
+def boot_decode(cfg: BootConfig, s: dict, ct):
+    """The first N/2 slots of ``ct``'s decode (finite, or this raises)."""
+    import numpy as np
+
+    from toy_heaan_ckks_tpu_torch import CkksEngine
+
+    got = s["enc"].decode_complex(CkksEngine.decrypt(ct, s["sk"].reduce_to(ct.ctx)))
+    got = got[: cfg.degree // 2]
+    if not np.all(np.isfinite(got)):
+        raise AssertionError(f"[{cfg.name}] decode: non-finite values")
+    return got
+
+
+def run_boot_refresh(cfg: BootConfig, dev) -> dict:
+    """Phase 3f at N = 2^10: the whole refresh through ``models.bootstrap``
+    on the card (``boot_refresh``), word-equal to the port's CPU path from
+    the same seeds, its decode within BOOT_REFRESH_ERR, K1, K2, K3 and K3'
+    launched and nothing else; then, with the keys kept, a warm refresh.
+    Returns the level path (output level, heal levels) the 2^16 refresh
+    must follow."""
+    import numpy as np
+    import torch
+
+    from toy_heaan_ckks_tpu_torch.models import bootstrap
+
+    t0 = time.perf_counter()
+    s = boot_setup(cfg, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    run = boot_refresh(cfg, s, dev)
+    out, sp = run["out"], run["spies"]
+    err = float(np.max(np.abs(boot_decode(cfg, s, out).real - s["m"])))
+    print(f"[{cfg.name}] setup {setup_s:.2f} s; cold refresh {run['cold']:.2f} s (keygen "
+          f"{sp.seconds['keygen']:.2f}, encodes {sp.seconds['encodes']:.2f}), level 1 -> "
+          f"{out.level}, scale heals at levels {sp.heals}; launches {run['launches']}")
+    print(f"[{cfg.name}] decode max |err| vs m: {err:.3e}, precision "
+          f"{-np.log2(err / cfg.mmax):.2f} bits (bound {BOOT_REFRESH_ERR})")
+    if err > BOOT_REFRESH_ERR:
+        raise AssertionError(f"[{cfg.name}] refresh decode error {err} > {BOOT_REFRESH_ERR}")
+    if out.level != BOOT_LEVEL_OUT:
+        raise AssertionError(f"[{cfg.name}] refresh left level {out.level}, "
+                             f"not {BOOT_LEVEL_OUT}")
+
+    t0 = time.perf_counter()
+    cpu = boot_setup(cfg, torch.device("cpu"))
+    want = bootstrap(cpu["ct1"], cpu["full"], cpu["bkeys"], cpu["params"], cpu["enc"],
+                     **run["kw"])
+    if (want.level, want.logp, want.true_scale) != (out.level, out.logp, out.true_scale) or \
+            not (torch.equal(out.c0.data.cpu(), want.c0.data)
+                 and torch.equal(out.c1.data.cpu(), want.c1.data)):
+        raise AssertionError(f"[{cfg.name}] GPU refresh differs from the CPU path")
+    print(f"check [{cfg.name}] refresh: GPU c0 / c1 == CPU path, level {out.level} "
+          f"({time.perf_counter() - t0:.2f} s on the CPU)")
+
+    # keys and encodes kept: one refresh to make them, then a warm one
+    bkeys = s["bkeys"]
+    bkeys.evict = False
+    refresh = lambda: bootstrap(s["ct1"], s["full"], bkeys, s["params"], s["enc"],
+                                **run["kw"])
+    refresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refresh()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    print(f"[{cfg.name}] warm refresh (keys and encodes kept): {warm:.3f} s "
+          f"({_smi('name,power.limit')})")
+    return dict(launches=run["launches"], err=err, level=out.level, heals=sp.heals,
+                cold=run["cold"], warm=warm, refresh=refresh)
+
+
+def run_boot_full(cfg: BootConfig, dev, twin: dict) -> dict:
+    """Phase 3f at full width: the whole refresh at N = 2^16 through
+    ``models.bootstrap`` on the card (``boot_refresh``, evicting each DFT
+    level's keys but CoeffToSlot's first), counts set to 0 just before it
+    and read just after, then its checks: raise_modulus exact (m + q0 I,
+    |I| bounded), CoeffToSlot's decode within BOOT_CTS_ERR of the raised
+    plaintext's packed coefficients, the level path (output level, scale
+    heals) of the 2^10 refresh ``twin`` on the same primes, EvalMod's first
+    and last fused multiply word-equal to the CPU twin, the refresh's decode
+    within BOOT_FULL_ERR of m, and a square-and-rescale of it within
+    BOOT_SQUARE_ERR of m^2 and BOOT_SQUARE_SELF_ERR of the refresh's own
+    decode squared; K4, K2, K3 and K3' launched on clusters only, nothing
+    else."""
+    import numpy as np
+    import torch
+
+    from toy_heaan_ckks_tpu_torch import CkksEngine as E
+    from toy_heaan_ckks_tpu_torch.encoding.embedding import expected_dft
+    from toy_heaan_ckks_tpu_torch.models.bootstrap import (
+        _grouped_dft_diagonals, _matvec_diagonal_map,
+    )
+
+    n, lv = cfg.degree, cfg.dft_levels
+    t0 = time.perf_counter()
+    s = boot_setup(cfg, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    run = boot_refresh(cfg, s, dev, keep_level=cfg.count)
+    out, sp = run["out"], run["spies"]
+    raised, t = sp.out["raise_modulus"], sp.out["coeff_to_slot"]
+
+    t0 = time.perf_counter()
+    q0 = s["full"].moduli[0]
+    m1 = E.decrypt(s["ct1"], s["sk1"]).poly.to_coeffs()
+    mr = E.decrypt(_low(raised), s["sk"].reduce_to(_low(raised).ctx)).poly.to_coeffs()
+    if any(int(d) for d in (mr - m1) % q0):
+        raise AssertionError(f"[{cfg.name}] raise_modulus: not congruent mod q0")
+    big_i = max(abs(int(v)) for v in (mr - m1) // q0)
+    if big_i > (cfg.hw + 3) // 2 + 1:
+        raise AssertionError(f"[{cfg.name}] raise_modulus: |I| = {big_i}")
+    t_want, _ = expected_dft(mr, raised.true_scale, n)
+    cts_err = float(np.max(np.abs(boot_decode(cfg, s, _low(t)) - t_want)))
+    got = boot_decode(cfg, s, out).real
+    err = float(np.max(np.abs(got - s["m"])))
+    rlk = s["ladder"].at_level(out.level).rlk
+    sq = E.rescale_ciphertext(E.square_ciphertext(out, rlk))
+    got_sq = boot_decode(cfg, s, sq).real
+    sq_err = float(np.max(np.abs(got_sq - s["m"] ** 2)))
+    sq_self = float(np.max(np.abs(got_sq - got ** 2)))
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mul_levels = [boot_twin_mul(cfg, call) for call in sp.muls]
+    twin_s = time.perf_counter() - t0
+
+    sec = sp.seconds
+    print(f"check [{cfg.name}] raise_modulus: m + q0 I exact, |I| <= {big_i}; EvalMod's "
+          f"fused multiplies at levels {mul_levels}: GPU == CPU twin ({twin_s:.2f} s)")
+    print(f"[{cfg.name}] refresh level 1 -> {out.level} (CoeffToSlot {t.level}), scale "
+          f"heals at levels {sp.heals}; {twin['level']} and {twin['heals']} at 2^10")
+    print(f"[{cfg.name}] decode max |err|: CoeffToSlot {cts_err:.3e} (bound {BOOT_CTS_ERR}); "
+          f"refresh vs m {err:.3e}, precision {-np.log2(err / cfg.mmax):.2f} bits (bound "
+          f"{BOOT_FULL_ERR}); its square + rescale vs m^2 {sq_err:.3e} (bound "
+          f"{BOOT_SQUARE_ERR}), vs its decode squared {sq_self:.3e} (bound "
+          f"{BOOT_SQUARE_SELF_ERR})")
+    print(f"[{cfg.name}] seconds ({_smi('name,power.limit')}): setup (ladder, level-1 key "
+          f"and ciphertext) {setup_s:.2f}; cold refresh {run['cold']:.2f}: keygen "
+          f"{sec['keygen']:.2f}, encodes {sec['encodes']:.2f}; raise_modulus "
+          f"{sec['raise_modulus']:.3f}, CoeffToSlot {sec['coeff_to_slot']:.2f}, EvalMod "
+          f"(both halves) {sec['eval_mod']:.2f}, SlotToCoeff {sec['slot_to_coeff']:.2f} "
+          f"(keygen and encodes inside); host checks {host_s:.2f}")
+    print(f"[{cfg.name}] peak device memory over the refresh {run['peak'] / 2**30:.2f} GiB; "
+          f"launches {run['launches']}")
+    if (out.level, sp.heals) != (twin["level"], twin["heals"]):
+        raise AssertionError(f"[{cfg.name}] level path differs from the 2^10 refresh's")
+    if mul_levels[-1] != BOOT_LOW_LEVEL:
+        raise AssertionError(f"[{cfg.name}] EvalMod's last multiply at level "
+                             f"{mul_levels[-1]}, not {BOOT_LOW_LEVEL}")
+    for name, e, bound in (("CoeffToSlot", cts_err, BOOT_CTS_ERR),
+                           ("refresh", err, BOOT_FULL_ERR),
+                           ("square", sq_err, BOOT_SQUARE_ERR),
+                           ("square vs refresh", sq_self, BOOT_SQUARE_SELF_ERR)):
+        if e > bound:
+            raise AssertionError(f"[{cfg.name}] {name} decode error {e} > {bound}")
+    top = _grouped_dft_diagonals(n, lv)[0][0]  # CoeffToSlot's first level
+    bkeys = s["bkeys"]
+    return dict(launches=run["launches"], peak=run["peak"], cold=run["cold"],
+                seconds=sec, err=err, bkeys=bkeys, top_keys=len(top) - 1,
+                top_level=lambda: E.rescale_ciphertext(
+                    _matvec_diagonal_map(raised, bkeys, top, s["enc"])))
+
+
+def _low(ct, keep: int = BOOT_LOW_CHANNELS):
+    """``ct`` on its first ``keep`` channels: the same plaintext wherever
+    its coefficients lie within (-Q_keep / 2, Q_keep / 2], and a decrypt
+    and decode of ``keep`` channels on the host instead of ct.level."""
+    from toy_heaan_ckks_tpu_torch.types import Ciphertext
+
+    drop = ct.level - keep
+    if drop <= 0:
+        return ct
+    return Ciphertext(c0=ct.c0.mod_drop_last(drop), c1=ct.c1.mod_drop_last(drop),
+                      logp=ct.logp, logq=ct.logq, scale=ct.scale)
+
+
 def time_mesh(run: dict, mesh_runs: dict) -> None:
     """Phase 4: ms per call of the small mesh multiplies at the path's batch
     beside the unsharded multiply, CUDA events in one loop each, before the
@@ -1746,6 +2248,13 @@ def main() -> int:
     import torch
 
     start = time.perf_counter()
+    laps = [start]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"time: {what} {now - laps[0]:.1f} s")
+        laps[0] = now
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1810,7 +2319,14 @@ def main() -> int:
                          for label, cfg, shards in COEFF_CASES}
     for label, cases in coeff_shape_cases.items():
         coeff_err = max(coeff_err, *check_cases(label, cases).values())
+    # K1 / K4, K2, K3 and K3' at the bootstrap's shapes (phase 3f)
+    boot_errs = {}
+    for cfg in (BOOT_REFRESH, BOOT_FULL):
+        for name, e in check_cases(f"K1-K3' {cfg.name}", boot_kernel_cases(cfg, dev)).items():
+            key = name.split(" (")[0].split(" level ")[0]
+            boot_errs[key] = max(boot_errs.get(key, 0), e)
 
+    lap("phases 1-2")
     # ── phase 3: each main path through the user entry points ───────────
     small_run = run_path(SMALL, dev, small_counters, wide=False)
     wide_run = run_path(WIDE, dev, wide_counters, wide=True)
@@ -1846,6 +2362,14 @@ def main() -> int:
     mesh_runs = [run_mesh(cfg, batch_axis, rotate, ranges, dev, *paths[cfg.name])
                  for cfg, batch_axis, rotate, ranges in MESH_CALLS]
     print(f"phase 3e (mesh): {time.perf_counter() - t0:.1f} s")
+
+    lap("phases 3-3e")
+    # ── phase 3f: the bootstrap path (models/bootstrap.py) ──────────────
+    t0 = time.perf_counter()
+    boot_refresh = run_boot_refresh(BOOT_REFRESH, dev)
+    boot_full = run_boot_full(BOOT_FULL, dev, boot_refresh)
+    print(f"phase 3f (bootstrap): {time.perf_counter() - t0:.1f} s")
+    lap("phase 3f")
 
     # ── phase 4: timings (CUDA events, after warm-up) ───────────────────
     small_names = {
@@ -1908,6 +2432,7 @@ def main() -> int:
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
                      (BIG_WIDE, big_wide_run)):
         time_composite(cfg, run)
+    lap("the composites")
     time_mesh(small_run, {r["label"]: r["call"] for (cfg, _, rotate, _), r
                           in zip(MESH_CALLS, mesh_runs) if cfg is SMALL and not rotate})
     rows = time_path(SMALL, small_cases, small_errs, small_run,
@@ -1947,6 +2472,7 @@ def main() -> int:
         print(f"[{WIDE.name}, {WIDE_62.name}] {shown}: registers, spill bytes, threads, "
               f"shared bytes, blocks a cluster, resident clusters {cluster_info(kernel)}; "
               f"SASS {json.dumps(wide_sass[shown])}")
+    lap("the kernel timings")
     for cfg, run in ((SMALL, small_run), (WIDE, wide_run), (BIG, big_run),
                      (BIG_WIDE, big_wide_run)):
         ctx, child, rlk, (a0, a1, b0, b1) = (run["ctx"], run["child"], run["rlk"],
@@ -1965,6 +2491,7 @@ def main() -> int:
     # under CKKS_NTT_MXU=1
     from toy_heaan_ckks_tpu_torch.ops.ntt_mxu_gpu import mxu_form
 
+    lap("the composite profiles, the rotations")
     mxu_times = {shape: time_cases(dataclasses.replace(SMALL, name=f"K9 {shape}"),
                                    cases, int_ops_per_s, twin_iters=5 if shape == "small" else 2)
                  for shape, cases in mxu_cases_small.items()}
@@ -2049,6 +2576,29 @@ def main() -> int:
                 for label, times in shape_times.items()}
         rows.append(row)
     time_coeff(big_run, coeff_runs[BIG.name], 4)
+
+    lap("the K9 path, the coefficient-sharded kernels")
+    # the bootstrap path: launches per refresh (2^10) and per stage run
+    # (2^16) on the K1 / K4, K2, K3 and K3' rows, and profiler splits of
+    # the warm refresh and the warm CoeffToSlot's first level
+    for row in rows:
+        fn, _, at = row["name"].partition("@")
+        run = {"": boot_refresh, "big": boot_full}.get(at)
+        if run is None or fn.split("[")[0] not in ("ntt_planes", "gadget_accumulate",
+                                                   "mod_down_combine"):
+            continue
+        counts = run["launches"]
+        n = counts[fn] - (counts["mod_down_combine[no_t]"] if fn == "mod_down_combine" else 0)
+        row["launches_per_bootstrap_2^10" if at == "" else "launches_per_bootstrap_2^16"] = n
+        key = {"ntt_planes": "forward", "mod_down_combine[no_t]": "mod_down_no_t"}.get(fn, fn)
+        row["max_abs_err"] = max(row["max_abs_err"], boot_errs.get(key, 0))
+    # one call a window: a warm 2^10 refresh is ~10^4 launches under the
+    # profiler, and the script's time is kept near 550 s
+    profile_composite(f"{BOOT_REFRESH.name} warm refresh", boot_refresh["refresh"], iters=1)
+    profile_composite(f"{BOOT_FULL.name} warm CoeffToSlot level {BOOT_FULL.count} "
+                      f"({boot_full['top_keys']} keys)", boot_full["top_level"], iters=1)
+    boot_full["bkeys"]._rot.clear()
+    lap("the bootstrap rows and profiles")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     print(f"wall time: {time.perf_counter() - start:.1f} s")
 

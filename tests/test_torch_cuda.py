@@ -1128,3 +1128,102 @@ def test_mesh_across_cards(dev, bits, count, digit_size, rot_points, rot_batch):
     one, _ = _mesh_calls(ctx, rlk, rotk, args, [dev] * 8, [dev] * rot_points, rot_batch)
     for g, w in zip(spread, one):
         assert torch.equal(g.to(dev), w)
+
+
+# ── the bootstrap path (models/bootstrap.py) ─────────────────────────────
+
+
+def _boot_setup(device, degree, count=28, hw=8, digit_size=4):
+    """The small-prime bootstrap recipe (28 x 31-bit, ds 4, h 8) of
+    chip_smoke.py phase 3f at ``degree``, drawn from make_rng(33)."""
+    from toy_heaan_ckks_tpu_torch.models import BootstrapKeys
+
+    full = port.CkksContext.build(port.generate_primes(31, count, degree), degree, device)
+    ctx1 = full.slice_channels(0, 1)
+    params = port.CkksParams(3.2, hw, 31)
+    rng = make_rng(33)
+    sk = port.CkksEngine(full, params).generate_secret_key(rng)
+    eng1 = port.CkksEngine(ctx1, params)
+    pk1 = eng1.generate_public_key(sk.reduce_to(ctx1), rng)
+    ladder = port.KeyLadder(full, sk, 3.2, rng, lazy=True, digit_size=digit_size)
+    bkeys = BootstrapKeys(ladder, params, rng, digit_size=digit_size)
+    enc = port.CkksEncoder(degree, 31)
+    m = np.random.default_rng(9).uniform(-0.02, 0.02, degree // 2)
+    ct1 = eng1.encrypt(enc.encode(m, ctx1), pk1, ctx1.total_bits(), rng)
+    return full, params, sk, bkeys, enc, m, ct1
+
+
+def test_bootstrap_refresh_matches_cpu(dev):
+    """The whole refresh at N = 2^10 (r 7, deg 8, dft_levels 3, arcsine):
+    c0 / c1 on the card equal the CPU path's from the same seeds, K1, K2
+    and K3 launched (none on a cluster), and the decode near the message."""
+    from toy_heaan_ckks_tpu_torch.models import bootstrap
+
+    kw = dict(r=7, deg=8, dft_levels=3, arcsine=True)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        full, params, sk, bkeys, enc, m, ct1 = _boot_setup(device, 1 << 10)
+        fns = (ntt_gpu.ntt_planes, keyswitch_gpu.gadget_accumulate,
+               moddown_gpu.mod_down_combine)
+        before = [(f.launches, f.launches_cluster) for f in fns]
+        outs.append(bootstrap(ct1, full, bkeys, params, enc, **kw))
+        counts = [(f.launches - a, f.launches_cluster - c) for f, (a, c) in zip(fns, before)]
+        if device == dev:
+            assert all(n > 0 and c == 0 for n, c in counts), counts
+            got = enc.decode(port.CkksEngine.decrypt(outs[0], sk.reduce_to(outs[0].ctx)))
+            assert np.max(np.abs(got - m)) < 2e-3
+    gpu, cpu = outs
+    assert (gpu.level, gpu.logp, gpu.true_scale) == (cpu.level, cpu.logp, cpu.true_scale)
+    assert torch.equal(gpu.c0.data.cpu(), cpu.c0.data)
+    assert torch.equal(gpu.c1.data.cpu(), cpu.c1.data)
+
+
+@pytest.mark.parametrize("degree", [1 << 10, 1 << 16])
+@pytest.mark.parametrize("lift", ["fast", "general"])
+def test_raise_modulus_on_card(dev, degree, lift):
+    """raise_modulus on the card (the device lift, or the host big-int one
+    for 29-bit targets) equals the CPU's words."""
+    from toy_heaan_ckks_tpu_torch.models import raise_modulus
+
+    primes = port.generate_primes(31, 6, degree)
+    if lift == "general":
+        primes = primes[:1] + port.generate_primes(29, 4, degree)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        full = port.CkksContext.build(primes, degree, device)
+        ctx1 = full.slice_channels(0, 1)
+        params = port.CkksParams(3.2, 8, 30)
+        rng = make_rng(3)
+        sk = port.CkksEngine(full, params).generate_secret_key(rng)
+        eng1 = port.CkksEngine(ctx1, params)
+        pk1 = eng1.generate_public_key(sk.reduce_to(ctx1), rng)
+        enc = port.CkksEncoder(degree, 30)
+        ct1 = eng1.encrypt(enc.encode(np.linspace(-0.9, 0.9, degree // 2), ctx1), pk1,
+                           ctx1.total_bits(), rng)
+        outs.append(raise_modulus(ct1, full))
+    assert outs[0].c0.data.is_cuda
+    for part in ("c0", "c1"):
+        assert torch.equal(getattr(outs[0], part).data.cpu(), getattr(outs[1], part).data)
+
+
+def test_hoisted_sum_chunks_on_card(dev, monkeypatch):
+    """The double-hoisted weighted sum in chunks of keys (engine
+    HOIST_SUM_WORDS) gives the words of one pass on the card."""
+    from toy_heaan_ckks_tpu_torch import engine
+    from toy_heaan_ckks_tpu_torch.models.bootstrap import _grouped_dft_diagonals
+
+    degree = 1 << 10
+    full, params, sk, bkeys, enc, m, ct1 = _boot_setup(dev, degree, count=6)
+    pk = port.CkksEngine(full, params).generate_public_key(sk, make_rng(5))
+    ct = port.CkksEngine(full, params).encrypt(enc.encode(m, full), pk, full.total_bits(),
+                                                make_rng(6))
+    diag_map = _grouped_dft_diagonals(degree, 3)[0][1]
+    offs = sorted(r for r in diag_map if r)
+    keys = [bkeys.rot_key(ct.level, r) for r in offs]
+    pts = bkeys.encoded_diags(diag_map, offs, keys[0].ext_ctx, enc)
+    whole = port.CkksEngine.rotate_weighted_sum_hoisted(ct, keys, pts)
+    monkeypatch.setattr(engine, "HOIST_SUM_WORDS", keys[0].a.numel() * 4)
+    chunked = port.CkksEngine.rotate_weighted_sum_hoisted(ct, keys, pts)
+    assert len(offs) > 4
+    assert torch.equal(whole.c0.data, chunked.c0.data)
+    assert torch.equal(whole.c1.data, chunked.c1.data)

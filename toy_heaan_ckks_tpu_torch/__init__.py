@@ -4,7 +4,8 @@ Ported so far: keygen, encrypt and decrypt; the fused CKKS multiply
 (hybrid gadget relinearization and rescale); rotations, conjugation and
 hoisted rotation sums with hybrid key switching; the plaintext and level
 ops around them; the per-level ``KeyLadder``; the batch x channel and
-coefficient meshes with their sharded multiply and rotation; on
+coefficient meshes with their sharded multiply and rotation; the models
+``algorithms``, ``funceval`` and ``bootstrap`` (``models/``); on
 small-prime chains (all q < 2^31: int32 planes, R = 2^32) and wide ones
 (q < 2^63: int64 planes, R = 2^64). Module paths
 and names follow the JAX package; each module's docstring names its
@@ -29,6 +30,7 @@ from .keys import (
 from .math.primes import generate_primes
 from .ops.poly import Poly
 from .types import Ciphertext, Plaintext
+from .utils.params import build_modulus_chain
 
 __all__ = [
     "CkksContext",
@@ -45,5 +47,6 @@ __all__ = [
     "RnsGadgetRotationKey",
     "SecretKey",
     "SecretKeyParams",
+    "build_modulus_chain",
     "generate_primes",
 ]

@@ -1,9 +1,10 @@
 """Canonical-embedding transforms for CKKS encoding (numpy, host-side).
 
-Counterpart of ``toy_heaan_ckks_tpu/encoding/embedding.py``, production FFT
-path only: slot k < N/2 evaluates at psi^{5^k mod 2N} and slot N-1-k at
-the conjugate root (psi = e^{i*pi/N}); encode and decode are one length-N
-FFT plus a twist and a permutation each.
+Counterpart of ``toy_heaan_ckks_tpu/encoding/embedding.py``: slot k < N/2
+evaluates at psi^{5^k mod 2N} and slot N-1-k at the conjugate root
+(psi = e^{i*pi/N}); encode and decode are one length-N FFT plus a twist
+and a permutation each. ``special_idft`` / ``special_dft`` are the
+O(N^2) Vandermonde transforms, kept as the correctness oracle.
 """
 
 from __future__ import annotations
@@ -62,3 +63,37 @@ def embed_decode(coeffs: np.ndarray, degree: int) -> np.ndarray:
     idx, psi_pow = _fft_tables(n)
     evals = np.fft.ifft(np.asarray(coeffs, dtype=np.complex128) * psi_pow) * n
     return evals[idx]
+
+
+def special_idft(slots: np.ndarray, degree: int) -> np.ndarray:
+    """O(N^2) inverse embedding (the oracle of ``embed_encode``)."""
+    n = degree
+    psi = np.exp(1j * np.pi / n)
+    roots = psi ** j_exponents(n)  # slot_roots[k]
+    permuted = np.asarray(slots, dtype=np.complex128)[::-1]
+    powers = roots[:, None] ** np.arange(n)[None, :]  # (slot, coeff)
+    return (permuted @ powers) / n
+
+
+def special_dft(coeffs: np.ndarray, degree: int) -> np.ndarray:
+    """O(N^2) forward embedding (the oracle of ``embed_decode``)."""
+    n = degree
+    psi = np.exp(1j * np.pi / n)
+    roots_inv = np.conj(psi ** j_exponents(n))
+    powers = roots_inv[:, None] ** np.arange(n)[None, :]
+    slots = powers @ np.asarray(coeffs, dtype=np.complex128)
+    return slots[::-1]
+
+
+def expected_dft(raised_coeffs, scale: float, degree: int) -> tuple:
+    """The slots a bootstrap's CoeffToSlot leaves, and those SlotToCoeff
+    then restores, for a raised plaintext of exact coefficients c:
+    t_j = (c_j + i c_{j + N/2}) / scale in bit-reversed slot order, and
+    the canonical embedding of c / scale (the first N/2 slots of each)."""
+    n = degree
+    c = np.array([float(int(v)) for v in raised_coeffs]) / scale
+    n2 = n // 2
+    bits = n2.bit_length() - 1
+    rev = np.array([int(format(i, f"0{bits}b")[::-1], 2) for i in range(n2)])
+    t = (c[:n2] + 1j * c[n2:])[rev]
+    return t, embed_decode(c, n)[:n2]

@@ -45,6 +45,11 @@ class CkksEncoder:
             values.astype(np.complex128) * self.scale_factor, len(values), ctx
         )
 
+    def encode_complex(self, values, ctx: CkksContext) -> Plaintext:
+        """Encode complex values, one per slot."""
+        values = np.asarray(values, dtype=np.complex128)
+        return self._encode_inner(values * self.scale_factor, len(values), ctx)
+
     def _encode_inner(self, scaled, slots: int, ctx: CkksContext) -> Plaintext:
         from ..errors import EncodingError
 

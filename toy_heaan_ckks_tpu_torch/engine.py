@@ -187,16 +187,27 @@ def _decompose_alpha(d_ntt, ctx: CkksContext, ext_ctx: CkksContext,
     return to_ntt(acc, ext_ctx)
 
 
-def _gadget_accumulate(d_ntt, key_a, key_b, ctx: CkksContext,
-                       ext_ctx: CkksContext, plan: _SwitchPlan):
-    """Digit inner products over QP before the division by P. Keys
-    (..., D, E, N) broadcast against the decomposition of one d (a stack of
-    m keys gives (m, E, N))."""
-    alpha = _decompose_alpha(d_ntt, ctx, ext_ctx, plan)
+def _key_products(alpha, key_a, key_b, ext_ctx: CkksContext):
+    """Digit inner products over QP of a decomposition (D, E, N) against
+    keys (..., D, E, N) (a stack of m keys gives (m, E, N))."""
     q, rinv = ext_ctx.chain.q, ext_ctx.chain.rinv
     ks0 = _mod_sum(mm.mont_mul(alpha, key_b, q, rinv), q)
     ks1 = _mod_sum(mm.mont_mul(alpha, key_a, q, rinv), q)
     return ks0, ks1
+
+
+def _gadget_accumulate(d_ntt, key_a, key_b, ctx: CkksContext,
+                       ext_ctx: CkksContext, plan: _SwitchPlan):
+    """Digit inner products over QP before the division by P. Keys
+    (..., D, E, N) broadcast against the decomposition of one d."""
+    return _key_products(_decompose_alpha(d_ntt, ctx, ext_ctx, plan),
+                         key_a, key_b, ext_ctx)
+
+
+# Words of one rotation chunk's digit products in the hoisted sum: each
+# int64 temporary of mont_mul over (chunk, D, E, N) stays near 1 GiB (at
+# N = 2^16, D = 7, E = 32 one key is 14.7 M words, so 9 keys a chunk)
+HOIST_SUM_WORDS = 1 << 27
 
 
 def _mod_down_dispatch(x, ctx: CkksContext, ext_ctx: CkksContext):
@@ -256,27 +267,41 @@ def _hoisted_rotate_sum_core(c0, c1, perms, keys_a_inv, keys_b_inv,
     optional weights, (m, E, N) Montgomery NTT-domain plaintexts over the
     extended basis) apply there, and one mod-down divides the sum. c0 joins
     as c0 * P on the base channels, so the result is sum_i perm_i(c0) +
-    moddown(sum_i perm_i(ks0_i)). Returns (out0, out1), (L, N).
+    moddown(sum_i perm_i(ks0_i)). The rotations go through the digit
+    products in chunks of at most ``HOIST_SUM_WORDS`` key words, their
+    partial sums added mod q (the same words as one pass). ``keys_*_inv``
+    are the lists of m (D, E, N) planes ``CkksEngine._hoist_prep`` returns.
+    Returns (out0, out1), (L, N).
     """
     _check_key_compat(ctx, keys_a_inv[0], digit_size)
     plan = _switch_plan(ctx.moduli, ext_ctx.moduli, digit_size)
-    ks0, ks1 = _gadget_accumulate(c1, keys_a_inv, keys_b_inv, ctx, ext_ctx, plan)
+    alpha = _decompose_alpha(c1, ctx, ext_ctx, plan)
     L = c0.shape[-2]
     base, ext = ctx.chain, ext_ctx.chain
     p_mont = mm.column(_combined_down_consts(ctx.moduli, ext_ctx.moduli),
                        c0.device)
     c0p = mm.mont_mul(c0, p_mont, base.q, base.rinv)
-    ks0 = torch.cat([mm.add_mod(ks0[..., :L, :], c0p, base.q), ks0[..., L:, :]],
-                    dim=-2)
 
-    def gsum(ks):
-        g = _gather_slots(ks, perms)
+    def gsum(ks, sl):
+        g = _gather_slots(ks, perms[sl])
         if weights is not None:
-            g = mm.mont_mul(g, weights, ext.q, ext.rinv)
+            g = mm.mont_mul(g, weights[sl], ext.q, ext.rinv)
         return _mod_sum(g, ext.q)
 
-    return (_mod_down_dispatch(gsum(ks0), ctx, ext_ctx),
-            _mod_down_dispatch(gsum(ks1), ctx, ext_ctx))
+    m = perms.shape[0]
+    chunk = max(1, HOIST_SUM_WORDS // keys_a_inv[0].numel())
+    acc0 = acc1 = None
+    for lo in range(0, m, chunk):
+        sl = slice(lo, min(lo + chunk, m))
+        ks0, ks1 = _key_products(alpha, torch.stack(keys_a_inv[sl]),
+                                 torch.stack(keys_b_inv[sl]), ext_ctx)
+        ks0 = torch.cat([mm.add_mod(ks0[..., :L, :], c0p, base.q),
+                         ks0[..., L:, :]], dim=-2)
+        s0, s1 = gsum(ks0, sl), gsum(ks1, sl)
+        acc0 = s0 if acc0 is None else mm.add_mod(acc0, s0, ext.q)
+        acc1 = s1 if acc1 is None else mm.add_mod(acc1, s1, ext.q)
+    return (_mod_down_dispatch(acc0, ctx, ext_ctx),
+            _mod_down_dispatch(acc1, ctx, ext_ctx))
 
 
 def _relinearize(t0, t1, t2, key_a, key_b, ctx: CkksContext,
@@ -522,9 +547,9 @@ class CkksEngine:
     @staticmethod
     def _hoist_prep(ct: Ciphertext, rotks):
         """Forward NTT-domain permutations (m, N) and the inverse-permuted
-        key stacks (m, D, E, N), each key's pair cached in its
-        ``hoist_cache``. All keys must share the extended basis and the
-        digit size."""
+        key planes (two lists of m (D, E, N) planes), each key's pair
+        cached in its ``hoist_cache``. All keys must share the extended
+        basis and the digit size."""
         from .errors import CkksError
 
         ext_ctx = rotks[0].ext_ctx
@@ -549,9 +574,7 @@ class CkksEngine:
             return cached
 
         pairs = [inv_keys(k, e) for k, e in zip(rotks, exps)]
-        keys_a = torch.stack([p[0] for p in pairs])
-        keys_b = torch.stack([p[1] for p in pairs])
-        return perms, keys_a, keys_b, ext_ctx, ds
+        return perms, [p[0] for p in pairs], [p[1] for p in pairs], ext_ctx, ds
 
     @staticmethod
     def rotate_hoisted(ct: Ciphertext, rotks) -> list[Ciphertext]:
@@ -565,7 +588,7 @@ class CkksEngine:
         perms, keys_a, keys_b, ext_ctx, ds = CkksEngine._hoist_prep(ct, rotks)
         out0, out1 = _hoisted_rotate_core(
             ct.c0.to_ntt_domain().data, ct.c1.to_ntt_domain().data,
-            perms, keys_a, keys_b, ctx, ext_ctx, ds,
+            perms, torch.stack(keys_a), torch.stack(keys_b), ctx, ext_ctx, ds,
         )
         return [
             Ciphertext(c0=Poly(out0[i], ctx, True), c1=Poly(out1[i], ctx, True),

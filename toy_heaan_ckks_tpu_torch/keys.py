@@ -146,53 +146,88 @@ def sp_inv_ints(special_moduli) -> tuple:
     return tuple(pow((p_total // pm) % pm, -1, pm) for pm in specials)
 
 
-def _gadget_pairs(sk: SecretKey, target: Poly, std_dev: float,
-                  ctx: CkksContext, rng: np.random.Generator,
-                  specials: tuple[int, ...], digit_size: int = 1):
-    """Stacked hybrid gadget pairs encoding ``target``: digit t's plaintext
-    over QP is (P mod q_j) * target_j on digit t's channels and zero
-    elsewhere. Returns (a, b, ext_ctx, a_seed), a/b (D, E, N) of the
-    extended chain's dtype."""
-    L = ctx.num_channels
-    groups = digit_groups(L, digit_size)
+# gadget keys whose uniform halves are drawn at once, one thread each
+# (numpy's bounded draws release the interpreter lock)
+KEYGEN_THREADS = 8
+
+
+def _gadget_stacks(sk: SecretKey, targets, std_dev: float, ctx: CkksContext,
+                   rng: np.random.Generator, specials: tuple[int, ...],
+                   digit_size: int = 1) -> list:
+    """Stacked hybrid gadget pairs encoding each of ``targets``: digit t's
+    plaintext over QP is (P mod q_j) * target_j on digit t's channels and
+    zero elsewhere. Returns [(a, b, ext_ctx, a_seed)], a/b (D, E, N) of
+    the extended chain's dtype.
+
+    The caller's generator draws, key after key, the seed of the key's
+    uniform halves and then one Gaussian error per digit: the draws of one
+    single-key call after another. Each uniform half comes from its own
+    seeded generator, so up to KEYGEN_THREADS of them are drawn at once in
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    groups = digit_groups(ctx.num_channels, digit_size)
     ext_ctx = CkksContext.build(ctx.moduli + tuple(specials), ctx.degree, ctx.device)
     s_ext = sk.extend_to(ext_ctx)
     p_total = 1
     for p in specials:
         p_total *= p
-
     p_mod = torch.tensor(
         [p_total % q for q in ctx.moduli], dtype=torch.int64, device=ctx.device
     )[:, None]
-    t_scaled = mm.mul_mod(target.to_ntt_domain().data, p_mod, ctx.chain.q)
-    plain = torch.zeros(
-        (len(groups), ext_ctx.num_channels, ctx.degree),
-        dtype=ext_ctx.chain.dtype, device=ctx.device,
-    )
-    for t, grp in enumerate(groups):
-        plain[t, grp[0] : grp[-1] + 1] = t_scaled[grp[0] : grp[-1] + 1]
+    out = []
+    with ThreadPoolExecutor(KEYGEN_THREADS) as pool:
+        for lo in range(0, len(targets), KEYGEN_THREADS):
+            batch = targets[lo:lo + KEYGEN_THREADS]
+            draws = []
+            for _ in batch:
+                a_seed = int(rng.integers(0, 2**63))
+                draws.append((a_seed, [
+                    sampling.gaussian_coefficients(ctx.degree, std_dev, rng)
+                    for _ in groups
+                ]))
+            uniform = pool.map(lambda d: _uniform_residues(ext_ctx, len(groups), d[0]),
+                               draws)
+            for target, (a_seed, errors), res in zip(batch, draws, uniform):
+                t_scaled = mm.mul_mod(target.to_ntt_domain().data, p_mod, ctx.chain.q)
+                plain = torch.zeros(
+                    (len(groups), ext_ctx.num_channels, ctx.degree),
+                    dtype=ext_ctx.chain.dtype, device=ctx.device,
+                )
+                for t, grp in enumerate(groups):
+                    plain[t, grp[0] : grp[-1] + 1] = t_scaled[grp[0] : grp[-1] + 1]
+                a_stack = _uniform_to_device(res, ext_ctx)
+                b_list = []
+                for t, e in enumerate(errors):
+                    a_i = Poly(a_stack[t], ext_ctx, True)
+                    e_i = Poly.from_coeffs(e, ext_ctx).to_ntt_domain()
+                    b_list.append((-(a_i * s_ext) + e_i).data)
+                b_stack = mm.add_mod(torch.stack(b_list), plain, ext_ctx.chain.q)
+                out.append((a_stack, b_stack, ext_ctx, a_seed))
+    return out
 
-    # the uniform halves come from a seed drawn from the caller's rng, so
-    # a key can be stored as (b, a_seed) and its a stack regenerated
-    a_seed = int(rng.integers(0, 2**63))
-    a_stack = regenerate_gadget_a(ext_ctx, len(groups), a_seed)
-    b_list = []
-    for t in range(len(groups)):
-        a_i = Poly(a_stack[t], ext_ctx, True)
-        e_i = Poly.sample_gaussian(ext_ctx, std_dev, rng).to_ntt_domain()
-        b_list.append((-(a_i * s_ext) + e_i).data)
-    b_stack = mm.add_mod(torch.stack(b_list), plain, ext_ctx.chain.q)
-    return a_stack, b_stack, ext_ctx, a_seed
+
+def _uniform_residues(ext_ctx: CkksContext, num_digits: int, a_seed: int) -> np.ndarray:
+    """Host draws of a gadget key's uniform halves: (D, E, N) residues from
+    ``make_rng(a_seed)``, digit after digit, channel after channel."""
+    a_rng = sampling.make_rng(a_seed)
+    return np.stack([
+        np.stack([sampling.uniform_coefficients(ext_ctx.degree, q, a_rng)
+                  for q in ext_ctx.moduli])
+        for _ in range(num_digits)
+    ])
+
+
+def _uniform_to_device(res: np.ndarray, ext_ctx: CkksContext) -> torch.Tensor:
+    """(D, E, N) plain residues -> NTT-domain Montgomery planes on device."""
+    return torch.stack([Poly.from_residues(r, ext_ctx).to_ntt_domain().data
+                        for r in res])
 
 
 def regenerate_gadget_a(ext_ctx: CkksContext, num_digits: int,
                         a_seed: int) -> torch.Tensor:
     """Re-derive a gadget key's uniform ``a`` stack (D, E, N) from its seed."""
-    a_rng = sampling.make_rng(a_seed)
-    return torch.stack([
-        Poly.sample_uniform(ext_ctx, a_rng).to_ntt_domain().data
-        for _ in range(num_digits)
-    ])
+    return _uniform_to_device(_uniform_residues(ext_ctx, num_digits, a_seed), ext_ctx)
 
 
 def _resolve_specials(ctx: CkksContext, special: int | None,
@@ -209,19 +244,18 @@ def _resolve_specials(ctx: CkksContext, special: int | None,
     return default_special_primes(ctx, max(len(g) for g in groups))
 
 
-def _gadget_key_fields(sk: SecretKey, target: Poly, std_dev: float,
+def _gadget_key_fields(sk: SecretKey, targets, std_dev: float,
                        ctx: CkksContext, rng: np.random.Generator,
-                       special, specials, digit_size: int) -> dict:
-    """The fields every gadget key shares, for a key encoding ``target``."""
+                       special, specials, digit_size: int) -> list:
+    """The fields every gadget key shares, for keys encoding ``targets``."""
     sp = _resolve_specials(ctx, special, specials, digit_size)
-    a, b, ext_ctx, a_seed = _gadget_pairs(
-        sk, target, std_dev, ctx, rng, sp, digit_size
-    )
     p_total = 1
     for p in sp:
         p_total *= p
-    return dict(a=a, b=b, ctx=ctx, ext_ctx=ext_ctx, special=p_total,
-                digit_size=digit_size, a_seed=a_seed)
+    return [dict(a=a, b=b, ctx=ctx, ext_ctx=ext_ctx, special=p_total,
+                 digit_size=digit_size, a_seed=a_seed)
+            for a, b, ext_ctx, a_seed in _gadget_stacks(
+                sk, targets, std_dev, ctx, rng, sp, digit_size)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -246,9 +280,9 @@ class RnsGadgetRelinKey:
                  specials: tuple[int, ...] | None = None,
                  digit_size: int = 1) -> "RnsGadgetRelinKey":
         return RnsGadgetRelinKey(**_gadget_key_fields(
-            sk, sk.poly * sk.poly, std_dev, ctx, rng, special, specials,
+            sk, [sk.poly * sk.poly], std_dev, ctx, rng, special, specials,
             digit_size,
-        ))
+        )[0])
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -274,10 +308,22 @@ class RnsGadgetRotationKey:
                  special: int | None = None,
                  specials: tuple[int, ...] | None = None,
                  digit_size: int = 1) -> "RnsGadgetRotationKey":
-        return RnsGadgetRotationKey(rotation=rotation, **_gadget_key_fields(
-            sk, sk.poly.rotate_slots(rotation), std_dev, ctx, rng, special,
-            specials, digit_size,
-        ))
+        return RnsGadgetRotationKey.generate_many(
+            sk, [rotation], std_dev, ctx, rng, special, specials, digit_size)[0]
+
+    @staticmethod
+    def generate_many(sk: SecretKey, rotations, std_dev: float,
+                      ctx: CkksContext, rng: np.random.Generator,
+                      special: int | None = None,
+                      specials: tuple[int, ...] | None = None,
+                      digit_size: int = 1) -> list:
+        """Keys for ``rotations`` in order: the words and the generator's
+        draws of one ``generate`` call after another, the keys' uniform
+        halves drawn in threads (``_gadget_stacks``)."""
+        targets = [sk.poly.rotate_slots(r) for r in rotations]
+        return [RnsGadgetRotationKey(rotation=r, **fields) for r, fields in zip(
+            rotations, _gadget_key_fields(sk, targets, std_dev, ctx, rng, special,
+                                          specials, digit_size))]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -299,9 +345,9 @@ class RnsGadgetConjugationKey:
                  specials: tuple[int, ...] | None = None,
                  digit_size: int = 1) -> "RnsGadgetConjugationKey":
         return RnsGadgetConjugationKey(**_gadget_key_fields(
-            sk, sk.poly.conjugate(), std_dev, ctx, rng, special, specials,
+            sk, [sk.poly.conjugate()], std_dev, ctx, rng, special, specials,
             digit_size,
-        ))
+        )[0])
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -43,6 +43,16 @@ def is_prime(n: int) -> bool:
     return True
 
 
+def _snap_up_to_congruence(value: int, modulus: int) -> int:
+    """Smallest v >= value with v == 1 (mod modulus)."""
+    if modulus <= 1:
+        raise ValueError("snap_up_to_congruence: modulus must be > 1")
+    remainder = value % modulus
+    if remainder == 1:
+        return value
+    return value + (modulus + 1 - remainder) % modulus
+
+
 def _snap_down_to_congruence(value: int, modulus: int) -> int:
     delta = (value % modulus + modulus - 1) % modulus
     if delta > value:

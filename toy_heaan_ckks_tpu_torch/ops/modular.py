@@ -50,8 +50,12 @@ def radix_bits_of(moduli) -> int:
 def word_table(values, radix_bits: int) -> torch.Tensor:
     """Host values < 2^radix_bits -> a tensor carrying the same bits in one
     word each: int32 for radix 32, int64 for radix 64 (the CUDA kernels
-    reinterpret them as uint32 / uint64)."""
-    arr = np.asarray(values, dtype=object).astype(np.uint64)
+    reinterpret them as uint32 / uint64). Integer arrays convert directly;
+    anything else (Python ints past int64) through exact ints."""
+    arr = np.asarray(values)
+    if arr.dtype.kind not in "iu":
+        arr = np.asarray(values, dtype=object)
+    arr = arr.astype(np.uint64)
     if radix_bits == 32:
         return torch.from_numpy(arr.astype(np.uint32).view(np.int32).copy())
     return torch.from_numpy(arr.view(np.int64).copy())

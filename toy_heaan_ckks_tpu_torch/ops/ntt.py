@@ -63,20 +63,33 @@ def _psi_powers(q: int, degree: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=64)
-def compact_twiddles(moduli: tuple[int, ...], degree: int):
-    """Host tables (fwd, inv): uint64 (L, N), entry 2^s + g = psi^{+-e_s[g]}."""
-    two_n = 2 * degree
+@functools.lru_cache(maxsize=4)
+def _tree_exponents(degree: int) -> np.ndarray:
+    """Entry 2^s + g of the compact tables: the exponent e_s[g]."""
     exps = np.zeros(degree, dtype=np.int64)
     for s, es in enumerate(tree_exponent_stages(degree)):
         exps[1 << s : 2 << s] = es
-    fwd = np.zeros((len(moduli), degree), dtype=np.uint64)
-    inv = np.zeros((len(moduli), degree), dtype=np.uint64)
-    for li, q in enumerate(moduli):
-        powers = _psi_powers(q, degree)
-        fwd[li, 1:] = powers[exps[1:]]
-        inv[li, 1:] = powers[(two_n - exps[1:]) % two_n]
+    return exps
+
+
+@functools.lru_cache(maxsize=512)
+def prime_twiddles(q: int, degree: int) -> tuple[np.ndarray, np.ndarray]:
+    """One prime's rows of the compact tables (fwd, inv), uint64 (N,):
+    cached per prime, so the chains of every level share them."""
+    exps = _tree_exponents(degree)
+    powers = _psi_powers(q, degree)
+    fwd = np.zeros(degree, dtype=np.uint64)
+    inv = np.zeros(degree, dtype=np.uint64)
+    fwd[1:] = powers[exps[1:]]
+    inv[1:] = powers[(2 * degree - exps[1:]) % (2 * degree)]
     return fwd, inv
+
+
+@functools.lru_cache(maxsize=64)
+def compact_twiddles(moduli: tuple[int, ...], degree: int):
+    """Host tables (fwd, inv): uint64 (L, N), entry 2^s + g = psi^{+-e_s[g]}."""
+    rows = [prime_twiddles(q, degree) for q in moduli]
+    return np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows])
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -34,7 +34,7 @@ import torch
 
 from . import _build
 from .modular import shoup, word_table
-from .ntt import NttTables, compact_twiddles, forward_ntt, inverse_ntt
+from .ntt import NttTables, forward_ntt, inverse_ntt, prime_twiddles
 
 MAX_LOG_N = 16  # the largest ring of the kernels, for both word sizes
 SLICE_BYTES = 128 << 10  # the most of a plane one block holds
@@ -88,19 +88,26 @@ class KernelTables:
     inv_shoup: torch.Tensor
 
 
+@functools.lru_cache(maxsize=1024)
+def _prime_rows(q: int, degree: int, device: torch.device,
+                radix_bits: int) -> tuple[torch.Tensor, ...]:
+    """One prime's word rows (N,) on ``device``: forward and inverse
+    twiddles and their Shoup companions, cached per prime like
+    ``prime_twiddles``, so the chains of every level and digit share them."""
+    fwd, inv = prime_twiddles(q, degree)
+    return tuple(word_table(a, radix_bits).to(device) for a in (
+        fwd, shoup(fwd, q, radix_bits), inv, shoup(inv, q, radix_bits)))
+
+
 @functools.lru_cache(maxsize=64)
 def kernel_tables(moduli: tuple, degree: int, device: torch.device,
                   radix_bits: int) -> KernelTables:
-    fwd, inv = compact_twiddles(moduli, degree)
-    q = np.array(moduli, np.uint64)[:, None]
-
-    def dev(a):
-        return word_table(a, radix_bits).to(device)
-
+    rows = [_prime_rows(q, degree, device, radix_bits) for q in moduli]
+    fwd, fwd_shoup, inv, inv_shoup = (torch.stack([r[i] for r in rows])
+                                      for i in range(4))
     return KernelTables(
-        q=dev(np.array(moduli, np.uint64)),
-        fwd=dev(fwd), fwd_shoup=dev(shoup(fwd, q, radix_bits)),
-        inv=dev(inv), inv_shoup=dev(shoup(inv, q, radix_bits)),
+        q=word_table(np.array(moduli, np.uint64), radix_bits).to(device),
+        fwd=fwd, fwd_shoup=fwd_shoup, inv=inv, inv_shoup=inv_shoup,
     )
 
 

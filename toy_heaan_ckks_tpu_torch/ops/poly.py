@@ -75,13 +75,27 @@ def residues_to_device(res: np.ndarray, ctx: CkksContext) -> torch.Tensor:
 
 
 def encode_coeffs_to_device(coeffs, ctx: CkksContext) -> torch.Tensor:
-    """Signed integer coefficients (exact) -> Montgomery residues on device."""
+    """Signed integer coefficients (exact) -> Montgomery residues on device.
+    Fixed-width integers, and object arrays of Python ints that all fit in
+    int64 (the constants of the models), are reduced on the device
+    (``torch.remainder`` by a positive q is non-negative, as numpy's
+    ``%``); wider ones through exact Python ints on the host."""
     coeffs = np.asarray(coeffs)
     if coeffs.shape[-1] != ctx.degree:
         raise ValueError(
             f"expected {ctx.degree} coefficients, got {coeffs.shape[-1]}"
         )
-    return residues_to_device(to_residues(coeffs, list(ctx.moduli)), ctx)
+    if coeffs.dtype == object:
+        try:
+            narrow = coeffs.astype(np.int64)
+        except OverflowError:
+            narrow = None
+        if narrow is None or not (narrow.astype(object) == coeffs).all():
+            return residues_to_device(to_residues(coeffs, list(ctx.moduli)), ctx)
+        coeffs = narrow
+    c = torch.from_numpy(np.ascontiguousarray(coeffs, dtype=np.int64)).to(ctx.device)
+    plain = torch.remainder(c.unsqueeze(-2), ctx.chain.q)
+    return mm.to_mont(plain.to(ctx.chain.dtype), ctx.chain)
 
 
 def decode_device_to_coeffs(data: torch.Tensor, ctx: CkksContext) -> np.ndarray:
