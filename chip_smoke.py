@@ -119,6 +119,25 @@ equal to ``launches``; ``read_counts``).
    K2, K3 and K3' launched (on clusters at 2^16, on none at 2^10) and no
    other kernel; phase 2 checks the four kernels at both rings' shapes
    (``boot_kernel_cases``);
+3g. the last models, after phase 3f's rotation keys are freed and a line
+   saying whether the native host runtime built: comparison
+   (``models/compare.py``) at N = 2^16 on examples/encrypted_compare.py's
+   recipe (``build_modulus_chain(2^16, 30, CMP_DEPTH)``, a wide chain with
+   q0 of 40 bits, dense secret, g_iters 1, f_iters 2): ``compare``,
+   ``eval_max`` and ``eval_relu`` cold and warm, each on the level path
+   CMP_LEVELS, its decode within CMP_ERR, eval_sign's last fused multiply
+   equal to the CPU twin, K5'/K7, K6 and K8 on clusters only and nothing
+   else (no t-less mod-down: the comparison never rotates; counts set to 0
+   just before each cold call, read just after), keygen seconds and peak
+   device memory; ``compare`` at N = 2^10
+   word-equal to the port's CPU path; linear algebra (``models/linalg.py``)
+   at N = 2^13 on examples/encrypted_matmul.py's recipe (5 x 30-bit):
+   ``encrypted_matmul`` of two encrypted 64 x 64 matrices,
+   ``encrypted_transpose`` and a dense 4096 x 4096 ``encrypted_matvec``
+   (BSGS), cold and warm with keygen, diagonal-encode and op seconds apart,
+   each decode within LA_ERR of numpy, K1, K2 and K3' one block a plane and
+   nothing else (its key switches and hoisted sums divide by P without t); ``encrypted_matmul`` at d = 16 (N = 2^9) word-equal to
+   the CPU path;
 4. the multiply composite (mults/s at the path's batch, latency at
    batch 1), timed first, before the process first runs torch.profiler;
    CUDA-event timings of each kernel (its device time from torch.profiler
@@ -157,7 +176,12 @@ equal to ``launches``; ``read_counts``).
    at N = 2^16 (1, 2, 2^16), each with its form's registers and resident
    clusters, and those at 2^13 and 2^14 listed with theirs; the launches
    of phase 3f on the K1 / K4, K2, K3 and K3' rows, and profiler splits of
-   the warm 2^10 refresh and the warm first level of the 2^16 CoeffToSlot.
+   the warm 2^10 refresh and the warm first level of the 2^16 CoeffToSlot;
+   the launches of phase 3g's calls on the big-wide K5'/K7, K6, K8 and K8'
+   rows (``launches_per_<op>_2^16``) and the small K1, K2, K3 and K3' rows
+   (``launches_per_<op>_2^13``), and profiler splits of a warm fused
+   multiply at the top of the comparison's chain and a warm encrypted_matmul
+   at 2^13.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is a
 JSON summary of the kernels. Exits non-zero, printing no result, when no
@@ -1569,9 +1593,9 @@ class _Spies:
         return out
 
 
-def boot_twin_mul(cfg: BootConfig, call) -> int:
-    """Holds one fused multiply of the refresh (``CkksEngine.mul_rescale``
-    on the card) to the CPU twin on the same words; its level."""
+def twin_mul(name: str, call, degree: int) -> int:
+    """Holds one fused multiply made on the card (``CkksEngine.mul_rescale``)
+    to the CPU twin on the same words; its level."""
     import torch
 
     from toy_heaan_ckks_tpu_torch import CkksContext
@@ -1579,15 +1603,15 @@ def boot_twin_mul(cfg: BootConfig, call) -> int:
 
     a, b, rlk, out = call
     cpu = torch.device("cpu")
-    ctx_cpu = CkksContext.build(a.ctx.moduli, cfg.degree, cpu)
-    ext_cpu = CkksContext.build(rlk.ext_ctx.moduli, cfg.degree, cpu)
+    ctx_cpu = CkksContext.build(a.ctx.moduli, degree, cpu)
+    ext_cpu = CkksContext.build(rlk.ext_ctx.moduli, degree, cpu)
     c0, c1 = _mul_relin_rescale_arrays(
         a.c0.data.cpu(), a.c1.data.cpu(), b.c0.data.cpu(), b.c1.data.cpu(),
         rlk.a.cpu(), rlk.b.cpu(), ctx_cpu, ext_cpu, ctx_cpu.drop_last(1),
         digit_size=rlk.digit_size)
     if not (torch.equal(c0, out.c0.data.cpu()) and torch.equal(c1, out.c1.data.cpu())):
-        raise AssertionError(f"[{cfg.name}] GPU mul_rescale at level {a.level} differs "
-                             "from the CPU twin")
+        raise AssertionError(f"[{name}] GPU mul_rescale at level {a.level} differs from "
+                             "the CPU twin")
     return a.level
 
 
@@ -1622,8 +1646,9 @@ def boot_refresh(cfg: BootConfig, s: dict, dev, keep_level: int | None = None) -
                 peak=torch.cuda.max_memory_allocated(), kw=kw)
 
 
-def boot_decode(cfg: BootConfig, s: dict, ct):
-    """The first N/2 slots of ``ct``'s decode (finite, or this raises)."""
+def decode_slots(cfg, s: dict, ct):
+    """The first N/2 slots of ``ct``'s decode with ``s``'s secret key and
+    encoder (finite, or this raises)."""
     import numpy as np
 
     from toy_heaan_ckks_tpu_torch import CkksEngine
@@ -1653,7 +1678,7 @@ def run_boot_refresh(cfg: BootConfig, dev) -> dict:
     setup_s = time.perf_counter() - t0
     run = boot_refresh(cfg, s, dev)
     out, sp = run["out"], run["spies"]
-    err = float(np.max(np.abs(boot_decode(cfg, s, out).real - s["m"])))
+    err = float(np.max(np.abs(decode_slots(cfg, s, out).real - s["m"])))
     print(f"[{cfg.name}] setup {setup_s:.2f} s; cold refresh {run['cold']:.2f} s (keygen "
           f"{sp.seconds['keygen']:.2f}, encodes {sp.seconds['encodes']:.2f}), level 1 -> "
           f"{out.level}, scale heals at levels {sp.heals}; launches {run['launches']}")
@@ -1734,17 +1759,17 @@ def run_boot_full(cfg: BootConfig, dev, twin: dict) -> dict:
     if big_i > (cfg.hw + 3) // 2 + 1:
         raise AssertionError(f"[{cfg.name}] raise_modulus: |I| = {big_i}")
     t_want, _ = expected_dft(mr, raised.true_scale, n)
-    cts_err = float(np.max(np.abs(boot_decode(cfg, s, _low(t)) - t_want)))
-    got = boot_decode(cfg, s, out).real
+    cts_err = float(np.max(np.abs(decode_slots(cfg, s, _low(t)) - t_want)))
+    got = decode_slots(cfg, s, out).real
     err = float(np.max(np.abs(got - s["m"])))
     rlk = s["ladder"].at_level(out.level).rlk
     sq = E.rescale_ciphertext(E.square_ciphertext(out, rlk))
-    got_sq = boot_decode(cfg, s, sq).real
+    got_sq = decode_slots(cfg, s, sq).real
     sq_err = float(np.max(np.abs(got_sq - s["m"] ** 2)))
     sq_self = float(np.max(np.abs(got_sq - got ** 2)))
     host_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    mul_levels = [boot_twin_mul(cfg, call) for call in sp.muls]
+    mul_levels = [twin_mul(cfg.name, call, cfg.degree) for call in sp.muls]
     twin_s = time.perf_counter() - t0
 
     sec = sp.seconds
@@ -1795,6 +1820,464 @@ def _low(ct, keep: int = BOOT_LOW_CHANNELS):
         return ct
     return Ciphertext(c0=ct.c0.mod_drop_last(drop), c1=ct.c1.mod_drop_last(drop),
                       logp=ct.logp, logq=ct.logq, scale=ct.scale)
+
+
+# phase 3g: the last models (models/compare.py, models/linalg.py).
+#
+# Comparison: examples/encrypted_compare.py's recipe at full width:
+# build_modulus_chain(2^16, 30, CMP_DEPTH) with the helper's default q0 of 40
+# bits, so every level's chain is wide (R = 2^64, int64 planes: K5'/K7, K6 and
+# K8 / K8' on clusters of 16 at 2^16, the glue the bit-serial int64 products),
+# CkksParams(3.2, N/2, 30) (a dense secret), keys from make_rng(42) with a lazy
+# KeyLadder, N/2 slots of a and b from np.random.default_rng(7) with |a - b|
+# in [0.25, 0.95], g_iters 1, f_iters 2. On the NTT primes of 2^16 the chain's
+# primes lie up to a few percent off 2^30, so nearly every Chebyshev step heals
+# a scale mismatch (funceval._combine spends a level): CMP_DEPTH is the
+# smallest depth at which compare, eval_max and eval_relu all end at level >= 1
+# (python -m tools.model_noise --impl port --op compare --log-n 8 --depth 13 ...
+# 24 --chain-ring 65536; NTT primes of 2^16 serve every smaller ring and give
+# the same level path, so CMP_LEVELS is the full-width run's, and the
+# reference's words at 2^8 on these primes are the port's).
+CMP_RING, CMP_DEPTH, CMP_SCALE = 1 << 16, 24, 30
+CMP_KEY_SEED, CMP_VALUE_SEED = 42, 7
+CMP_SIGN = dict(g_iters=1, f_iters=2)
+# (output level, the levels of the scale heals) of each op
+CMP_HEALS = [23, 21, 21, 19, 16, 14, 14, 12, 9, 7, 7, 5]
+CMP_LEVELS = {"compare": (3, CMP_HEALS), "eval_max": (2, CMP_HEALS + [3]),
+              "eval_relu": (1, CMP_HEALS + [3])}
+# decode gates: examples/encrypted_compare.py's 0.02 where the least-squares
+# fit of log2(err) over N = 2^8 ... 2^14 on these primes keeps the error at
+# 2^16 inside it, else twice the fitted error there (python -m
+# tools.model_noise --impl port --device cuda --op compare --log-n 8 9 10 11
+# 12 13 14 --depth 24 --chain-ring 65536 on an NVIDIA H100; the words equal
+# the CPU path's at 2^8 ... 2^10 and the reference's at 2^8): compare
+# 1.244e-6 ... 5.095e-4, slope 1.62, 0.0103 at 2^16; eval_max 5.578e-6 ...
+# 6.580e-3, slope 1.64, 0.0794; eval_relu 3.629e-6 ... 3.504e-3, slope 1.61,
+# 0.0398
+CMP_ERR = {"compare": 0.02, "eval_max": 0.16, "eval_relu": 0.08}
+# the word check at N = 2^10: compare on the card against the port's CPU path
+# on the same recipe and primes, at depth 12 with one g_3 step and one f_1
+# step (both branches, in the order of composition; level 13 -> 2): the CPU
+# path's bit-serial int64 products take minutes over the full recipe there
+CMP_WORDS_RING, CMP_WORDS_DEPTH = 1 << 10, 12
+CMP_WORDS_SIGN = dict(g_iters=1, f_iters=1, n=1)
+# Linear algebra: examples/encrypted_matmul.py's recipe at N = 2^13:
+# generate_primes(30, 5, N), CkksParams(3.2, N/2, 30), keys from make_rng(42)
+# with a lazy KeyLadder and MatvecKeys, d x d operands uniform in [-1, 1] /
+# sqrt(d) from np.random.default_rng(7) with d^2 = N/2; and a dense N/2 x N/2
+# matrix-vector product with giant="auto" (BSGS, 64 baby steps and 63 giant
+# ones), the matrix uniform in [-1, 1] / sqrt(N/2) and the vector in [-1, 1]
+# from np.random.default_rng(11). The gate is the example's 1e-3: the
+# reference's errors on the CPU at d = 4, 8, 16 (python -m tools.model_noise
+# --impl reference --op matmul --d 4 8 16: 1.345e-7, 8.958e-7, 4.132e-6 for
+# the product) stay below it, and the port's fit over d = 4 ... 64 (the same
+# words as the reference's at 4 ... 16) gives 1.5e-4 for the product and
+# 1.7e-4 for the transpose at d = 64.
+LA_RING, LA_PRIMES, LA_SCALE = 1 << 13, 5, 30
+LA_ERR = 1e-3
+LA_WORDS_D = 16  # the word check: d = 16 at N = 2^9
+
+
+def model_counters():
+    """Every kernel counter of the port."""
+    from toy_heaan_ckks_tpu_torch.ops import coeff_ntt_gpu as cg
+    from toy_heaan_ckks_tpu_torch.ops import keyswitch_gpu as ksg
+    from toy_heaan_ckks_tpu_torch.ops import moddown_gpu as mdg
+    from toy_heaan_ckks_tpu_torch.ops import ntt_gpu
+    from toy_heaan_ckks_tpu_torch.ops.ntt_mxu_gpu import ntt_mxu_planes
+
+    return {"small": (ntt_gpu.ntt_planes, ksg.gadget_accumulate, mdg.mod_down_combine),
+            "wide": (ntt_gpu.ntt_planes_wide, ksg.gadget_accumulate_wide,
+                     mdg.mod_down_combine_wide),
+            "other": (ntt_mxu_planes, cg.coeff_tail, cg.coeff_cross, cg.coeff_cross_stages)}
+
+
+class ModelRun:
+    """Counts set to 0 just before a call of a model path and read just
+    after (``launches``, K3' / K8' apart): the path's kernels (``small`` or
+    ``wide``) on clusters where ``cfg`` says (``read_counts``), no other
+    kernel. Which of the path's kernels one call needs depends on the call
+    (a product without rotations runs no t-less mod-down, a transpose no key
+    switch): ``require_launched`` checks them over a phase's calls."""
+
+    def __init__(self, cfg: PathConfig, wide: bool):
+        counters = model_counters()
+        self.cfg, self.wide = cfg, wide
+        self.path = counters["wide" if wide else "small"]
+        self.others = counters["small" if wide else "wide"] + counters["other"]
+
+    def __enter__(self):
+        zero_counts(self.path + self.others)
+        self.path[2].launches_no_t = 0
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is not None:
+            return False
+        self.launches = read_counts(self.cfg, self.path, self.wide)
+        self.launches[f"{self.path[2].__name__}[no_t]"] = self.path[2].launches_no_t
+        stray = {f.__name__: f.launches for f in self.others if f.launches}
+        if stray:
+            raise AssertionError(f"[{self.cfg.name}] launches {self.launches}, other "
+                                 f"kernels {stray}")
+        return False
+
+
+def require_launched(name: str, runs, wide: bool) -> None:
+    """Each of the path's three kernels launched in at least one of ``runs``
+    (dicts of ``ModelRun.launches``)."""
+    path = model_counters()["wide" if wide else "small"]
+    total = {f.__name__: sum(r[f.__name__] for r in runs) for f in path}
+    if min(total.values()) < 1:
+        raise AssertionError(f"[{name}] a kernel of the path never launched: {total}")
+
+
+class _Recorder:
+    """Host seconds of chosen callables (``timed``), the level of every scale
+    heal (``algorithms.normalize_scale``) and the fused multiplies
+    (``CkksEngine.mul_rescale``) made inside ``compare.eval_sign``, while
+    active."""
+
+    def __init__(self):
+        import importlib
+
+        from toy_heaan_ckks_tpu_torch import CkksEngine
+
+        self.alg = importlib.import_module("toy_heaan_ckks_tpu_torch.models.algorithms")
+        self.cmp = importlib.import_module("toy_heaan_ckks_tpu_torch.models.compare")
+        self.engine = CkksEngine
+        self.seconds, self.heals, self.sign_muls = {}, [], []
+        self._in_sign, self._undo = False, []
+
+    def timed(self, owner, name: str, total: str):
+        import torch
+
+        fn = getattr(owner, name)
+        self.seconds.setdefault(total, 0.0)
+
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[total] += time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, wrapped)  # an instance attribute over the class's
+        self._undo.append((owner, name))
+
+    def __enter__(self):
+        normalize, sign = self.alg.normalize_scale, self.cmp.eval_sign
+        mul_rescale = self.engine.__dict__["mul_rescale"]
+
+        def heal(engine, ct, target):
+            self.heals.append(ct.level)
+            return normalize(engine, ct, target)
+
+        def in_sign(*args, **kw):
+            self._in_sign = True
+            try:
+                return sign(*args, **kw)
+            finally:
+                self._in_sign = False
+
+        def mul(a, b, rlk):
+            out = mul_rescale.__func__(a, b, rlk)
+            if self._in_sign:
+                self.sign_muls[:] = [(a, b, rlk, out)]
+            return out
+
+        self.alg.normalize_scale, self.cmp.eval_sign = heal, in_sign
+        self.engine.mul_rescale = staticmethod(mul)
+        self._saved = (normalize, sign, mul_rescale)
+        return self
+
+    def __exit__(self, *exc):
+        self.alg.normalize_scale, self.cmp.eval_sign, mul_rescale = self._saved
+        self.engine.mul_rescale = mul_rescale
+        for owner, name in reversed(self._undo):
+            delattr(owner, name)
+        return False
+
+
+def cmp_setup(degree: int, depth: int, dev) -> dict:
+    """The comparison recipe's chain, keys and two ciphertexts on ``dev``,
+    drawn in the example's order."""
+    import numpy as np
+
+    from toy_heaan_ckks_tpu_torch import (
+        CkksContext, CkksEncoder, CkksEngine, CkksParams, KeyLadder, build_modulus_chain,
+    )
+    from toy_heaan_ckks_tpu_torch.math.sampling import make_rng
+
+    plan = build_modulus_chain(CMP_RING, CMP_SCALE, depth)
+    ctx = CkksContext.build(list(plan.moduli), degree, dev)
+    params = CkksParams(3.2, degree // 2, CMP_SCALE)
+    eng = CkksEngine(ctx, params)
+    enc = CkksEncoder(degree, CMP_SCALE)
+    rng = make_rng(CMP_KEY_SEED)
+    sk = eng.generate_secret_key(rng)
+    pk = eng.generate_public_key(sk, rng)
+    ladder = KeyLadder(ctx, sk, 3.2, rng, lazy=True)
+    m_rng = np.random.default_rng(CMP_VALUE_SEED)
+    slots = degree // 2
+    lo = m_rng.uniform(0.0, 0.35, slots)
+    hi = lo + m_rng.uniform(0.25, 0.6, slots)
+    swap = m_rng.uniform(size=slots) < 0.5
+    a, b = np.where(swap, lo, hi), np.where(swap, hi, lo)
+    ct_a = eng.encrypt(enc.encode(a, ctx), pk, ctx.total_bits(), rng)
+    ct_b = eng.encrypt(enc.encode(b, ctx), pk, ctx.total_bits(), rng)
+    return dict(ctx=ctx, params=params, enc=enc, sk=sk, ladder=ladder, a=a, b=b,
+                ct_a=ct_a, ct_b=ct_b)
+
+
+def cmp_calls(s: dict, sign: dict) -> dict:
+    """op -> (its call on the setup's ciphertexts, the plain result)."""
+    import importlib
+
+    import numpy as np
+
+    from toy_heaan_ckks_tpu_torch import CkksEngine
+
+    # the models package exports a function named ``compare``
+    cmp = importlib.import_module("toy_heaan_ckks_tpu_torch.models.compare")
+    lad, prm, ca, cb, a, b = (s["ladder"], s["params"], s["ct_a"], s["ct_b"], s["a"],
+                              s["b"])
+    return {"compare": (lambda: cmp.compare(lad, prm, ca, cb, **sign),
+                        (a > b).astype(float)),
+            "eval_max": (lambda: cmp.eval_max(lad, prm, ca, cb, **sign), np.maximum(a, b)),
+            "eval_relu": (lambda: cmp.eval_relu(lad, prm, CkksEngine.sub_ciphertexts(ca, cb),
+                                                **sign), np.maximum(a - b, 0.0))}
+
+
+def run_compare_full(dev) -> dict:
+    """Phase 3g, comparison at N = 2^16: compare, eval_max and eval_relu of the
+    recipe, each cold (the ladder's keys drawn lazily inside the first) and
+    warm, with the counts set to 0 just before each cold call and read just
+    after; each op's level path equal to CMP_LEVELS, its decode within
+    CMP_ERR, the last fused multiply inside eval_sign word-equal to the CPU
+    twin; K5'/K7, K6 and K8 launched on clusters only, nothing else; the
+    keygen seconds and the peak device memory."""
+    import numpy as np
+    import torch
+
+    cfg = dataclasses.replace(WIDE_16, name="compare 2^16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    s = cmp_setup(CMP_RING, CMP_DEPTH, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rows = {}
+    with _Recorder() as rec:
+        rec.timed(s["ladder"], "_generate", "keygen")
+        for op, (call, want) in cmp_calls(s, CMP_SIGN).items():
+            heals0, keygen0 = len(rec.heals), rec.seconds["keygen"]
+            with ModelRun(cfg, wide=True) as counted:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = call()
+                torch.cuda.synchronize()
+                cold = time.perf_counter() - t0
+            heals = rec.heals[heals0:]
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            err = float(np.max(np.abs(decode_slots(cfg, s, out).real - want)))
+            rows[op] = dict(level=out.level, heals=heals, cold=cold, warm=warm, err=err, launches=counted.launches,
+                            keygen=rec.seconds["keygen"] - keygen0, out=out)
+    require_launched(cfg.name, [r["launches"] for r in rows.values()], wide=True)
+    twin_level = twin_mul(cfg.name, rec.sign_muls[0], CMP_RING)
+    peak = torch.cuda.max_memory_allocated()
+    smi = _smi("name,power.limit")
+    print(f"[{cfg.name}] setup (chain of {CMP_DEPTH + 1} primes, keys, 2 ciphertexts) "
+          f"{setup_s:.2f} s; peak device memory {peak / 2**30:.2f} GiB, "
+          f"{resident / 2**30:.2f} of it resident before ({smi})")
+    for op, r in rows.items():
+        print(f"[{cfg.name}] {op}: level {CMP_DEPTH + 1} -> {r['level']}, scale heals at "
+              f"levels {r['heals']}; cold {r['cold']:.2f} s (keygen {r['keygen']:.2f}), warm "
+              f"{r['warm']:.2f} s; decode max |err| {r['err']:.3e} (bound {CMP_ERR[op]}); "
+              f"launches {r['launches']}")
+    print(f"check [{cfg.name}] eval_sign's last fused multiply (level {twin_level}): GPU == "
+          "CPU twin")
+    for op, r in rows.items():
+        if (r["level"], r["heals"]) != CMP_LEVELS[op]:
+            raise AssertionError(f"[{cfg.name}] {op}: level path {(r['level'], r['heals'])}, "
+                                 f"not {CMP_LEVELS[op]}")
+        if r["err"] > CMP_ERR[op]:
+            raise AssertionError(f"[{cfg.name}] {op} decode error {r['err']} > {CMP_ERR[op]}")
+    from toy_heaan_ckks_tpu_torch import CkksEngine
+
+    rlk = s["ladder"].at_level(CMP_DEPTH + 1).rlk
+    return dict(rows=rows, peak=peak, setup=setup_s,
+                top_mul=lambda: CkksEngine.mul_rescale(s["ct_a"], s["ct_b"], rlk))
+
+
+def run_compare_words(dev) -> dict:
+    """Phase 3g, comparison at N = 2^10: ``compare`` on the card word-equal
+    to the port's CPU path from the same seeds (CMP_WORDS_DEPTH,
+    CMP_WORDS_SIGN), K5/K7, K6 and K8 launched and nothing else."""
+    import torch
+
+    cfg = PathConfig("compare 2^10", CMP_WORDS_RING, 61, CMP_WORDS_DEPTH + 1, 1, 1,
+                     CMP_SCALE, 0.0)
+    s = cmp_setup(CMP_WORDS_RING, CMP_WORDS_DEPTH, dev)
+    with ModelRun(cfg, wide=True) as counted:
+        out = cmp_calls(s, CMP_WORDS_SIGN)["compare"][0]()
+        torch.cuda.synchronize()
+    require_launched(cfg.name, [counted.launches], wide=True)
+    t0 = time.perf_counter()
+    cpu = cmp_setup(CMP_WORDS_RING, CMP_WORDS_DEPTH, torch.device("cpu"))
+    want = cmp_calls(cpu, CMP_WORDS_SIGN)["compare"][0]()
+    if (want.level, want.logp, want.true_scale) != (out.level, out.logp, out.true_scale) or \
+            not (torch.equal(out.c0.data.cpu(), want.c0.data)
+                 and torch.equal(out.c1.data.cpu(), want.c1.data)):
+        raise AssertionError(f"[{cfg.name}] GPU compare differs from the CPU path")
+    print(f"check [{cfg.name}] compare ({CMP_WORDS_SIGN}, depth {CMP_WORDS_DEPTH}): GPU c0 / "
+          f"c1 == CPU path, level {out.level} ({time.perf_counter() - t0:.2f} s on the "
+          f"CPU); launches {counted.launches}")
+    return dict(launches=counted.launches)
+
+
+def la_setup(d: int, dev) -> dict:
+    """The matrix product recipe at d x d (N = 2 d^2) on ``dev``: chain,
+    keys, the two encrypted operands and the matvec's matrix and vector."""
+    import numpy as np
+
+    from toy_heaan_ckks_tpu_torch import (
+        CkksContext, CkksEncoder, CkksEngine, CkksParams, KeyLadder, generate_primes,
+    )
+    from toy_heaan_ckks_tpu_torch.math.sampling import make_rng
+    from toy_heaan_ckks_tpu_torch.models.linalg import MatvecKeys
+
+    n = 2 * d * d
+    ctx = CkksContext.build(generate_primes(LA_SCALE, LA_PRIMES, n), n, dev)
+    params = CkksParams(3.2, n // 2, LA_SCALE)
+    eng = CkksEngine(ctx, params)
+    enc = CkksEncoder(n, LA_SCALE)
+    rng = make_rng(42)
+    sk = eng.generate_secret_key(rng)
+    pk = eng.generate_public_key(sk, rng)
+    ladder = KeyLadder(ctx, sk, 3.2, rng, lazy=True)
+    keys = MatvecKeys(ladder, params, rng)
+    m_rng = np.random.default_rng(7)
+    a = m_rng.uniform(-1.0, 1.0, (d, d)) / np.sqrt(d)
+    b = m_rng.uniform(-1.0, 1.0, (d, d)) / np.sqrt(d)
+    ct_a = eng.encrypt(enc.encode(a.reshape(-1), ctx), pk, ctx.total_bits(), rng)
+    ct_b = eng.encrypt(enc.encode(b.reshape(-1), ctx), pk, ctx.total_bits(), rng)
+    return dict(ctx=ctx, eng=eng, enc=enc, sk=sk, pk=pk, rng=rng, keys=keys, a=a, b=b,
+                ct_a=ct_a, ct_b=ct_b)
+
+
+def run_linalg_full(dev) -> dict:
+    """Phase 3g, linear algebra at N = 2^13: encrypted_matmul (d = 64, both
+    operands encrypted), encrypted_transpose of A and a dense 4096 x 4096
+    encrypted_matvec (giant="auto"), each cold (its rotation keys drawn
+    inside) and warm, with the counts set to 0 just before each cold call and
+    read just after; each decode within LA_ERR of numpy's a @ b, a.T and
+    m @ v; K1, K2 and K3' launched, one block a plane, nothing else;
+    keygen, diagonal-encode and op seconds apart."""
+    import numpy as np
+    import torch
+
+    from toy_heaan_ckks_tpu_torch.models import linalg
+
+    d = int(round((LA_RING // 2) ** 0.5))
+    cfg = PathConfig("linalg 2^13", LA_RING, LA_SCALE, LA_PRIMES, 1, 1, LA_SCALE, 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    s = la_setup(d, dev)
+    n2 = LA_RING // 2
+    v_rng = np.random.default_rng(11)
+    m = v_rng.uniform(-1.0, 1.0, (n2, n2)) / np.sqrt(n2)
+    v = v_rng.uniform(-1.0, 1.0, n2)
+    ct_v = s["eng"].encrypt(s["enc"].encode(v, s["ctx"]), s["pk"], s["ctx"].total_bits(),
+                            s["rng"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    keys, enc = s["keys"], s["enc"]
+    calls = {
+        "encrypted_matmul": (lambda: linalg.encrypted_matmul(s["ct_a"], s["ct_b"], keys, enc),
+                             s["a"] @ s["b"]),
+        "encrypted_transpose": (lambda: linalg.encrypted_transpose(s["ct_a"], keys, enc),
+                                s["a"].T),
+        "encrypted_matvec": (lambda: linalg.encrypted_matvec(ct_v, m, keys, enc,
+                                                             giant="auto"), m @ v),
+    }
+    rows = {}
+    with _Recorder() as rec:
+        rec.timed(keys, "rot_keys", "keygen")  # the ladder's keys drawn inside
+        rec.timed(enc, "encode_complex", "encodes")
+        for op, (call, want) in calls.items():
+            before = dict(rec.seconds)
+            with ModelRun(cfg, wide=False) as counted:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = call()
+                torch.cuda.synchronize()
+                cold = time.perf_counter() - t0
+            spent = {k: rec.seconds[k] - before.get(k, 0.0) for k in rec.seconds}
+            before = dict(rec.seconds)
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            warm_encodes = rec.seconds["encodes"] - before["encodes"]
+            got = decode_slots(cfg, s, out).real.reshape(np.shape(want))
+            rows[op] = dict(level=out.level, cold=cold, warm=warm, err=float(
+                np.max(np.abs(got - want))), launches=counted.launches,
+                keygen=spent["keygen"], encodes=spent["encodes"], warm_encodes=warm_encodes)
+    require_launched(cfg.name, [r["launches"] for r in rows.values()], wide=False)
+    peak = torch.cuda.max_memory_allocated()
+    smi = _smi("name,power.limit")
+    print(f"[{cfg.name}] setup (5 x 30-bit chain, keys, 3 ciphertexts, the {n2} x {n2} "
+          f"matrix) {setup_s:.2f} s; rotation keys drawn {len(keys._rot)}; peak device "
+          f"memory {peak / 2**30:.2f} GiB, {resident / 2**30:.2f} of it resident before "
+          f"({smi})")
+    for op, r in rows.items():
+        print(f"[{cfg.name}] {op}: level {LA_PRIMES} -> {r['level']}; cold {r['cold']:.2f} s "
+              f"(keygen {r['keygen']:.2f}, diagonal encodes {r['encodes']:.2f}, the op "
+              f"{r['cold'] - r['keygen'] - r['encodes']:.2f}), warm {r['warm']:.2f} s "
+              f"(encodes {r['warm_encodes']:.2f}); decode max |err| {r['err']:.3e} (bound "
+              f"{LA_ERR}); launches {r['launches']}")
+    for op, r in rows.items():
+        if r["err"] > LA_ERR:
+            raise AssertionError(f"[{cfg.name}] {op} decode error {r['err']} > {LA_ERR}")
+    want_levels = {"encrypted_matmul": LA_PRIMES - 3, "encrypted_transpose": LA_PRIMES - 1,
+                   "encrypted_matvec": LA_PRIMES - 1}
+    if {op: r["level"] for op, r in rows.items()} != want_levels:
+        raise AssertionError(f"[{cfg.name}] levels {rows}, not {want_levels}")
+    return dict(rows=rows, peak=peak, setup=setup_s, warm_call=calls["encrypted_matmul"][0])
+
+
+def run_linalg_words(dev) -> dict:
+    """Phase 3g, linear algebra at N = 2^9 (d = 16): encrypted_matmul on the
+    card word-equal to the port's CPU path from the same seeds."""
+    import torch
+
+    from toy_heaan_ckks_tpu_torch.models import linalg
+
+    n = 2 * LA_WORDS_D * LA_WORDS_D
+    cfg = PathConfig(f"linalg 2^{n.bit_length() - 1}", n, LA_SCALE, LA_PRIMES, 1, 1,
+                     LA_SCALE, 0.0)
+    s = la_setup(LA_WORDS_D, dev)
+    with ModelRun(cfg, wide=False) as counted:
+        out = linalg.encrypted_matmul(s["ct_a"], s["ct_b"], s["keys"], s["enc"])
+        torch.cuda.synchronize()
+    require_launched(cfg.name, [counted.launches], wide=False)
+    cpu = la_setup(LA_WORDS_D, torch.device("cpu"))
+    want = linalg.encrypted_matmul(cpu["ct_a"], cpu["ct_b"], cpu["keys"], cpu["enc"])
+    if (want.level, want.logp, want.true_scale) != (out.level, out.logp, out.true_scale) or \
+            not (torch.equal(out.c0.data.cpu(), want.c0.data)
+                 and torch.equal(out.c1.data.cpu(), want.c1.data)):
+        raise AssertionError(f"[{cfg.name}] GPU encrypted_matmul differs from the CPU path")
+    print(f"check [{cfg.name}] encrypted_matmul (d = {LA_WORDS_D}): GPU c0 / c1 == CPU path, "
+          f"level {out.level}; launches {counted.launches}")
+    return dict(launches=counted.launches)
 
 
 def time_mesh(run: dict, mesh_runs: dict) -> None:
@@ -2370,6 +2853,22 @@ def main() -> int:
     boot_full = run_boot_full(BOOT_FULL, dev, boot_refresh)
     print(f"phase 3f (bootstrap): {time.perf_counter() - t0:.1f} s")
     lap("phase 3f")
+    # ── phase 3g: the last models (models/compare.py, models/linalg.py) ──
+    # phase 3f's rotation and conjugation keys are freed first (phase 4
+    # draws its first DFT level's again before profiling it)
+    t0 = time.perf_counter()
+    boot_full["bkeys"]._rot.clear()
+    boot_full["bkeys"]._conj.clear()
+    torch.cuda.empty_cache()
+    from toy_heaan_ckks_tpu_torch import native
+
+    print(f"native host runtime available: {native.available()}")
+    cmp_full = run_compare_full(dev)
+    cmp_words = run_compare_words(dev)
+    la_full = run_linalg_full(dev)
+    la_words = run_linalg_words(dev)
+    print(f"phase 3g (compare, linalg): {time.perf_counter() - t0:.1f} s")
+    lap("phase 3g")
 
     # ── phase 4: timings (CUDA events, after warm-up) ───────────────────
     small_names = {
@@ -2599,6 +3098,32 @@ def main() -> int:
                       f"({boot_full['top_keys']} keys)", boot_full["top_level"], iters=1)
     boot_full["bkeys"]._rot.clear()
     lap("the bootstrap rows and profiles")
+    # the last models: launches per call (phase 3g) on the K5'/K7, K6 and K8 /
+    # K8' rows of big-wide (the same cluster kernels at 2^16) and the K1, K2,
+    # K3 and K3' rows of small (the same register-pass kernels at 2^13), and
+    # profiler splits of a warm compare at 2^16 and a warm matmul at 2^13
+    for row in rows:
+        fn, _, at = row["name"].partition("@")
+        if at not in ("", "big-wide"):
+            continue
+        base = fn.split("[")[0]
+        label, op_rows = ("2^16", cmp_full["rows"]) if at else ("2^13", la_full["rows"])
+        for op, r in op_rows.items():
+            counts = r["launches"]
+            if base not in counts:
+                continue
+            n = counts[fn]
+            if fn == base and base.startswith("mod_down"):
+                n -= counts[f"{base}[no_t]"]  # K3 / K8 apart from K3' / K8'
+            row[f"launches_per_{op}_{label}"] = n
+    # a whole compare is ~10^5 launches of bit-serial glue, too many for a
+    # profiler window to keep: its unit, the fused multiply at the top of
+    # the chain, stands for it
+    profile_composite(f"compare 2^16 warm fused multiply at level {CMP_DEPTH + 1}",
+                      cmp_full["top_mul"], iters=1)
+    profile_composite("linalg 2^13 warm encrypted_matmul (d = 64)", la_full["warm_call"],
+                      iters=1)
+    lap("the model rows and profiles")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     print(f"wall time: {time.perf_counter() - start:.1f} s")
 

@@ -1227,3 +1227,91 @@ def test_hoisted_sum_chunks_on_card(dev, monkeypatch):
     assert len(offs) > 4
     assert torch.equal(whole.c0.data, chunked.c0.data)
     assert torch.equal(whole.c1.data, chunked.c1.data)
+
+
+# ── the last models (models/compare.py, models/linalg.py) ────────────────
+
+
+def _cmp_setup(device, degree, depth):
+    """examples/encrypted_compare.py's recipe at ``degree`` on the NTT primes
+    of 2^16 (``build_modulus_chain(2^16, 30, depth)``: q0 of 40 bits, a wide
+    chain), drawn from make_rng(42) and np.random.default_rng(7)."""
+    plan = port.build_modulus_chain(1 << 16, 30, depth)
+    ctx = port.CkksContext.build(list(plan.moduli), degree, device)
+    params = port.CkksParams(3.2, degree // 2, 30)
+    eng = port.CkksEngine(ctx, params)
+    enc = port.CkksEncoder(degree, 30)
+    rng = make_rng(42)
+    sk = eng.generate_secret_key(rng)
+    pk = eng.generate_public_key(sk, rng)
+    ladder = port.KeyLadder(ctx, sk, 3.2, rng, lazy=True)
+    vals = np.random.default_rng(7)
+    lo = vals.uniform(0.0, 0.35, degree // 2)
+    hi = lo + vals.uniform(0.25, 0.6, degree // 2)
+    cts = [eng.encrypt(enc.encode(v, ctx), pk, ctx.total_bits(), rng) for v in (hi, lo)]
+    return ladder, params, cts, sk, enc
+
+
+def test_compare_matches_cpu(dev):
+    """compare at N = 2^10 (one f_1 step on a 9-prime chain): c0 / c1 on the
+    card equal the CPU path's, K5/K7, K6 and K8 launched, none on a cluster;
+    the decode near the host composition (f_1(a - b) + 1) / 2."""
+    from toy_heaan_ckks_tpu_torch.models import compare as cmp_fn
+    from toy_heaan_ckks_tpu_torch.models.compare import _compose_sign
+
+    outs = []
+    fns = (ntt_gpu.ntt_planes_wide, keyswitch_gpu.gadget_accumulate_wide,
+           moddown_gpu.mod_down_combine_wide)
+    for device in (dev, torch.device("cpu")):
+        ladder, params, cts, sk, enc = _cmp_setup(device, 1 << 10, 8)
+        before = [(f.launches, f.launches_cluster) for f in fns]
+        outs.append(cmp_fn(ladder, params, *cts, g_iters=0, f_iters=1, n=1))
+        counts = [(f.launches - a, f.launches_cluster - c) for f, (a, c) in zip(fns, before)]
+        if device == dev:
+            assert all(n > 0 and c == 0 for n, c in counts), counts
+            got = enc.decode(port.CkksEngine.decrypt(outs[0], sk.reduce_to(outs[0].ctx)))
+    gpu, cpu = outs
+    assert (gpu.level, gpu.logp, gpu.true_scale) == (cpu.level, cpu.logp, cpu.true_scale)
+    assert torch.equal(gpu.c0.data.cpu(), cpu.c0.data)
+    assert torch.equal(gpu.c1.data.cpu(), cpu.c1.data)
+    vals = np.random.default_rng(7)
+    lo = vals.uniform(0.0, 0.35, 512)
+    hi = lo + vals.uniform(0.25, 0.6, 512)
+    # the CPU path's words decode within 1.8e-4 of the host composition
+    assert np.max(np.abs(got - (_compose_sign(hi - lo, 0, 1, 1) + 1) / 2)) < 1e-3
+
+
+def test_encrypted_matmul_matches_cpu(dev):
+    """encrypted_matmul at d = 16 (N = 2^9, 5 x 30-bit): c0 / c1 on the card
+    equal the CPU path's, K1, K2 and K3 launched, none on a cluster; the
+    decode near A @ B."""
+    from toy_heaan_ckks_tpu_torch.models.linalg import MatvecKeys, encrypted_matmul
+
+    d, n = 16, 512
+    outs = []
+    fns = (ntt_gpu.ntt_planes, keyswitch_gpu.gadget_accumulate, moddown_gpu.mod_down_combine)
+    for device in (dev, torch.device("cpu")):
+        ctx = port.CkksContext.build(port.generate_primes(30, 5, n), n, device)
+        params = port.CkksParams(3.2, n // 2, 30)
+        eng = port.CkksEngine(ctx, params)
+        enc = port.CkksEncoder(n, 30)
+        rng = make_rng(42)
+        sk = eng.generate_secret_key(rng)
+        pk = eng.generate_public_key(sk, rng)
+        keys = MatvecKeys(port.KeyLadder(ctx, sk, 3.2, rng, lazy=True), params, rng)
+        vals = np.random.default_rng(7)
+        a = vals.uniform(-1, 1, (d, d)) / np.sqrt(d)
+        b = vals.uniform(-1, 1, (d, d)) / np.sqrt(d)
+        ca, cb = (eng.encrypt(enc.encode(m.reshape(-1), ctx), pk, ctx.total_bits(), rng)
+                  for m in (a, b))
+        before = [(f.launches, f.launches_cluster) for f in fns]
+        outs.append(encrypted_matmul(ca, cb, keys, enc))
+        counts = [(f.launches - x, f.launches_cluster - c) for f, (x, c) in zip(fns, before)]
+        if device == dev:
+            assert all(k > 0 and c == 0 for k, c in counts), counts
+            got = enc.decode(port.CkksEngine.decrypt(outs[0], sk.reduce_to(outs[0].ctx)))
+            assert np.max(np.abs(got[: d * d].reshape(d, d) - a @ b)) < 1e-3
+    gpu, cpu = outs
+    assert (gpu.level, gpu.logp, gpu.true_scale) == (cpu.level, cpu.logp, cpu.true_scale)
+    assert torch.equal(gpu.c0.data.cpu(), cpu.c0.data)
+    assert torch.equal(gpu.c1.data.cpu(), cpu.c1.data)

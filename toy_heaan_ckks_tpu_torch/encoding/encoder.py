@@ -1,12 +1,12 @@
 """CKKS encoder/decoder: float slot values <-> RNS plaintext polynomials.
 
-Counterpart of ``toy_heaan_ckks_tpu/encoding/encoder.py`` (dense packing).
-Encode scales by Delta = 2^scale_bits, builds the conjugate-symmetric slot
-vector, applies the inverse embedding (numpy FFT, float64), rounds and
-reduces the coefficients per channel exactly; decode reconstructs the
-centered coefficients by exact CRT and applies the forward embedding.
-Torch appears only at the boundary: the residues go to the context's
-device, and decode brings them back.
+Counterpart of ``toy_heaan_ckks_tpu/encoding/encoder.py`` (dense and
+sparse packing). Encode scales by Delta = 2^scale_bits, builds the
+conjugate-symmetric slot vector, applies the inverse embedding (numpy FFT,
+float64), rounds and reduces the coefficients per channel exactly; decode
+reconstructs the centered coefficients by exact CRT (``math/crt.py``) and
+applies the forward embedding. Torch appears only at the boundary: the
+residues go to the context's device, and decode brings them back.
 """
 
 from __future__ import annotations
@@ -69,6 +69,31 @@ class CkksEncoder:
             poly=Poly.from_coeffs(ints, ctx),
             scale_bits=self.scale_bits,
             slots=slots,
+        )
+
+    def encode_sparse(self, values, ctx: CkksContext) -> Plaintext:
+        """Sparse packing: n < N/2 slots through the subring X -> X^gap.
+
+        The n values are encoded in the degree-2n mini-ring and its
+        coefficients spread at stride gap = N/(2n); the full-width slot
+        reading is the n values repeated N/(2n) times, and decoding with
+        pt.slots = n recovers them."""
+        values = np.asarray(values, dtype=np.complex128)
+        n_slots = values.shape[-1]
+        if n_slots & (n_slots - 1) or n_slots < 1:
+            raise ValueError("encode_sparse: slot count must be a power of two")
+        if 2 * n_slots > self.degree:
+            raise ValueError("encode_sparse: too many slots for this degree")
+        mini_deg = 2 * n_slots
+        gap = self.degree // mini_deg
+        slot_vec = build_conjugate_slots(values * self.scale_factor, mini_deg)
+        mini = np.round(embed_encode(slot_vec, mini_deg).real)
+        int_coeffs = np.zeros(self.degree, dtype=object)
+        int_coeffs[::gap] = [int(c) for c in mini]
+        return Plaintext(
+            poly=Poly.from_coeffs(int_coeffs, ctx),
+            scale_bits=self.scale_bits,
+            slots=n_slots,
         )
 
     def decode(self, pt: Plaintext) -> np.ndarray:

@@ -1,11 +1,10 @@
 """CkksEngine: keygen, encrypt/decrypt, the fused multiply, rotations.
 
-Counterpart of ``toy_heaan_ckks_tpu/engine.py`` without the legacy
-single-pair relinearization and rotation keys and without the generic
-``_mod_down_ntt`` (every ported chain is small or wide, and each has its
-fused mod-down). Ciphertexts are NTT-resident, and the noise-sigma
-conventions are the reference's (encrypt noise sigma = error_variance,
-public-key sigma 3.2, gadget-key sigma = sqrt(error_variance)).
+Counterpart of ``toy_heaan_ckks_tpu/engine.py``, with its legacy
+single-pair multiply (``mul_ciphertexts``) and ``CkksEngineBuilder``.
+Ciphertexts are NTT-resident, and the noise-sigma conventions are the
+reference's (encrypt noise sigma = error_variance, public-key sigma 3.2,
+gadget-key and legacy-key sigma = sqrt(error_variance)).
 
 Key switching (relinearization, rotation, conjugation) goes through
 ``_gadget_key_switch``, which dispatches by chain width to the fused
@@ -13,7 +12,10 @@ composites of ``ops/small_fast.py`` and ``ops/wide_fast.py``; hoisted
 rotations run the generic decomposition (``_decompose_alpha``) once and
 the chain's t-less fused mod-down (``_mod_down_dispatch``; the staged
 ``small_fast.mod_down_lo`` on K9 under ``CKKS_NTT_MXU=1``) per rotation or
-per sum.
+per sum. The staged division by P (``_mod_down_ntt``: the specials'
+inverse NTT, the P-hat sum, a forward NTT, (x - ext) * P^{-1}) is the
+reference's generic route; every ported chain has a fused one with the
+same words.
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ import torch
 from .context import CkksContext
 from .keys import (
     PublicKey,
+    RelinearizationKey,
     RnsGadgetConjugationKey,
     RnsGadgetRelinKey,
     RnsGadgetRotationKey,
+    RotationKey,
     SecretKey,
     SecretKeyParams,
 )
@@ -131,6 +135,47 @@ def _combined_down_consts(base_moduli: tuple[int, ...],
     for p in ext_moduli[len(base_moduli):]:
         p_total *= p
     return tuple(((p_total % q) << rbits) % q for q in base_moduli)
+
+
+@functools.lru_cache(maxsize=128)
+def _mod_down_consts(base_moduli: tuple[int, ...], ext_moduli: tuple[int, ...]):
+    """Host ints of the staged division by P: plain (P-hat_m)^{-1} mod p_m
+    per special, (P-hat_m * R^2) mod q_j per special and base channel, and
+    Montgomery(P^{-1} mod q_j) per base channel (R the extended chain's)."""
+    from .keys import sp_inv_ints
+
+    specials = ext_moduli[len(base_moduli):]
+    rbits = mm.radix_bits_of(ext_moduli)
+    p_total = 1
+    for p in specials:
+        p_total *= p
+    phat_c = tuple(
+        tuple((p_total // pm) % qj * pow(1 << rbits, 2, qj) % qj for qj in base_moduli)
+        for pm in specials
+    )
+    p_inv = tuple((pow(p_total % qj, -1, qj) << rbits) % qj for qj in base_moduli)
+    return sp_inv_ints(specials), phat_c, p_inv
+
+
+def _mod_down_ntt(x, ctx: CkksContext, ext_ctx: CkksContext):
+    """Divide NTT-domain planes (..., E, N) over QP by P = prod(specials):
+    QP -> Q, the reference's staged route. The specials' inverse NTT, yhat_m
+    = x_m * (P-hat_m)^{-1} mod p_m, the approximate extension
+    sum_m yhat_m * P-hat_m over the base channels, its forward NTT, then
+    (x - ext) * P^{-1}. Same words as the fused K3' / K8' route."""
+    L, E = ctx.num_channels, ext_ctx.num_channels
+    dev = x.device
+    ext = ext_ctx.chain
+    q, rinv = ext.q[:L], ext.rinv[:L]
+    sp_inv, phat_c, p_inv = _mod_down_consts(ctx.moduli, ext_ctx.moduli)
+    x_sp = to_coeff(x[..., L:, :], ext_ctx.slice_channels(L, E))
+    yhat = mm.mont_mul(x_sp, mm.column(sp_inv, dev), ext.q[L:], ext.rinv[L:])
+    acc = None
+    for m in range(E - L):
+        term = mm.mont_mul(yhat[..., m : m + 1, :], mm.column(phat_c[m], dev), q, rinv)
+        acc = term if acc is None else mm.add_mod(acc, term, q)
+    diff = mm.sub_mod(x[..., :L, :], to_ntt(acc, ctx), q)
+    return mm.mont_mul(diff, mm.column(p_inv, dev), q, rinv)
 
 
 def _check_key_compat(ctx: CkksContext, key_a, digit_size: int):
@@ -340,6 +385,10 @@ class CkksEngine:
         self.context = context
         self.params = params
 
+    @staticmethod
+    def builder() -> "CkksEngineBuilder":
+        return CkksEngineBuilder()
+
     # ── key generation ───────────────────────────────────────────────────
 
     def generate_secret_key(self, rng: np.random.Generator) -> SecretKey:
@@ -350,6 +399,19 @@ class CkksEngine:
     def generate_public_key(self, sk: SecretKey,
                             rng: np.random.Generator) -> PublicKey:
         return PublicKey.generate(sk, 3.2, self.context, rng)
+
+    def generate_relinearization_key(self, sk: SecretKey,
+                                     rng: np.random.Generator) -> RelinearizationKey:
+        return RelinearizationKey.generate(
+            sk, float(np.sqrt(self.params.error_variance)), self.context, rng
+        )
+
+    def generate_rotation_key(self, sk: SecretKey, rotation: int,
+                              rng: np.random.Generator) -> RotationKey:
+        return RotationKey.generate(
+            sk, rotation, float(np.sqrt(self.params.error_variance)),
+            self.context, rng,
+        )
 
     def generate_gadget_relin_key(self, sk: SecretKey, rng: np.random.Generator,
                                   digit_size: int = 1) -> RnsGadgetRelinKey:
@@ -436,6 +498,25 @@ class CkksEngine:
                           logp=ct1.logp, logq=ct1.logq, scale=ct1.scale)
 
     # ── multiplication ───────────────────────────────────────────────────
+
+    @staticmethod
+    def mul_ciphertexts(ct1: Ciphertext, ct2: Ciphertext,
+                        relin_key: RelinearizationKey) -> Ciphertext:
+        """Legacy single-pair relinearization: (d0 + b*d2, d1 + a*d2) over
+        the tensor product, NTT-domain products only (no key switch, no
+        kernel); noise grows with |d2| * q. Prefer
+        ``mul_ciphertexts_gadget``."""
+        if ct1.logq != ct2.logq:
+            raise ValueError("logq mismatch in multiplication")
+        a0, a1 = ct1.c0.to_ntt_domain(), ct1.c1.to_ntt_domain()
+        b0, b1 = ct2.c0.to_ntt_domain(), ct2.c1.to_ntt_domain()
+        d2 = a1 * b1
+        return Ciphertext(
+            c0=a0 * b0 + relin_key.b * d2,
+            c1=a0 * b1 + a1 * b0 + relin_key.a * d2,
+            logp=ct1.logp + ct2.logp, logq=ct1.logq,
+            scale=ct1.true_scale * ct2.true_scale,
+        )
 
     @staticmethod
     def mul_ciphertexts_gadget(ct1: Ciphertext, ct2: Ciphertext,
@@ -682,3 +763,34 @@ class CkksEngine:
             c0=ct.c0.to_ntt_domain() + pt.poly.to_ntt_domain(), c1=ct.c1,
             logp=ct.logp, logq=ct.logq, scale=ct.scale,
         )
+
+
+class CkksEngineBuilder:
+    """Engine builder with the reference's defaults: sigma^2 = 3.2,
+    hamming weight N/2, scale 2^30."""
+
+    def __init__(self):
+        self._error_variance = 3.2
+        self._hamming_weight: int | None = None
+        self._scale_bits = 30
+
+    def error_variance(self, v: float) -> "CkksEngineBuilder":
+        self._error_variance = v
+        return self
+
+    def hamming_weight(self, hw: int) -> "CkksEngineBuilder":
+        self._hamming_weight = hw
+        return self
+
+    def scale_bits(self, bits: int) -> "CkksEngineBuilder":
+        self._scale_bits = bits
+        return self
+
+    def build_rns(self, degree: int, moduli, device=None) -> CkksEngine:
+        """An engine over ``moduli`` at ``degree`` on ``device`` (default the
+        current CUDA device, as ``CkksContext.build``)."""
+        ctx = CkksContext.build(moduli, degree, device)
+        hw = self._hamming_weight if self._hamming_weight is not None else degree // 2
+        return CkksEngine(ctx, CkksParams(error_variance=self._error_variance,
+                                          hamming_weight=hw,
+                                          scale_bits=self._scale_bits))

@@ -34,3 +34,11 @@ class ChannelCountMismatch(CkksError):
 
 class EncodingError(CkksError):
     """Encoder misuse: too many slots / degree mismatch."""
+
+
+class NonReducedCoefficient(CkksError):
+    """A residue >= its modulus."""
+
+
+class KeyError_(CkksError):
+    """Key parameter validation failures."""

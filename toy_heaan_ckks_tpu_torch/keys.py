@@ -1,10 +1,10 @@
 """RLWE key material: secret and public keys, and the hybrid gadget keys.
 
-Counterpart of ``toy_heaan_ckks_tpu/keys.py`` for the keys of the fused
-multiply, rotations and conjugation (the gadget relin, rotation and
-conjugation keys) and for the per-level ``KeyLadder`` / ``LevelKeys``;
-the legacy single-pair keys are not ported. The keys draw from the
-caller's numpy Generator in the reference's order, so one seed gives
+Counterpart of ``toy_heaan_ckks_tpu/keys.py``: the legacy single-pair
+relinearization and rotation keys, the keys of the fused multiply,
+rotations and conjugation (the gadget relin, rotation and conjugation
+keys) and the per-level ``KeyLadder`` / ``LevelKeys``. The keys draw from
+the caller's numpy Generator in the reference's order, so one seed gives
 bit-identical keys in both packages.
 Gadget keys are stored as (D, E, N) NTT-domain Montgomery stacks (digit,
 channel incl. specials, coefficient) of the extended chain's dtype (int32
@@ -88,6 +88,45 @@ class PublicKey:
         return PublicKey(a=a, b=-(a * sk.poly) + e)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class RelinearizationKey:
+    """Legacy single-pair relin key: b = -(a*s) + e + s^2, NTT domain."""
+
+    a: Poly
+    b: Poly
+
+    @staticmethod
+    def generate(
+        sk: SecretKey, std_dev: float, ctx: CkksContext, rng: np.random.Generator
+    ) -> "RelinearizationKey":
+        a = Poly.sample_uniform(ctx, rng).to_ntt_domain()
+        e = Poly.sample_gaussian(ctx, std_dev, rng).to_ntt_domain()
+        return RelinearizationKey(a=a, b=-(a * sk.poly) + e + sk.poly * sk.poly)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RotationKey:
+    """Legacy single-pair rotation key: b = -(a*s) + e + s(X^{5^k}), NTT
+    domain."""
+
+    a: Poly
+    b: Poly
+    rotation: int
+
+    @staticmethod
+    def generate(
+        sk: SecretKey,
+        rotation: int,
+        std_dev: float,
+        ctx: CkksContext,
+        rng: np.random.Generator,
+    ) -> "RotationKey":
+        a = Poly.sample_uniform(ctx, rng).to_ntt_domain()
+        e = Poly.sample_gaussian(ctx, std_dev, rng).to_ntt_domain()
+        s_k = sk.poly.rotate_slots(rotation)
+        return RotationKey(a=a, b=-(a * sk.poly) + e + s_k, rotation=rotation)
+
+
 def default_special_primes(ctx: CkksContext, count: int = 1) -> tuple[int, ...]:
     """``count`` NTT-friendly special primes ~ max(q_i), distinct from the
     chain. A small chain keeps them small (below 2^30 for a chain below
@@ -109,6 +148,10 @@ def default_special_primes(ctx: CkksContext, count: int = 1) -> tuple[int, ...]:
     if len(out) < count:
         raise ValueError("not enough special primes available for this chain")
     return tuple(out)
+
+
+def default_special_prime(ctx: CkksContext) -> int:
+    return default_special_primes(ctx, 1)[0]
 
 
 def digit_groups(num_channels: int, digit_size: int) -> tuple[tuple[int, ...], ...]:

@@ -1,7 +1,6 @@
 """Model-level algorithms built on the engine.
 
-Counterpart of ``toy_heaan_ckks_tpu/models`` (so far ``algorithms``,
-``bootstrap`` and ``funceval``):
+Counterpart of ``toy_heaan_ckks_tpu/models``:
 
 - ``algorithms``: slot sums, level and scale alignment, Horner
   evaluation, encrypted std-dev.
@@ -9,6 +8,11 @@ Counterpart of ``toy_heaan_ckks_tpu/models`` (so far ``algorithms``,
   full ciphertext refresh.
 - ``funceval``: smooth functions on encrypted inputs via Chebyshev fits +
   Paterson-Stockmeyer evaluation.
+- ``compare``: encrypted sign / compare / abs / max / min / ReLU via
+  CKK20 composite polynomials.
+- ``linalg``: encrypted matrix-vector products (diagonal method,
+  double-hoisted or BSGS), encrypted matrix-matrix products (JKLS, both
+  operands encrypted) and transpose.
 """
 
 from .algorithms import (  # noqa: F401
@@ -28,6 +32,15 @@ from .bootstrap import (  # noqa: F401
     raise_modulus,
     slot_to_coeff,
 )
+from .compare import (  # noqa: F401
+    compare,
+    eval_abs,
+    eval_max,
+    eval_min,
+    eval_relu,
+    eval_sign,
+    plan_sign_iterations,
+)
 from .funceval import (  # noqa: F401
     chebyshev_fit,
     eval_chebyshev_ps,
@@ -35,4 +48,10 @@ from .funceval import (  # noqa: F401
     eval_function,
     eval_inverse,
     eval_sigmoid,
+)
+from .linalg import (  # noqa: F401
+    encrypted_matmul,
+    encrypted_matvec,
+    encrypted_transpose,
+    matrix_diagonals,
 )

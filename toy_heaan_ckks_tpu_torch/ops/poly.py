@@ -27,12 +27,55 @@ def _ntt(ctx: CkksContext):
     return ntt_planes if ctx.chain.small else ntt_planes_wide
 
 
+def add(a: torch.Tensor, b: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
+    return mm.add_mod(a, b, ctx.chain.q)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
+    return mm.sub_mod(a, b, ctx.chain.q)
+
+
+def neg(a: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
+    return mm.neg_mod(a, ctx.chain.q)
+
+
+def mul_pointwise(a: torch.Tensor, b: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
+    """Pointwise Montgomery product: the negacyclic product of NTT-domain
+    planes."""
+    return mm.mont_mul(a, b, ctx.chain.q, ctx.chain.rinv)
+
+
+def mod_drop_last(a: torch.Tensor, count: int = 1) -> torch.Tensor:
+    keep = a.shape[-2] - count
+    if keep < 1:
+        raise ValueError("mod_drop_last: cannot drop all channels")
+    return a[..., :keep, :]
+
+
 def to_ntt(a: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
     return _ntt(ctx)(a, ctx.moduli, ctx.degree, inverse=False)
 
 
 def to_coeff(a: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
     return _ntt(ctx)(a, ctx.moduli, ctx.degree, inverse=True)
+
+
+def rescale(a: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
+    """Exact RNS rescale in the coefficient domain: drop q_last and divide
+    by it, (..., L, N) -> (..., L-1, N):
+    new_i = (c_i - (c_last mod q_i)) * q_last^{-1} mod q_i."""
+    num = a.shape[-2]
+    if num < 2:
+        raise ValueError("rescale: need at least two channels")
+    chain = ctx.chain
+    q_last, kept = ctx.moduli[-1], ctx.moduli[:-1]
+    plain_last = mm.mul_mod(a[..., num - 1 :, :], chain.rinv[-1:], chain.q[-1:])
+    q = chain.q[:-1]
+    mont_x = mm.mul_mod(plain_last.expand(*a.shape[:-2], num - 1, a.shape[-1]),
+                        chain.rmod[:-1], q)
+    diff = mm.sub_mod(a[..., : num - 1, :], mont_x, q)
+    qlast_inv = mm.column(tuple(pow(q_last % qi, -1, qi) for qi in kept), a.device)
+    return mm.mul_mod(diff, qlast_inv, q)
 
 
 def rescale_ntt(a: torch.Tensor, ctx: CkksContext) -> torch.Tensor:
@@ -120,6 +163,12 @@ class Poly:
     # ── constructors ─────────────────────────────────────────────────────
 
     @staticmethod
+    def zero(ctx: CkksContext, ntt_domain: bool = False) -> "Poly":
+        data = torch.zeros((ctx.num_channels, ctx.degree), dtype=ctx.chain.dtype,
+                           device=ctx.device)
+        return Poly(data, ctx, ntt_domain)
+
+    @staticmethod
     def from_coeffs(coeffs, ctx: CkksContext) -> "Poly":
         return Poly(encode_coeffs_to_device(coeffs, ctx), ctx, False)
 
@@ -127,6 +176,14 @@ class Poly:
     def from_residues(residues, ctx: CkksContext, ntt_domain: bool = False) -> "Poly":
         """Plain (non-Montgomery) residue matrix (L, N) -> Poly."""
         return Poly(residues_to_device(residues, ctx), ctx, ntt_domain)
+
+    @staticmethod
+    def from_residues_u64(residues: np.ndarray, ctx: CkksContext,
+                          ntt_domain: bool = False) -> "Poly":
+        """Plain uint64 residue matrix (L, N) -> Poly (the same words as
+        ``from_residues`` on the same values)."""
+        res = np.ascontiguousarray(residues, dtype=np.uint64)
+        return Poly(residues_to_device(res, ctx), ctx, ntt_domain)
 
     # ── samplers (host RNG; deterministic via a seeded numpy Generator) ──
 
@@ -181,34 +238,36 @@ class Poly:
 
     def __add__(self, other: "Poly") -> "Poly":
         self._check(other)
-        data = mm.add_mod(self.data, other.data, self.ctx.chain.q)
-        return Poly(data, self.ctx, self.ntt_domain)
+        return Poly(add(self.data, other.data, self.ctx), self.ctx, self.ntt_domain)
 
     def __sub__(self, other: "Poly") -> "Poly":
         self._check(other)
-        data = mm.sub_mod(self.data, other.data, self.ctx.chain.q)
-        return Poly(data, self.ctx, self.ntt_domain)
+        return Poly(sub(self.data, other.data, self.ctx), self.ctx, self.ntt_domain)
 
     def __neg__(self) -> "Poly":
-        return Poly(mm.neg_mod(self.data, self.ctx.chain.q), self.ctx, self.ntt_domain)
+        return Poly(neg(self.data, self.ctx), self.ctx, self.ntt_domain)
 
     def __mul__(self, other: "Poly") -> "Poly":
         """Negacyclic product of NTT-domain operands: a pointwise
-        Montgomery product (the only form the ported path uses)."""
+        Montgomery product (the only form the ported paths use)."""
         self._check(other)
         if not self.ntt_domain:
             from ..errors import CkksError
 
             raise CkksError("Poly product needs NTT-domain operands")
-        chain = self.ctx.chain
-        data = mm.mont_mul(self.data, other.data, chain.q, chain.rinv)
-        return Poly(data, self.ctx, True)
+        return Poly(mul_pointwise(self.data, other.data, self.ctx), self.ctx, True)
 
     # ── level ops ────────────────────────────────────────────────────────
 
     def mod_drop_last(self, count: int = 1) -> "Poly":
-        child_ctx = self.ctx.drop_last(count)
-        return Poly(self.data[:-count], child_ctx, self.ntt_domain)
+        return Poly(mod_drop_last(self.data, count), self.ctx.drop_last(count),
+                    self.ntt_domain)
+
+    def rescale(self) -> "Poly":
+        """Drop q_last and divide by it; the result is in the coefficient
+        domain (the same words as ``rescale_ntt`` taken back there)."""
+        coeff = self.to_coeff_domain()
+        return Poly(rescale(coeff.data, self.ctx), self.ctx.drop_last(1), False)
 
     def rescale_ntt(self) -> "Poly":
         """Drop q_last and divide by it, staying in the NTT domain."""
@@ -247,3 +306,7 @@ class Poly:
     def to_coeffs(self) -> np.ndarray:
         """Centered exact integer coefficients (host, object array)."""
         return decode_device_to_coeffs(self.to_coeff_domain().data, self.ctx)
+
+    def residues(self) -> np.ndarray:
+        """Plain (non-Montgomery) residues as an exact (L, N) object array."""
+        return mm.from_mont(self.data, self.ctx.chain).cpu().numpy().astype(object)

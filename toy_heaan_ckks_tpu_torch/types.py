@@ -2,7 +2,8 @@
 
 Counterpart of ``toy_heaan_ckks_tpu/types.py``: a plaintext carries its
 scale bits, slot count and exact scale; a ciphertext carries ``logp``
-(precision), ``logq`` (modulus budget) and its exact scale.
+(precision), ``logq`` (modulus budget) and its exact scale, and drops
+channels without dividing (``mod_switch``).
 """
 
 from __future__ import annotations
@@ -47,3 +48,19 @@ class Ciphertext:
     @property
     def level(self) -> int:
         return self.c0.ctx.num_channels
+
+    def mod_switch(self, levels: int = 1) -> "Ciphertext":
+        """Drop the top ``levels`` RNS channels without dividing (a modulus
+        switch): logq shrinks by the dropped primes' bits, logp and the
+        scale stay."""
+        ctx = self.ctx
+        if levels < 1 or levels >= ctx.num_channels:
+            raise ValueError("mod_switch: invalid level count")
+        dropped_bits = sum(m.bit_length() for m in ctx.moduli[-levels:])
+        return Ciphertext(
+            c0=self.c0.mod_drop_last(levels),
+            c1=self.c1.mod_drop_last(levels),
+            logp=self.logp,
+            logq=self.logq - dropped_bits,
+            scale=self.scale,
+        )
